@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels of the serving path, with their plain versions.
+
+Each wrapper takes the plain PyTorch version for a CPU tensor and launches
+its CUDA kernel for a CUDA tensor (or raises); there is no fallback.  Each
+wrapper counts its launches in ``<wrapper>.launches``, so a run can show that
+it went through the kernels.
+"""
+
+from .attention import attention_reference, flash_attention, masked_softmax
+from .upsample import gaussian_upsample_banded
+
+WRAPPERS = (flash_attention, gaussian_upsample_banded)
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+__all__ = ["attention_reference", "flash_attention", "masked_softmax",
+           "gaussian_upsample_banded", "reset_launches", "launches"]

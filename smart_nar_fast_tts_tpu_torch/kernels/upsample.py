@@ -1,0 +1,81 @@
+"""Banded Gaussian upsampling: the CUDA kernel ``csrc/gaussian_upsample.cu``
+and its plain version, the dense ``ops.upsample.gaussian_upsample``.
+
+The kernel replaces the TPU kernel ``gaussian_upsample_banded`` of
+``smart_nar_fast_tts_tpu/ops/pallas/upsample.py``.  It computes in full f32;
+the only difference from the dense version is that a phoneme more than
+``BAND_SIGMAS``·σ from a frame tile is left out, a weight below exp(-36).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..ops.upsample import gaussian_upsample
+from . import _build
+
+# the TPU kernel's band: exp(-36) ≈ 2e-16, below f32 resolution
+BAND_SIGMAS = 6.0
+
+# pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
+_SIGNATURES = {
+    "gaussian_upsample_forward": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "gaussian_upsample_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
+def gaussian_upsample_banded(x: torch.Tensor, durations: torch.Tensor,
+                             max_len: int, phon_valid: torch.Tensor,
+                             sigma: float = 10.0
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian upsampling of x (B, L, D) by durations (B, L) to max_len
+    frames; phon_valid (B, L) is 1 on real phonemes.  Returns (out
+    (B, max_len, D), mel_len (B,) int32 = min(Σd, max_len)).
+
+    A CPU tensor takes the dense plain version.  A CUDA tensor launches the
+    kernel: x contiguous float32."""
+    if x.device.type == "cpu":
+        out, mel_len, _ = gaussian_upsample(x, durations, max_len, phon_valid,
+                                            sigma=sigma)
+        return out, mel_len
+    if x.device.type != "cuda":
+        raise ValueError(f"gaussian_upsample_banded: unsupported device "
+                         f"{x.device}")
+    B, L, D = x.shape
+    if durations.shape != (B, L) or phon_valid.shape != (B, L):
+        raise ValueError(
+            f"gaussian_upsample_banded: x {tuple(x.shape)}, durations "
+            f"{tuple(durations.shape)}, phon_valid {tuple(phon_valid.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("gaussian_upsample_banded: x must be contiguous "
+                         f"float32, got {x.dtype}")
+    if durations.device != x.device or phon_valid.device != x.device:
+        raise ValueError("gaussian_upsample_banded: inputs on different "
+                         "devices")
+    valid = phon_valid.float().contiguous()
+    d = durations.float() * valid
+    e = torch.cumsum(d, dim=1)
+    centers = (e - 0.5 * d).contiguous()
+    total = e[:, -1].contiguous()
+    lib = _build.load("gaussian_upsample", _SIGNATURES)
+    out = torch.empty((B, max_len, D), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = lib.gaussian_upsample_forward(
+            x.data_ptr(), centers.data_ptr(), valid.data_ptr(),
+            total.data_ptr(), out.data_ptr(), B, L, max_len, D,
+            float(sigma) ** -2, BAND_SIGMAS * float(sigma),
+            torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            "gaussian_upsample_banded: launch failed: "
+            + lib.gaussian_upsample_error_string(status).decode())
+    gaussian_upsample_banded.launches += 1
+    mel_len = torch.clamp(total, max=max_len).to(torch.int32)
+    return out, mel_len
+
+
+gaussian_upsample_banded.launches = 0
