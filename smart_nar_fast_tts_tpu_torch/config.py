@@ -1,9 +1,8 @@
-"""Configuration for the serving path.
+"""Configuration of the ported paths: serving and acoustic-model training.
 
-A copy of the fields of ``smart_nar_fast_tts_tpu/config.py`` that inference
-reads, with the same names and defaults (the committed flagship is the default
-``ModelConfig()``).  Training-only fields (dropouts, duration extraction,
-optimizer) wait for the training slice.
+A copy of the fields of ``smart_nar_fast_tts_tpu/config.py`` that these paths
+read, with the same names and defaults (the committed flagship is the default
+``ModelConfig()``).
 """
 
 from __future__ import annotations
@@ -53,12 +52,15 @@ class TransformerConfig:
     decoder_hidden: int = 256
     conv_filter_size: int = 1024
     conv_kernel_size: tuple[int, int] = (9, 1)
+    encoder_dropout: float = 0.2
+    decoder_dropout: float = 0.2
 
 
 @dataclass(frozen=True)
 class VariancePredictorConfig:
     filter_size: int = 256
     kernel_size: int = 3
+    dropout: float = 0.5
 
 
 @dataclass(frozen=True)
@@ -84,7 +86,35 @@ class ModelConfig:
     # the dense plain version.  'hard' repeats each phoneme d times.
     upsampling: str = "gaussian"
     gaussian_sigma: float = 10.0
+    # Duration targets from the MelEncoder's last-layer attention
+    # (ops/duration.py).  'intended' + 'first' runs the alignment kernel,
+    # which returns only the per-frame argmax and the guided-attention
+    # numerator of head 0; every other pair keeps the full attention maps.
+    duration_extraction: str = "soft"     # 'intended' | 'soft' | 'buggy'
+    duration_head_reduce: str = "mean"    # 'first' | 'mean'
+    guided_sigma: float = 0.2
 
     def __post_init__(self):
         if self.upsampling not in ("hard", "gaussian", "gaussian_banded"):
             raise ValueError(f"unknown upsampling {self.upsampling!r}")
+        if self.duration_extraction not in ("intended", "soft", "buggy"):
+            raise ValueError(
+                f"unknown duration extraction {self.duration_extraction!r}")
+        if self.duration_head_reduce not in ("first", "mean"):
+            raise ValueError(
+                f"unknown head reduction {self.duration_head_reduce!r}")
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    """Noam-Adam with global-norm clipping and gradient accumulation."""
+
+    batch_size: int = 48
+    betas: tuple[float, float] = (0.9, 0.98)
+    eps: float = 1e-9
+    weight_decay: float = 0.0
+    grad_clip_thresh: float = 1.0
+    grad_acc_step: int = 1
+    warm_up_step: int = 4000
+    anneal_steps: tuple[int, ...] = ()
+    anneal_rate: float = 1.0

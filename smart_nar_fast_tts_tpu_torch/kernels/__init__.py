@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the serving path, with their plain versions.
+"""Hand-written CUDA kernels, with their plain versions.
 
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor (or raises); there is no fallback.  Each
@@ -6,10 +6,11 @@ wrapper counts its launches in ``<wrapper>.launches``, so a run can show that
 it went through the kernels.
 """
 
+from .alignment import alignment_attention, alignment_reference
 from .attention import attention_reference, flash_attention, masked_softmax
 from .upsample import gaussian_upsample_banded
 
-WRAPPERS = (flash_attention, gaussian_upsample_banded)
+WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention)
 
 
 def reset_launches() -> None:
@@ -21,5 +22,6 @@ def launches() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in WRAPPERS}
 
 
-__all__ = ["attention_reference", "flash_attention", "masked_softmax",
+__all__ = ["alignment_attention", "alignment_reference",
+           "attention_reference", "flash_attention", "masked_softmax",
            "gaussian_upsample_banded", "reset_launches", "launches"]

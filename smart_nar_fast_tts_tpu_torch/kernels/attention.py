@@ -5,6 +5,10 @@ The kernel replaces the TPU kernel ``flash_attention`` of
 ``smart_nar_fast_tts_tpu/ops/pallas/attention.py``.  Like it, it rounds
 q·scale, k, v and the probabilities to bf16 and accumulates in f32, so it
 agrees with the f32 plain version to bf16 precision (~1e-2), not f32.
+
+Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
+version and returns that function's vector-Jacobian product: the gradient of
+the f32 function, which differs from the bf16 forward by the same rounding.
 """
 
 from __future__ import annotations
@@ -52,13 +56,50 @@ _SIGNATURES = {
 }
 
 
+class _FlashAttention(torch.autograd.Function):
+    """``launch`` (the kernel) forward; the VJP of the f32
+    :func:`attention_reference`, recomputed, backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, launch):
+        ctx.save_for_backward(q, k, v, key_valid)
+        return launch(q, k, v, key_valid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, key_valid = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention_reference(*inputs, key_valid)
+        dq, dk, dv = torch.autograd.grad(out, inputs, grad_out)
+        return dq, dk, dv, None, None
+
+
+def _launch(q, k, v, key_valid):
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = lib.flash_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+            out.data_ptr(), B, H, Lq, Lk, D, _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError("flash_attention: launch failed: "
+                           + lib.flash_attention_error_string(status).decode())
+    flash_attention.launches += 1
+    return out
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_valid: torch.Tensor) -> torch.Tensor:
     """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors.
 
     A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
     the kernel: q, k, v contiguous, all f32 or all bf16, D 64 or 128;
-    key_valid (B, Lk) bool.  The output has q's dtype."""
+    key_valid (B, Lk) bool.  The output has q's dtype and, on CUDA, a
+    backward through :class:`_FlashAttention`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_valid)
     if q.device.type != "cuda":
@@ -81,18 +122,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: inputs on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
-    lib = _build.load("flash_attention", _SIGNATURES)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        status = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            out.data_ptr(), B, H, Lq, Lk, D, _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError("flash_attention: launch failed: "
-                           + lib.flash_attention_error_string(status).decode())
-    flash_attention.launches += 1
-    return out
+    return _FlashAttention.apply(q, k, v, key_valid, _launch)
 
 
 flash_attention.launches = 0

@@ -1,8 +1,11 @@
-"""Text encoder and mel decoder: sinusoid PE + N self-attention FFT blocks.
+"""Text encoder, mel encoder and mel decoder: sinusoid PE + N FFT blocks.
 
 The PE table extends past ``max_seq_len`` from the same formula, as the JAX
-package generates it per traced length.  The mel encoder and prenet (the
-alignment path of training) wait for the training slice.
+package generates it per traced length.  The MelEncoder (training only)
+aligns text and mel: prenet-projected ground-truth mels, first frame zeroed,
+attend over the text encoder's output through cross-attention FFT blocks;
+its attention maps (or, on the alignment kernel's path, their reductions)
+give the duration targets and the guided-attention loss.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from torch import nn
 
 from ..config import VOCAB_SIZE, ModelConfig
 from ..ops.positional import sinusoid_table
-from .layers import FFTBlock
+from .layers import FFTBlock, Prenet
 
 
 class _PositionalStack(nn.Module):
@@ -22,7 +25,7 @@ class _PositionalStack(nn.Module):
     ``max_seq_len`` are kept as a (non-checkpoint) buffer."""
 
     def __init__(self, d_model: int, n_layers: int, n_head: int,
-                 cfg: ModelConfig):
+                 dropout_rate: float, cfg: ModelConfig, cross: bool = False):
         super().__init__()
         t = cfg.transformer
         self.d_model = d_model
@@ -31,7 +34,9 @@ class _PositionalStack(nn.Module):
                                                   d_model)),
             persistent=False)
         self.layer_stack = nn.ModuleList(
-            FFTBlock(d_model, n_head, t.conv_filter_size, t.conv_kernel_size)
+            FFTBlock(d_model, n_head, t.conv_filter_size, t.conv_kernel_size,
+                     dropout_rate, cross=cross,
+                     guided_sigma=cfg.guided_sigma)
             for _ in range(n_layers))
 
     def positional(self, length: int) -> torch.Tensor:
@@ -41,10 +46,11 @@ class _PositionalStack(nn.Module):
             self.pe.device)
 
     def run_stack(self, x: torch.Tensor, valid: torch.Tensor,
-                  cap_valid: Optional[torch.Tensor]) -> torch.Tensor:
+                  cap_valid: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
         x = x + self.positional(x.shape[1])[None]
         for layer in self.layer_stack:
-            x = layer(x, valid, cap_valid)
+            x, _ = layer(x, valid, cap_valid, generator=generator)
         return x
 
 
@@ -54,12 +60,48 @@ class TxtEncoder(_PositionalStack):
     def __init__(self, cfg: ModelConfig):
         t = cfg.transformer
         super().__init__(t.encoder_hidden, t.encoder_layer, t.encoder_head,
-                         cfg)
+                         t.encoder_dropout, cfg)
         self.src_word_emb = nn.Embedding(VOCAB_SIZE, t.encoder_hidden)
 
     def forward(self, texts: torch.Tensor, src_valid: torch.Tensor,
-                src_cap: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.run_stack(self.src_word_emb(texts), src_valid, src_cap)
+                src_cap: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.run_stack(self.src_word_emb(texts), src_valid, src_cap,
+                              generator)
+
+
+class MelEncoder(_PositionalStack):
+    """Prenet(mels with the go frame zeroed) + PE, then cross-attention FFT
+    blocks over the text encoder's output.
+
+    Returns the last hidden state (which the model discards) and, per
+    layer, the (B, H, T, L) attention maps, or with ``fused`` the alignment
+    kernel's ``{"argmax", "guided_num"}`` of head 0."""
+
+    def __init__(self, cfg: ModelConfig):
+        t = cfg.transformer
+        super().__init__(t.decoder_hidden, t.decoder_layer, t.decoder_head,
+                         t.decoder_dropout, cfg, cross=True)
+        self.prenet = Prenet(cfg.n_mel_channels, t.decoder_hidden)
+
+    def forward(self, src_output: torch.Tensor, mels: torch.Tensor,
+                src_valid: torch.Tensor, mel_valid: torch.Tensor,
+                mel_cap: Optional[torch.Tensor], src_lens: torch.Tensor,
+                mel_lens: torch.Tensor, fused: bool,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, list]:
+        frames = torch.arange(mels.shape[1], device=mels.device)
+        go_mels = torch.where((frames > 0)[None, :, None], mels, 0.0)
+        x = self.prenet(go_mels, generator)
+        x = x + self.positional(mels.shape[1])[None]
+        lens = (src_lens, mel_lens) if fused else None
+        attns = []
+        for layer in self.layer_stack:
+            x, attn = layer(x, mel_valid, mel_cap, kv=src_output,
+                            kv_valid=src_valid, lens=lens,
+                            generator=generator)
+            attns.append(attn)
+        return x, attns
 
 
 class MelDecoder(_PositionalStack):
@@ -68,8 +110,9 @@ class MelDecoder(_PositionalStack):
     def __init__(self, cfg: ModelConfig):
         t = cfg.transformer
         super().__init__(t.decoder_hidden, t.decoder_layer, t.decoder_head,
-                         cfg)
+                         t.decoder_dropout, cfg)
 
     def forward(self, x: torch.Tensor, mel_valid: torch.Tensor,
-                mel_cap: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.run_stack(x, mel_valid, mel_cap)
+                mel_cap: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.run_stack(x, mel_valid, mel_cap, generator)

@@ -1,8 +1,14 @@
-"""FastSpeech2Align inference: TxtEncoder → (speaker embedding) →
-VarianceAdaptor → MelDecoder → mel_linear → PostNet residual.
+"""FastSpeech2Align: TxtEncoder → (speaker embedding) → VarianceAdaptor →
+MelDecoder → mel_linear → PostNet residual.
 
-The training path (MelEncoder alignment, duration extraction, losses) waits
-for the training slice.
+Training (ground-truth ``mels`` and ``mel_lens`` given): the MelEncoder
+aligns the text with the mels; duration targets come from its last layer's
+detached attention; ground-truth pitch and energy drive the variance
+embeddings and the duration targets drive the upsampling.  With
+``duration_extraction="intended"`` and ``duration_head_reduce="first"`` the
+MelEncoder runs the alignment kernel, which returns only head 0's per-frame
+argmax and guided-attention numerator; otherwise it keeps the full maps.
+Inference: predicted durations drive the upsampling.
 """
 
 from __future__ import annotations
@@ -13,8 +19,9 @@ import torch
 from torch import nn
 
 from ..config import FeatureStats, ModelConfig, PreprocessConfig
+from ..ops.duration import durations_from_argmax, durations_from_attention
 from ..ops.masks import length_to_valid
-from .encoders import MelDecoder, TxtEncoder
+from .encoders import MelDecoder, MelEncoder, TxtEncoder
 from .layers import PostNet, zero_where_not
 from .variance import VarianceAdaptor
 
@@ -30,6 +37,12 @@ class ModelOutput(NamedTuple):
     mel_valid: torch.Tensor                # (B, T)
     src_lens: torch.Tensor                 # (B,)
     mel_lens: torch.Tensor                 # (B,) int32
+    # training only
+    alignments: Optional[torch.Tensor] = None         # (layers, B, H, T, L)
+    duration_targets: Optional[torch.Tensor] = None   # (B, L) int32
+    # training on the alignment kernel's path (alignments is None then):
+    # head 0's Σ W·p over the valid pairs, per layer and item (layers, B)
+    guided_numerators: Optional[torch.Tensor] = None
 
 
 class FastSpeech2Align(nn.Module):
@@ -39,6 +52,7 @@ class FastSpeech2Align(nn.Module):
         self.cfg = cfg
         stats = preprocess_cfg.stats or FeatureStats()
         self.txt_encoder = TxtEncoder(cfg)
+        self.mel_encoder = MelEncoder(cfg)
         if cfg.multi_speaker:
             self.speaker_emb = nn.Embedding(cfg.n_speakers,
                                             cfg.transformer.encoder_hidden)
@@ -54,33 +68,73 @@ class FastSpeech2Align(nn.Module):
                 max_mel_len: Optional[int] = None,
                 speakers: Optional[torch.Tensor] = None,
                 p_control: float = 1.0, e_control: float = 1.0,
-                d_control: float = 1.0) -> ModelOutput:
-        """texts (B, L) symbol ids, src_lens (B,) → outputs at the static
-        frame capacity ``max_mel_len`` (default ``cfg.max_seq_len``)."""
+                d_control: float = 1.0,
+                mels: Optional[torch.Tensor] = None,
+                mel_lens: Optional[torch.Tensor] = None,
+                p_targets: Optional[torch.Tensor] = None,
+                e_targets: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> ModelOutput:
+        """texts (B, L) symbol ids, src_lens (B,).  Inference: outputs at
+        the static frame capacity ``max_mel_len`` (default
+        ``cfg.max_seq_len``).  Training: ``mels`` (B, T, n_mels),
+        ``mel_lens`` (B,) and the pitch and energy targets; outputs at T
+        frames.  ``generator`` turns dropout on."""
+        is_training = mels is not None and mel_lens is not None
         B, L = texts.shape
         src_valid = length_to_valid(src_lens, L)
         # batch-level capacity: the reference's tensors end at the longest
         # item, so its convs see zero padding there
         src_cap = torch.arange(L, device=texts.device) < src_lens.max()
 
-        src_output = self.txt_encoder(texts, src_valid, src_cap)
+        src_output = self.txt_encoder(texts, src_valid, src_cap, generator)
         if self.cfg.multi_speaker and speakers is not None:
             src_output = src_output + self.speaker_emb(speakers)[:, None, :]
 
-        max_len = max_mel_len if max_mel_len is not None \
-            else self.cfg.max_seq_len
-        va = self.variance_adaptor(
-            src_output, src_valid, max_len, p_control=p_control,
-            e_control=e_control, d_control=d_control, src_cap=src_cap)
+        alignments = guided_nums = d_targets = None
+        mel_valid = mel_cap = None
+        if is_training:
+            T = mels.shape[1]
+            mel_valid = length_to_valid(mel_lens, T)
+            mel_cap = torch.arange(T, device=mels.device) < mel_lens.max()
+            # the kernel implements exactly the intended/head-0 semantics
+            fused = (self.cfg.duration_extraction == "intended"
+                     and self.cfg.duration_head_reduce == "first")
+            _, attns = self.mel_encoder(src_output, mels, src_valid,
+                                        mel_valid, mel_cap, src_lens,
+                                        mel_lens, fused, generator)
+            if fused:
+                guided_nums = torch.stack([a["guided_num"] for a in attns])
+                d_targets = durations_from_argmax(
+                    attns[-1]["argmax"].detach(), src_lens, mel_lens, L)
+            else:
+                alignments = torch.stack(attns)
+                d_targets = durations_from_attention(
+                    alignments[-1].detach(), src_lens, mel_lens,
+                    mode=self.cfg.duration_extraction,
+                    head_reduce=self.cfg.duration_head_reduce)
+            max_len = T
+        else:
+            max_len = max_mel_len if max_mel_len is not None \
+                else self.cfg.max_seq_len
 
-        x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap)
+        va = self.variance_adaptor(
+            src_output, src_valid, max_len, mel_valid=mel_valid,
+            pitch_target=p_targets, energy_target=e_targets,
+            duration_target=d_targets, p_control=p_control,
+            e_control=e_control, d_control=d_control, src_cap=src_cap,
+            mel_cap=mel_cap, generator=generator)
+
+        x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap, generator)
         mel = self.mel_linear(x)
         postnet_in = zero_where_not(va.mel_cap, mel)
-        postnet_mel = self.postnet(postnet_in, va.mel_cap) + mel
+        postnet_mel = self.postnet(postnet_in, va.mel_cap, generator) + mel
         return ModelOutput(
             mel=mel, postnet_mel=postnet_mel,
             pitch_prediction=va.pitch_prediction,
             energy_prediction=va.energy_prediction,
             log_duration_prediction=va.log_duration_prediction,
             duration_rounded=va.duration_rounded, src_valid=src_valid,
-            mel_valid=va.mel_valid, src_lens=src_lens, mel_lens=va.mel_len)
+            mel_valid=va.mel_valid, src_lens=src_lens,
+            mel_lens=mel_lens if is_training else va.mel_len,
+            alignments=alignments, duration_targets=d_targets,
+            guided_numerators=guided_nums)

@@ -1,10 +1,17 @@
-"""Transformer building blocks: post-LN multi-head self-attention, conv FFN,
-FFT block, masked BatchNorm (eval) and PostNet.
+"""Transformer building blocks: post-LN multi-head attention (self, cross,
+and the alignment mode), conv FFN, FFT block, Prenet, masked BatchNorm and
+PostNet.
 
 Module and attribute names follow the reference PyTorch state dict
-(``slf_attn.w_qs``, ``pos_ffn.w_1``, ``postnet.convolutions.{i}.0.conv``,
-…), the key space ``smart_nar_fast_tts_tpu/models/convert.py`` maps; tensors
-are feature-last (B, L, C) at every module boundary, as in the JAX package.
+(``slf_attn.w_qs``, ``crs_attn.w_qs``, ``pos_ffn.w_1``,
+``postnet.convolutions.{i}.0.conv``, …), the key space
+``smart_nar_fast_tts_tpu/models/convert.py`` maps; tensors are feature-last
+(B, L, C) at every module boundary, as in the JAX package.
+
+Two switches, kept apart: ``module.train()`` makes BatchNorm use batch
+statistics (and update its running ones); a ``torch.Generator`` passed as
+``generator`` turns dropout on, its masks drawn from that generator.
+``generator=None`` means no dropout.
 """
 
 from __future__ import annotations
@@ -14,7 +21,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..kernels import flash_attention
+from ..kernels import alignment_attention, flash_attention, masked_softmax
 
 # torch nn.LayerNorm eps, as the JAX package's LN_EPS
 LN_EPS = 1e-5
@@ -30,6 +37,17 @@ def zero_where_not(valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[..., None], x, 0.0)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with probability
+    1 - rate and scale by 1 / (1 - rate); x itself when ``generator`` is
+    None or the rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 class ConvNorm(nn.Module):
     """A Conv1d with "same" padding under the name ``conv``."""
 
@@ -42,13 +60,25 @@ class ConvNorm(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-LN multi-head self-attention: projections → masked attention
-    (the flash kernel on CUDA) → head concat → fc → LayerNorm(out + x)."""
+    """Post-LN multi-head attention: projections → masked attention → head
+    concat → fc → dropout → LayerNorm(out + x).
 
-    def __init__(self, d_model: int, n_head: int):
+    - Self-attention (``kv`` None) runs the flash kernel on CUDA and returns
+      no maps.
+    - Cross-attention over ``kv`` returns the full (B, H, Lq, Lk)
+      ``masked_softmax`` maps, in plain PyTorch.
+    - Given ``lens = (src_lens, mel_lens)``, the cross-attention runs the
+      alignment kernel and returns only ``{"argmax": (B, Lq) int32,
+      "guided_num": (B,)}`` of head 0.
+    """
+
+    def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
+                 guided_sigma: float = 0.2):
         super().__init__()
         self.n_head = n_head
         self.d_k = d_model // n_head
+        self.dropout_rate = dropout_rate
+        self.guided_sigma = guided_sigma
         width = n_head * self.d_k
         self.w_qs = nn.Linear(d_model, width)
         self.w_ks = nn.Linear(d_model, width)
@@ -56,18 +86,35 @@ class MultiHeadAttention(nn.Module):
         self.fc = nn.Linear(width, d_model)
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor, key_valid: torch.Tensor
-                ) -> torch.Tensor:
-        B, L, _ = x.shape
+    def forward(self, x: torch.Tensor, key_valid: torch.Tensor,
+                kv: Optional[torch.Tensor] = None,
+                lens: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        B, Lq, _ = x.shape
+        src = x if kv is None else kv
+        Lk = src.shape[1]
 
-        def heads(lin):
-            return (lin(x).view(B, L, self.n_head, self.d_k)
+        def heads(lin, inp, L):
+            return (lin(inp).view(B, L, self.n_head, self.d_k)
                     .transpose(1, 2).contiguous())
 
-        out = flash_attention(heads(self.w_qs), heads(self.w_ks),
-                              heads(self.w_vs), key_valid)
-        out = out.transpose(1, 2).reshape(B, L, self.n_head * self.d_k)
-        return self.layer_norm(self.fc(out) + x)
+        q = heads(self.w_qs, x, Lq)
+        k = heads(self.w_ks, src, Lk)
+        v = heads(self.w_vs, src, Lk)
+        if kv is None:
+            attn = None
+            out = flash_attention(q, k, v, key_valid)
+        elif lens is not None:
+            out, idx, gnum = alignment_attention(
+                q, k, v, key_valid, lens[0], lens[1], self.guided_sigma)
+            attn = {"argmax": idx, "guided_num": gnum}
+        else:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.d_k ** 0.5
+            attn = masked_softmax(scores, key_valid[:, None, None, :])
+            out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+        out = out.transpose(1, 2).reshape(B, Lq, self.n_head * self.d_k)
+        out = dropout(self.fc(out), self.dropout_rate, generator)
+        return self.layer_norm(out + x), attn
 
 
 class ConvFFN(nn.Module):
@@ -76,9 +123,10 @@ class ConvFFN(nn.Module):
     reference's tensors end, before a second conv wider than 1."""
 
     def __init__(self, d_model: int, d_inner: int,
-                 kernel_sizes: tuple[int, int]):
+                 kernel_sizes: tuple[int, int], dropout_rate: float = 0.0):
         super().__init__()
         self.kernel_sizes = tuple(kernel_sizes)
+        self.dropout_rate = dropout_rate
         self.w_1 = nn.Conv1d(d_model, d_inner, kernel_sizes[0],
                              padding="same")
         self.w_2 = nn.Conv1d(d_inner, d_model, kernel_sizes[1],
@@ -86,33 +134,73 @@ class ConvFFN(nn.Module):
         self.layer_norm = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor,
-                cap_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cap_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = torch.relu(conv_last(self.w_1, x))
         if cap_valid is not None and self.kernel_sizes[1] > 1:
             h = zero_where_not(cap_valid, h)
-        h = conv_last(self.w_2, h)
+        h = dropout(conv_last(self.w_2, h), self.dropout_rate, generator)
         return self.layer_norm(h + x)
 
 
 class FFTBlock(nn.Module):
-    """Self-attention + conv FFN, with padded positions zeroed after each."""
+    """Attention + conv FFN, with padded positions zeroed after each.  A
+    cross-attention block (``cross``, the MelEncoder's) names its attention
+    ``crs_attn``, a self-attention block ``slf_attn``, as the reference."""
 
     def __init__(self, d_model: int, n_head: int, d_inner: int,
-                 kernel_sizes: tuple[int, int]):
+                 kernel_sizes: tuple[int, int], dropout_rate: float = 0.0,
+                 cross: bool = False, guided_sigma: float = 0.2):
         super().__init__()
-        self.slf_attn = MultiHeadAttention(d_model, n_head)
-        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes)
+        self.attn_name = "crs_attn" if cross else "slf_attn"
+        self.add_module(self.attn_name, MultiHeadAttention(
+            d_model, n_head, dropout_rate, guided_sigma))
+        self.pos_ffn = ConvFFN(d_model, d_inner, kernel_sizes, dropout_rate)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor,
-                cap_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        out = zero_where_not(valid, self.slf_attn(x, valid))
-        return zero_where_not(valid, self.pos_ffn(out, cap_valid))
+                cap_valid: Optional[torch.Tensor] = None,
+                kv: Optional[torch.Tensor] = None,
+                kv_valid: Optional[torch.Tensor] = None,
+                lens: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """Returns (out, attention maps or the alignment reductions or
+        None)."""
+        key_valid = valid if kv_valid is None else kv_valid
+        out, attn = getattr(self, self.attn_name)(x, key_valid, kv, lens,
+                                                  generator)
+        out = zero_where_not(valid, out)
+        out = self.pos_ffn(out, cap_valid, generator)
+        return zero_where_not(valid, out), attn
+
+
+class Prenet(nn.Module):
+    """Mel prenet: two Linear + ReLU layers, then dropout 0.2."""
+
+    DROPOUT = 0.2
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.w_1 = nn.Linear(d_in, d_out)
+        self.w_2 = nn.Linear(d_out, d_out)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = torch.relu(self.w_2(torch.relu(self.w_1(x))))
+        return dropout(h, self.DROPOUT, generator)
 
 
 class MaskedBatchNorm(nn.Module):
-    """Inference BatchNorm over the channel axis of (B, C, T) input, from
-    the running statistics: ``(x - mean) / sqrt(var + eps) * weight + bias``.
-    Training statistics (masked to the batch capacity) come with training."""
+    """BatchNorm over the channel axis of (B, C, T) input:
+    ``(x - mean) / sqrt(var + eps) * weight + bias``.
+
+    In eval mode mean and var are the running statistics.  In train mode
+    they are the batch's, over (batch, time) restricted to ``cap_valid``
+    (T,) when given: the biased variance normalises, and the running
+    statistics move by momentum 0.1 towards the mean and the unbiased
+    variance, as ``torch.nn.BatchNorm1d`` on tensors cut to the batch's
+    longest item."""
+
+    MOMENTUM = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -122,16 +210,36 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        scale = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self.running_mean[:, None]) * scale[:, None]
+    def forward(self, x: torch.Tensor,
+                cap_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            if cap_valid is None:
+                m = torch.ones((1, 1, x.shape[2]), dtype=x.dtype,
+                               device=x.device)
+            else:
+                m = cap_valid.to(x.dtype)[None, None, :]
+            n = torch.clamp(m.sum() * x.shape[0], min=1.0)
+            mean = (x * m).sum(dim=(0, 2)) / n
+            var = ((x - mean[:, None]) ** 2 * m).sum(dim=(0, 2)) / n
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.MOMENTUM).add_(
+                    self.MOMENTUM * mean)
+                self.running_var.mul_(1 - self.MOMENTUM).add_(
+                    self.MOMENTUM * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean[:, None]) * torch.rsqrt(var + self.eps)[:, None]
         return y * self.weight[:, None] + self.bias[:, None]
 
 
 class PostNet(nn.Module):
     """Five conv1d(k=5) + BatchNorm layers over mels, tanh on all but the
-    last.  The caller adds the residual.  ``cap_valid`` (T,) zeroes each
-    conv's input beyond the batch capacity."""
+    last, dropout 0.5 after each.  The caller adds the residual.
+    ``cap_valid`` (T,) zeroes each conv's input beyond the batch capacity
+    and restricts the BatchNorm's batch statistics to it."""
+
+    DROPOUT = 0.5
 
     def __init__(self, n_mels: int = 80, d_hidden: int = 512,
                  kernel_size: int = 5, n_convs: int = 5):
@@ -143,13 +251,15 @@ class PostNet(nn.Module):
             for i in range(n_convs))
 
     def forward(self, x: torch.Tensor,
-                cap_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cap_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = x.transpose(1, 2)                                  # (B, C, T)
         last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
             if cap_valid is not None:
                 h = torch.where(cap_valid[None, None, :], h, 0.0)
-            h = bn(conv.conv(h))
+            h = bn(conv.conv(h), cap_valid)
             if i != last:
                 h = torch.tanh(h)
+            h = dropout(h, self.DROPOUT, generator)
         return h.transpose(1, 2)

@@ -9,3 +9,11 @@ def length_to_valid(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B,) int lengths → (B, max_len) bool, True where position < length."""
     pos = torch.arange(max_len, device=lengths.device)
     return pos[None, :] < lengths[:, None]
+
+
+def masked_mean(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` over the positions where ``valid`` (broadcastable to
+    x) is True; 0 when none is."""
+    valid = torch.broadcast_to(valid, x.shape)
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, x, 0.0).sum() / denom

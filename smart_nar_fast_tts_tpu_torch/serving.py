@@ -15,6 +15,7 @@ from pathlib import Path
 import torch
 
 from .config import FeatureStats, ModelConfig, PreprocessConfig
+from .device import resolve_device
 from .models import FastSpeech2Align, ModelOutput
 from .vocoder import HiFiGANConfig, HiFiGANGenerator
 from .weights import (FLAGSHIP_INDEX, HIFIGAN_INDEX, jax_to_torch_acoustic,
@@ -31,14 +32,19 @@ def bucket(n: int) -> int:
     return next((b for b in MEL_BUCKETS if n <= b), MEL_BUCKETS[-1])
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``None`` means CUDA.  Raises when CUDA is asked for and absent: the
-    port does not fall back to the CPU unless the caller asks for it."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "the plain PyTorch versions on the CPU")
-    return device
+def committed_flagship(cfg: ModelConfig = ModelConfig(),
+                       results_dir: str | Path = RESULTS_DIR
+                       ) -> FastSpeech2Align:
+    """The committed flagship acoustic model (``flagship_params.npz``, with
+    the feature stats of ``flagship_meta.json``) on the CPU, built with
+    ``cfg``: the flagship's widths with any duration extraction."""
+    results = Path(results_dir)
+    meta = json.loads((results / "flagship_meta.json").read_text())
+    model = FastSpeech2Align(
+        cfg, PreprocessConfig(stats=FeatureStats(**meta["stats"])))
+    model.load_state_dict(jax_to_torch_acoustic(load_committed(
+        results / "flagship_params.npz", FLAGSHIP_INDEX), cfg))
+    return model
 
 
 class Synthesizer:
@@ -48,12 +54,6 @@ class Synthesizer:
                  device: str | torch.device | None = None,
                  t_cap: int = T_CAP):
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # The JAX reference is f32.  Matmuls on the card are f32 by
-            # default, but cuDNN runs f32 convolutions in TF32 unless told
-            # not to, which keeps only ~3 decimal digits.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
         self.t_cap = t_cap
@@ -67,13 +67,8 @@ class Synthesizer:
         files (feature stats, vocoder config)."""
         device = resolve_device(device)
         results = Path(results_dir)
-        meta = json.loads((results / "flagship_meta.json").read_text())
         voc_meta = json.loads((results / "vocoder_meta.json").read_text())
-        cfg = ModelConfig()
-        model = FastSpeech2Align(
-            cfg, PreprocessConfig(stats=FeatureStats(**meta["stats"])))
-        model.load_state_dict(jax_to_torch_acoustic(load_committed(
-            results / "flagship_params.npz", FLAGSHIP_INDEX), cfg))
+        model = committed_flagship(results_dir=results)
         voc_cfg = HiFiGANConfig.from_dict(voc_meta["config"])
         vocoder = HiFiGANGenerator(voc_cfg)
         vocoder.load_state_dict(jax_to_torch_hifigan(load_committed(

@@ -15,6 +15,10 @@ Layout rules (the inverse of ``models/convert.py`` and
   (in, out, k), flipped along k.
 - LayerNorm/BatchNorm scale → weight; BatchNorm batch_stats mean/var →
   running_mean/running_var; Embed embedding → Embedding weight.
+
+The maps are linear, so :func:`jax_params_to_torch` carries any tree shaped
+like ``params`` (a gradient, an optimizer update) into the port's key space
+by the same rules.
 """
 
 from __future__ import annotations
@@ -32,9 +36,6 @@ from .vocoder.hifigan import HiFiGANConfig
 ASSETS = Path(__file__).resolve().parent / "assets"
 FLAGSHIP_INDEX = ASSETS / "flagship_leaves.json"
 HIFIGAN_INDEX = ASSETS / "hifigan_leaves.json"
-
-# Leaves of the training path that serving does not run.
-SKIPPED_PREFIXES = ("params/mel_encoder/",)
 
 Rule = tuple[str, Callable[[np.ndarray], np.ndarray]]
 
@@ -77,14 +78,18 @@ def acoustic_rules(cfg: ModelConfig = ModelConfig()) -> dict[str, Rule]:
     t = cfg.transformer
     r["txt_encoder.src_word_emb.weight"] = (
         "params/txt_encoder/src_word_emb/embedding", _same)
-    for stack, n_layers in (("txt_encoder", t.encoder_layer),
-                            ("mel_decoder", t.decoder_layer)):
+    _dense(r, "mel_encoder.prenet.w_1", "params/mel_encoder/prenet/w_1")
+    _dense(r, "mel_encoder.prenet.w_2", "params/mel_encoder/prenet/w_2")
+    for stack, n_layers, attn in (
+            ("txt_encoder", t.encoder_layer, "slf_attn"),
+            ("mel_encoder", t.decoder_layer, "crs_attn"),
+            ("mel_decoder", t.decoder_layer, "slf_attn")):
         for i in range(n_layers):
             tp, fp = f"{stack}.layer_stack.{i}", f"params/{stack}/layer_{i}"
             for tname, fname in (("w_qs", "w_q"), ("w_ks", "w_k"),
                                  ("w_vs", "w_v"), ("fc", "fc")):
-                _dense(r, f"{tp}.slf_attn.{tname}", f"{fp}/attn/{fname}")
-            _norm(r, f"{tp}.slf_attn.layer_norm", f"{fp}/attn/layer_norm")
+                _dense(r, f"{tp}.{attn}.{tname}", f"{fp}/attn/{fname}")
+            _norm(r, f"{tp}.{attn}.layer_norm", f"{fp}/attn/layer_norm")
             _conv(r, f"{tp}.pos_ffn.w_1", f"{fp}/pos_ffn/w_1")
             _conv(r, f"{tp}.pos_ffn.w_2", f"{fp}/pos_ffn/w_2")
             _norm(r, f"{tp}.pos_ffn.layer_norm", f"{fp}/pos_ffn/layer_norm")
@@ -134,14 +139,13 @@ def hifigan_rules(config: HiFiGANConfig = HiFiGANConfig()
 def _apply_rules(flat: Mapping[str, np.ndarray], rules: dict[str, Rule]
                  ) -> dict[str, torch.Tensor]:
     """Fill every key of ``rules`` from ``flat``; every leaf of ``flat``
-    outside :data:`SKIPPED_PREFIXES` must be used exactly once."""
+    must be used exactly once."""
     used = [fpath for fpath, _ in rules.values()]
     used_set = set(used)
     if len(used_set) != len(used):
         raise ValueError("a checkpoint leaf is mapped twice")
     missing = [p for p in used if p not in flat]
-    unused = [p for p in flat if p not in used_set
-              and not p.startswith(SKIPPED_PREFIXES)]
+    unused = [p for p in flat if p not in used_set]
     if missing or unused:
         raise KeyError(f"checkpoint does not match the module: missing "
                        f"{missing[:5]}, unused {unused[:5]}")
@@ -154,6 +158,17 @@ def jax_to_torch_acoustic(flat: Mapping[str, np.ndarray],
                           ) -> dict[str, torch.Tensor]:
     """Flat flax variables of ``FastSpeech2Align`` → the port's state dict."""
     return _apply_rules(flat, acoustic_rules(cfg))
+
+
+def jax_params_to_torch(flat: Mapping[str, np.ndarray],
+                        cfg: ModelConfig = ModelConfig()
+                        ) -> dict[str, torch.Tensor]:
+    """A flat tree shaped like ``FastSpeech2Align``'s ``params`` (keys
+    ``"params/…"``: the parameters, a gradient or an update) → the port's
+    parameter names, by the same linear maps."""
+    rules = {k: r for k, r in acoustic_rules(cfg).items()
+             if r[0].startswith("params/")}
+    return _apply_rules(flat, rules)
 
 
 def jax_to_torch_hifigan(flat: Mapping[str, np.ndarray],

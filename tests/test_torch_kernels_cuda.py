@@ -10,7 +10,12 @@ Without a card they skip (the kernels have no CPU mode).  Tolerances: the
 flash kernel rounds its operands to bf16, so it agrees with the f32 plain
 version to 2e-2; the upsampling kernel is f32 throughout and agrees with the
 dense plain version to 1e-5 (f32 rounding of sums of at most L terms; the
-phonemes it leaves out weigh below exp(-36)).
+phonemes it leaves out weigh below exp(-36)); the alignment kernel is f32
+throughout: ``out`` 1e-5, ``idx`` exact, ``gnum`` rtol 1e-5 / atol 1e-4 (the
+JAX package's kernel test), and ``gnum`` bit-equal from run to run.  The
+backward passes recompute the plain versions, so a gradient through a
+kernel's ``autograd.Function`` equals autograd through its plain version to
+f32 rounding: 1e-4.
 """
 
 import numpy as np
@@ -18,11 +23,14 @@ import pytest
 import torch
 
 from smart_nar_fast_tts_tpu_torch.kernels import (
-    attention_reference, flash_attention, gaussian_upsample_banded)
+    alignment_attention, alignment_reference, attention_reference,
+    flash_attention, gaussian_upsample_banded)
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
 BF16_TOL = 2e-2
 F32_ATOL = 1e-5
+GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5
+GRAD_TOL = 1e-4
 
 
 @pytest.fixture
@@ -69,3 +77,74 @@ def test_gaussian_upsample(card, max_len):
     e_out, e_len, _ = gaussian_upsample(x, d, max_len, valid)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
     torch.testing.assert_close(mel_len, e_len)
+
+
+def _alignment_inputs(card, B, H, T, L, D, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (_randn(rng, B, H, n, D).to(card) for n in (T, L, L))
+    src = torch.from_numpy(rng.integers(max(L // 2, 1), L + 1, B)).to(card)
+    src[-1] = max(L - 3, 1)                           # an item with src < L
+    mel = torch.from_numpy(rng.integers(T // 2, T + 1, B)).to(card)
+    valid = torch.arange(L, device=card)[None, :] < src[:, None]
+    return q, k, v, valid, src, mel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(48, 2, 896, 128, 128),
+                                   (3, 2, 45, 13, 128),
+                                   (2, 3, 100, 70, 32)])
+def test_alignment_attention(card, shape):
+    args = _alignment_inputs(card, *shape, seed=10)
+    out, idx, gnum = alignment_attention(*args)
+    _, idx2, gnum2 = alignment_attention(*args)
+    e_out, e_idx, e_gnum = alignment_reference(*args)
+    torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
+    assert torch.equal(idx, e_idx)
+    torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
+    assert torch.equal(idx2, idx)
+    assert torch.equal(gnum2, gnum)                   # bit-equal
+
+
+def _grads_of(fn, leaves, cotangents):
+    leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    outs = fn(*leaves)
+    assert all(o.grad_fn is not None for o in outs)
+    total = sum((o.float() * c).sum() for o, c in zip(outs, cotangents))
+    return torch.autograd.grad(total, leaves)
+
+
+@pytest.mark.cuda
+def test_backward_passes_match_the_plain_versions(card):
+    rng = np.random.default_rng(11)
+    # flash attention: decoder-like (2, 2, 300, 128)
+    q, k, v = (_randn(rng, 2, 2, 300, 128).to(card) for _ in range(3))
+    valid = torch.arange(300, device=card)[None, :] < torch.tensor(
+        [[300], [211]], device=card)
+    ct = [_randn(rng, 2, 2, 300, 128).to(card)]
+    got = _grads_of(lambda *a: (flash_attention(*a, valid),), (q, k, v), ct)
+    want = _grads_of(lambda *a: (attention_reference(*a, valid),),
+                     (q, k, v), ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+    # upsampling: x (4, 128, 256) → 900 frames
+    x = _randn(rng, 4, 128, 256).to(card)
+    d = torch.from_numpy(rng.integers(0, 12, (4, 128))).float().to(card)
+    pv = (torch.arange(128, device=card)[None] < torch.tensor(
+        [[128], [100], [64], [9]], device=card)).float()
+    ct = [_randn(rng, 4, 900, 256).to(card)]
+    got = _grads_of(lambda x: (gaussian_upsample_banded(x, d, 900, pv)[0],),
+                    (x,), ct)
+    want = _grads_of(lambda x: (gaussian_upsample(x, d, 900, pv)[0],),
+                     (x,), ct)
+    torch.testing.assert_close(got[0], want[0], atol=GRAD_TOL, rtol=GRAD_TOL)
+    # alignment attention: out and gnum
+    q, k, v, valid, src, mel = _alignment_inputs(card, 4, 2, 200, 40, 128,
+                                                 seed=12)
+    ct = [_randn(rng, 4, 2, 200, 128).to(card), _randn(rng, 4).to(card)]
+
+    def pick(fn):
+        return lambda *a: (lambda r: (r[0], r[2]))(fn(*a, valid, src, mel))
+    got = _grads_of(pick(alignment_attention), (q, k, v), ct)
+    want = _grads_of(pick(alignment_reference), (q, k, v), ct)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)

@@ -52,8 +52,9 @@ def test_multi_head_attention(trees):
     expect, _ = jax_layers.MultiHeadAttention(D, HEADS, 0.0).apply(
         {"params": p}, jnp.asarray(x), jnp.asarray(x), jnp.asarray(valid))
     with torch.no_grad():
-        got = model.txt_encoder.layer_stack[0].slf_attn(
+        got, maps = model.txt_encoder.layer_stack[0].slf_attn(
             torch.from_numpy(x), torch.from_numpy(valid))
+    assert maps is None                   # the flash path keeps no maps
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL)
 
 
@@ -66,7 +67,7 @@ def test_fft_block(trees, stack):
         {"params": p}, jnp.asarray(x), jnp.asarray(valid),
         cap_valid=jnp.asarray(cap))
     with torch.no_grad():
-        got = getattr(model, stack).layer_stack[0](
+        got, _ = getattr(model, stack).layer_stack[0](
             torch.from_numpy(x), torch.from_numpy(valid),
             torch.from_numpy(cap))
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL)

@@ -159,5 +159,9 @@ def test_cpu_tensors_take_the_plain_versions():
     flash_attention(_t(q), _t(k), _t(v), _t(valid))
     x, d, pv = _upsample_data(seed=7)
     gaussian_upsample_banded(_t(x), _t(d), 50, _t(pv))
+    src_lens = torch.from_numpy(valid.sum(1))
+    kernels.alignment_attention(_t(q), _t(k), _t(v), _t(valid), src_lens,
+                                torch.full_like(src_lens, q.shape[2]))
     assert kernels.launches() == {"flash_attention": 0,
-                                  "gaussian_upsample_banded": 0}
+                                  "gaussian_upsample_banded": 0,
+                                  "alignment_attention": 0}

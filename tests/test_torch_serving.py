@@ -1,6 +1,6 @@
 """The port's serving entry point on the CPU: the bucket pick, the device
-rule, a tiny synthesis, and that neither the port nor ``chip_smoke.py``
-imports JAX, flax or the JAX package."""
+rule, a tiny synthesis, and that neither the port (serving and training)
+nor ``chip_smoke.py`` imports JAX, flax or the JAX package."""
 
 import ast
 import os
@@ -23,6 +23,7 @@ from torch_port_util import REPO
 
 PORT = os.path.join(REPO, "smart_nar_fast_tts_tpu_torch")
 CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
+PROFILE = os.path.join(REPO, "profile_train_step.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "smart_nar_fast_tts_tpu")
 
 TINY = """
@@ -40,6 +41,21 @@ voc = HiFiGANGenerator(HiFiGANConfig(upsample_initial_channel=16))
 synth = Synthesizer(model, voc, device="cpu", t_cap=64)
 wav, mel_lens = synth.synthesize(torch.randint(1, 100, (2, 8)), [8, 5])
 assert wav.shape[0] == 2 and torch.isfinite(wav).all()
+from smart_nar_fast_tts_tpu_torch.data import Batch
+from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss
+from smart_nar_fast_tts_tpu_torch.training import (create_train_state,
+                                                   make_eval_step,
+                                                   make_train_step)
+cfg = c.ModelConfig(transformer=t, duration_extraction="intended",
+                    duration_head_reduce="first")
+state = create_train_state(FastSpeech2Align(cfg), device="cpu")
+batch = Batch(torch.randint(1, 100, (2, 8)), torch.tensor([8, 5]),
+              torch.randn(2, 24, 80), torch.tensor([24, 17]),
+              torch.randn(2, 24), torch.randn(2, 24))
+losses = make_train_step(FastSpeech2Loss())(state, batch,
+                                            torch.Generator().manual_seed(0))
+assert torch.isfinite(losses.total)
+assert torch.isfinite(make_eval_step(FastSpeech2Loss())(state, batch)[0].total)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                     "smart_nar_fast_tts_tpu"))
@@ -108,7 +124,7 @@ def _imports(path):
 
 
 def test_no_jax_import_in_port_or_chip_smoke():
-    files = [CHIP_SMOKE] + [os.path.join(d, f)
+    files = [CHIP_SMOKE, PROFILE] + [os.path.join(d, f)
                             for d, _, fs in os.walk(PORT) for f in fs
                             if f.endswith(".py")]
     assert len(files) > 10

@@ -22,8 +22,8 @@ from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Align
 from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
                                                   HiFiGANGenerator)
 from smart_nar_fast_tts_tpu_torch.weights import (
-    FLAGSHIP_INDEX, HIFIGAN_INDEX, SKIPPED_PREFIXES, acoustic_rules,
-    hifigan_rules, jax_to_torch_acoustic, jax_to_torch_hifigan,
+    FLAGSHIP_INDEX, HIFIGAN_INDEX, acoustic_rules, hifigan_rules,
+    jax_params_to_torch, jax_to_torch_acoustic, jax_to_torch_hifigan,
     load_committed)
 from torch_port_util import (FLAGSHIP_NPZ, VOCODER_NPZ, flatten,
                              init_acoustic, init_hifigan, jax_leaf_index,
@@ -53,8 +53,7 @@ def test_every_port_key_has_exactly_one_leaf(kind):
     assert set(rules) == set(module.state_dict())
     used = [path for path, _ in rules.values()]
     assert len(used) == len(set(used))
-    served = {p for p in paths if not p.startswith(SKIPPED_PREFIXES)}
-    assert set(used) == served
+    assert set(used) == set(paths)          # the MelEncoder's leaves too
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -74,7 +73,7 @@ def test_acoustic_map_matches_reference_state_dict_export():
     variables = random_variables(init_acoustic(cfg)[1], seed=41)
     expect = variables_to_torch_state_dict(variables, cfg)
     got = jax_to_torch_acoustic(flatten(variables))
-    assert set(got) == {k for k in expect if not k.startswith("mel_encoder.")}
+    assert set(got) == set(expect)          # the MelEncoder's keys too
     for key, t in got.items():
         np.testing.assert_array_equal(t.numpy(), expect[key], err_msg=key)
 
