@@ -11,16 +11,28 @@ any failure raises (exit code 1):
   env       card, torch and CUDA versions; TF32 off for matmuls and cuDNN
   build     nvcc of every ``smart_nar_fast_tts_tpu_torch/csrc/*.cu``
   kernel    each CUDA kernel against its plain PyTorch version on the card at
-            the shapes of its path (serving for flash attention and
-            upsampling, training for alignment attention), then timed beside
-            it (and beside one PyTorch library call where one computes the
-            same function); then each kernel's backward (its
-            ``autograd.Function``) against autograd through its plain version
+            the shapes of its path (serving at T 1000-8192 for flash
+            attention, serving for upsampling, training for alignment
+            attention), then timed beside it (and beside one PyTorch library
+            call where one computes the same function); then each kernel's
+            backward (its ``autograd.Function``) against autograd through its
+            plain version
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
-            set to 0 just before and read just after; then stage timings
+            set to 0 just before and read just after; then stage timings.
+            Self-attention runs the flash kernel only past 2048 frames, as
+            the JAX model, so this path launches upsampling alone
+  e2e cap 4096  stage A of the same inputs at the 4096-frame cap of the JAX
+            package's ``serving_mel_caps``: the decoder's self-attention runs
+            the flash kernel (4 launches at (8, 2, 4096, 128)), the encoder's
+            does not
+  kernel fused_log_mel  the log-mel kernel against its plain version on
+            noise, the synthesised speech segments of the GAN phase and
+            silence, at the GAN step's shape (B 16 × 8192 samples) and a tiny
+            configuration, and against the plain version run in float64 on
+            those and on tones with a pause; then timed
   reference the card's output against the port's CPU run (plain versions)
-            on a small input
+            on a small input: durations exact, postnet mel within 1e-3
   train     the training slice's main path: ``make_train_step`` on the
             committed flagship with ``intended``/``first`` duration
             extraction (the alignment kernel's path) at the flagship training
@@ -29,6 +41,13 @@ any failure raises (exit code 1):
             step of the default ``soft``/``mean`` configuration
   train_reference  one step on the card against the same step through the
             port's plain versions on the CPU, seeded weights and batch
+  vocoder train  the vocoder slice's main path: ``make_vocoder_train_step``
+            on the committed HiFi-GAN V1 and a seeded full-width
+            discriminator, B 16 × 8192-sample segments of the e2e phase's
+            waveforms, 5 GAN steps with the launch counts set to 0 just
+            before and read just after (``fused_log_mel`` 2 per step)
+  vocoder train reference  one GAN step of a narrow configuration on the
+            card against the same step on the CPU, from the same state
 
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -37,6 +56,7 @@ of the repository, it exits non-zero before printing any result.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -52,25 +72,46 @@ F32_FLOPS = 67e12
 
 # bench.py's serving shape (bench.py:58-62, :123-135)
 B, L, T_CAP, L_LONG = 8, 128, 1000, 256
+# a frame cap of the JAX package's serving_mel_caps
+# (smart_nar_fast_tts_tpu/config.py:260) past the flash threshold (2048)
+T_CAP_LONG = 4096
+# (8, 2, T, 128) lengths of the flash crossover timings
+FLASH_TS = (1000, 2048, 4096, 8192)
 # the flagship training shape (benchmarks/train_throughput.py:27)
 TRAIN_B, TRAIN_L, TRAIN_T, TRAIN_STEPS = 48, 128, 896, 5
-# launches of each kernel per training step: 4 text-encoder and 4
-# mel-decoder self-attentions, one per MelEncoder layer, one upsampling
-PER_TRAIN_STEP = {"flash_attention": 8, "alignment_attention": 4,
-                  "gaussian_upsample_banded": 1}
+# launches of each kernel per training step: one per MelEncoder layer, one
+# upsampling; the self-attentions (T 896, L 128) take the einsum branch
+PER_TRAIN_STEP = {"flash_attention": 0, "alignment_attention": 4,
+                  "gaussian_upsample_banded": 1, "fused_log_mel": 0}
+# per serving batch: at cap 1000 no self-attention passes 2048 frames; at
+# cap 4096 the 4 decoder layers do
+PER_SERVING_BATCH = {"flash_attention": 0, "alignment_attention": 0,
+                     "gaussian_upsample_banded": 1, "fused_log_mel": 0}
+PER_SERVING_BATCH_LONG = dict(PER_SERVING_BATCH, flash_attention=4)
+# the vocoder GAN step (smart_nar_fast_tts_tpu/cli/train_vocoder.py:30-31
+# defaults): B 16 segments of 8192 samples; 2 log-mel launches per step
+VOC_B, VOC_SEG, VOC_STEPS = 16, 8192, 5
+PER_GAN_STEP = {"flash_attention": 0, "alignment_attention": 0,
+                "gaussian_upsample_banded": 0, "fused_log_mel": 2}
 
 BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16
 F32_TOL = 1e-5      # the upsampling kernel is f32 throughout: sums of at
                     # most L terms, and what the band leaves out weighs
                     # below exp(-36) ≈ 2e-16 of the total
 PRED_TOL = 1e-2     # log-durations on the card vs the f32 CPU run
+MEL_TOL = 1e-3      # postnet mel on the card vs the f32 CPU run (ROADMAP's
+                    # "done" tolerance for mels)
+LOGMEL_ATOL, LOGMEL_RTOL = 2e-4, 1e-4    # the log-mel kernel against its
+ENERGY_ATOL = 2e-3  # plain version (cuFFT): the JAX package's kernel test
+VOC_RTOL = 1e-3     # a narrow GAN step on the card vs the CPU, f32 both
 WAV_TOL = 1e-3      # the vocoder (f32 convolutions, no TF32) on one input
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5   # the alignment kernel's guided
                     # numerator: sums of up to T·L f32 terms (the JAX
                     # package's kernel test)
 GRAD_TOL = 1e-4     # a backward recomputes the plain version: f32 rounding
-TRAIN_RTOL = 2e-2   # a train step on the card vs the CPU: the flash
-                    # kernel's bf16 operands move losses and gradients
+TRAIN_RTOL = 1e-4   # a train step on the card vs the CPU, f32 both (its
+                    # self-attention takes the einsum branch): 1.2e-5 on
+                    # the gradient norm measured on an H100
 
 
 def emit(obj) -> None:
@@ -158,20 +199,23 @@ def check_close(name, got, expect, tol, torch, rtol=0.0):
 def kernel_flash_attention(torch, np, kernels):
     import torch.nn.functional as F
     rng = np.random.default_rng(1)
-    entry, err_max = {}, 0.0
-    # serving encoder (8, 2, 128, 128) and decoder (8, 2, 1000, 128), then
-    # training encoder (48, 2, 128, 128) and decoder (48, 2, 896, 128)
-    for name, b, Lx in (("encoder", B, L), ("decoder", B, T_CAP),
-                        ("train encoder", TRAIN_B, TRAIN_L),
-                        ("train decoder", TRAIN_B, TRAIN_T)):
+    entry, err_max, crossover = {}, 0.0, []
+    # the serving encoder (8, 2, 128, 128); the serving decoder at each
+    # length of FLASH_TS, timed beside its plain version and SDPA (the
+    # crossover; T_CAP_LONG is the main path's shape); the training encoder
+    # and decoder.  bf16 operands too at the encoder and at T_CAP.
+    cases = [("encoder", B, L)] + [(f"decoder {t}", B, t) for t in FLASH_TS] \
+        + [("train encoder", TRAIN_B, TRAIN_L),
+           ("train decoder", TRAIN_B, TRAIN_T)]
+    for name, b, Lx in cases:
         lens = rng.integers(Lx // 2, Lx + 1, size=b)
         lens[0] = 0                                   # a fully masked item
         valid = torch.from_numpy(np.arange(Lx)[None, :] < lens[:, None]
                                  ).cuda()
         base = [torch.from_numpy(rng.standard_normal(
             (b, 2, Lx, 128)).astype(np.float32)).cuda() for _ in range(3)]
-        dtypes = (torch.float32,) if name.startswith("train") \
-            else (torch.float32, torch.bfloat16)
+        dtypes = (torch.float32, torch.bfloat16) \
+            if name in ("encoder", f"decoder {T_CAP}") else (torch.float32,)
         for dtype in dtypes:
             with Phase("kernel flash_attention") as f:
                 q, k, v = (t.to(dtype) for t in base)
@@ -180,15 +224,15 @@ def kernel_flash_attention(torch, np, kernels):
                 ref = kernels.attention_reference(q, k, v, valid)
                 err = check_close(f"flash_attention {name} {dtype}", out,
                                   ref, BF16_TOL, torch, rtol=BF16_TOL)
+                del ref
                 if not (out[0] == 0).all() or out.dtype != dtype:
                     raise AssertionError("flash_attention: masked item not "
                                          "zero or wrong dtype")
                 err_max = max(err_max, err)
                 f.update(case=name, shape=list(q.shape), dtype=str(dtype),
                          max_abs_err=err)
-                if dtype != torch.float32:
+                if dtype != torch.float32 or not name.startswith("decoder"):
                     continue
-                # the main path's dtype: time kernel, plain and library
                 mask = valid[:, None, None, :]
                 ms = device_ms(lambda: kernels.flash_attention(
                     q, k, v, valid), torch)
@@ -202,19 +246,13 @@ def kernel_flash_attention(torch, np, kernels):
                 # the products over the valid keys: QKᵀ and PV
                 flops = 4 * 2 * Lx * 128 * int(lens.sum())
                 bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-                f.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
-                if name == "decoder":
-                    entry.update(ms=ms, plain_ms=plain_ms,
-                                 library_ms=library_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, shape=list(q.shape))
-                elif name == "train decoder":
-                    entry.update(train_ms=ms, train_plain_ms=plain_ms,
-                                 train_library_ms=library_ms,
-                                 train_bound_ms=bound_ms,
-                                 train_bound_by=bound_by,
-                                 train_shape=list(q.shape))
-    entry["max_abs_err"] = err_max
+                timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+                f.update(timing)
+                crossover.append(dict(T=Lx, **timing))
+                if Lx == T_CAP_LONG:
+                    entry.update(timing, shape=list(q.shape))
+    entry.update(max_abs_err=err_max, crossover=crossover)
     return entry
 
 
@@ -590,6 +628,354 @@ def train_reference_phase(torch, np, inv):
                                  f"{bad}")
 
 
+def e2e_phase(torch, kernels, texts, src_lens):
+    """The serving main path at cap 1000, once, through the user's entry
+    point; then stage timings."""
+    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer, bucket
+    with Phase("e2e") as f:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        synth = Synthesizer.from_committed()
+        f["load_seconds"] = time.perf_counter() - t0
+        kernels.reset_launches()
+        wav, mel_lens = synth.synthesize(texts, src_lens)
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        if counts != PER_SERVING_BATCH:
+            raise AssertionError(f"serving launches {counts}, expected "
+                                 f"{PER_SERVING_BATCH}")
+        out = synth.stage_a(torch.from_numpy(texts), torch.from_numpy(
+            src_lens))
+        cap = bucket(int(out.mel_lens.max()))
+        if out.postnet_mel.shape != (B, synth.t_cap, 80):
+            raise AssertionError(f"mel shape {tuple(out.postnet_mel.shape)}")
+        if wav.shape != (B, cap * synth.hop_length):
+            raise AssertionError(f"wav shape {tuple(wav.shape)}")
+        if not (torch.isfinite(out.postnet_mel).all()
+                and torch.isfinite(wav).all()):
+            raise AssertionError("non-finite mel or waveform")
+        if int(mel_lens.min()) <= 0 or float(wav.abs().max()) > 1.0:
+            raise AssertionError("empty utterance or |wav| > 1")
+        if not torch.equal(mel_lens, out.mel_lens):
+            raise AssertionError("two runs of stage A disagree on mel_lens")
+        mel = out.postnet_mel[:, :cap].contiguous()
+        stage_a_ms = wall_ms(lambda: synth.stage_a(
+            torch.from_numpy(texts), torch.from_numpy(src_lens)), torch)
+        stage_b_ms = wall_ms(lambda: synth.stage_b(mel), torch)
+        seconds = synth.audio_seconds(mel_lens)
+        f.update(launches=counts, mel_frames=int(mel_lens.sum()),
+                 mel_lens=mel_lens.tolist(), bucket=cap,
+                 audio_seconds=seconds, stage_a_ms=stage_a_ms,
+                 stage_b_ms=stage_b_ms,
+                 rtf=(stage_a_ms + stage_b_ms) / 1e3 / seconds,
+                 max_abs_wav=float(wav.abs().max()),
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return synth, out, wav, mel_lens, counts
+
+
+def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
+    """Stage A of the same inputs at cap 4096, through ``Synthesizer(...,
+    t_cap=4096)``: the decoder's four self-attentions run the flash kernel
+    at (8, 2, 4096, 128), the encoder's none.  Its durations equal the
+    cap-1000 run's; its mel differs over the frames they share because the
+    decoder attends over every frame (up to 4096 instead of 1000) and
+    through the kernel's bf16 operands: reported, not held."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
+    with Phase("e2e cap 4096") as f:
+        long_synth = Synthesizer(synth.model, synth.vocoder, t_cap=T_CAP_LONG)
+        shapes, flash = [], layers.flash_attention
+
+        def spy(q, k, v, key_valid):          # the model's call, recorded
+            shapes.append(list(q.shape))
+            return flash(q, k, v, key_valid)
+
+        kernels.reset_launches()
+        with mock.patch.object(layers, "flash_attention", spy):
+            out = long_synth.stage_a(torch.from_numpy(texts),
+                                     torch.from_numpy(src_lens))
+        torch.cuda.synchronize()
+        counts = kernels.launches()
+        if counts != PER_SERVING_BATCH_LONG or shapes != [
+                [B, 2, T_CAP_LONG, 128]] * 4:
+            raise AssertionError(f"cap-4096 launches {counts} at {shapes}, "
+                                 f"expected {PER_SERVING_BATCH_LONG}")
+        if not torch.equal(out.duration_rounded, short.duration_rounded):
+            raise AssertionError("cap-4096 durations differ from cap 1000")
+        if out.postnet_mel.shape != (B, T_CAP_LONG, 80) or not torch.isfinite(
+                out.postnet_mel).all():
+            raise AssertionError("cap-4096 mel: bad shape or non-finite")
+        n = torch.clamp(out.mel_lens, max=T_CAP)
+        shared = torch.arange(T_CAP, device="cuda")[None] < n[:, None]
+        diff = (out.postnet_mel[:, :T_CAP] - short.postnet_mel).abs()[shared]
+        stage_a_ms = wall_ms(lambda: long_synth.stage_a(
+            torch.from_numpy(texts), torch.from_numpy(src_lens)), torch)
+        f.update(launches=counts, flash_shapes=shapes,
+                 mel_lens=out.mel_lens.tolist(),
+                 mel_lens_cap1000=short.mel_lens.tolist(),
+                 postnet_mel_vs_cap1000_max=diff.max().item(),
+                 postnet_mel_vs_cap1000_mean=diff.mean().item(),
+                 stage_a_ms=stage_a_ms)
+    return counts
+
+
+def reference_phase(torch, np, synth, inv):
+    """The card's stage A and vocoder against the port's plain versions on
+    the CPU, same weights, small input."""
+    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
+    with Phase("reference") as f:
+        cpu = Synthesizer.from_committed(device="cpu")
+        rng = np.random.default_rng(0)
+        small = torch.from_numpy(rng.choice(inv, size=(2, 16)))
+        small_lens = torch.tensor([16, 11])
+        got = synth.stage_a(small, small_lens)
+        expect = cpu.stage_a(small, small_lens)
+        if not (torch.equal(got.duration_rounded.cpu(),
+                            expect.duration_rounded)
+                and torch.equal(got.mel_lens.cpu(), expect.mel_lens)):
+            raise AssertionError("durations differ from the CPU run")
+        logd_err = check_close(
+            "log-duration", got.log_duration_prediction.cpu(),
+            expect.log_duration_prediction, PRED_TOL, torch)
+        mel_in = got.postnet_mel[:, :32]
+        wav_err = check_close("vocoder", synth.stage_b(mel_in).cpu(),
+                              cpu.stage_b(mel_in.cpu()), WAV_TOL, torch)
+        # every self-attention here (T 1000, L 16) takes the f32 einsum
+        # branch on both sides, as the JAX model below 2048 frames
+        mel_err = (got.postnet_mel.cpu() - expect.postnet_mel).abs()
+        f.update(mel_lens=got.mel_lens.tolist(), log_duration_err=logd_err,
+                 vocoder_err=wav_err, postnet_mel_max_err=mel_err.max().item(),
+                 postnet_mel_mean_err=mel_err.mean().item())
+        check_close("postnet mel", got.postnet_mel.cpu(), expect.postnet_mel,
+                    MEL_TOL, torch)
+
+
+def vocoder_segments(torch, np, wav, mel_lens, hop):
+    """The GAN phase's batch: VOC_B segments of VOC_SEG samples drawn by
+    the port's ``sample_segments`` with ``default_rng(0)`` from the e2e
+    phase's waveforms, item i cut to its ``mel_lens[i]·hop`` samples."""
+    from smart_nar_fast_tts_tpu_torch.training import sample_segments
+    clips = [w[:int(n) * hop].cpu().numpy() for w, n in zip(wav, mel_lens)]
+    return torch.from_numpy(sample_segments(
+        clips, VOC_B, VOC_SEG, np.random.default_rng(0))).cuda()
+
+
+def tone_with_pause(torch, np, rng, b, n):
+    """Harmonic tones of falling loudness with a silent stretch under a
+    noise floor 100 dB down: bins ~110 dB below a frame's loudest, where
+    an f32 DFT or FFT is least exact after log compression."""
+    t = np.arange(n) / 22050.0
+    out = np.zeros((b, n))
+    for i in range(b):
+        out[i] = sum(np.sin(2 * np.pi * (90.0 + 15.0 * i) * h * t
+                            + rng.uniform(0, 6)) / h ** 2
+                     for h in range(1, 30))
+        out[i] *= 0.4 * np.exp(-4.0 * t / t[-1])
+        out[i, n // 3: n // 2] = 0.0
+    out += 1e-5 * rng.standard_normal((b, n))
+    return torch.from_numpy(out.astype(np.float32)).cuda()
+
+
+def kernel_fused_log_mel(torch, np, kernels, segments):
+    """The log-mel kernel against its plain version (cuFFT rfft and the mel
+    product) on noise, the speech segments and silence at the GAN step's
+    shape and on noise at a tiny configuration; each also against the plain
+    version run in float64.  On tones with a pause, where the f32 plain
+    version is itself off, the kernel is held to the float64 run only.
+    Then timed on the speech segments."""
+    from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
+                                                    mel_spectrogram)
+    rng = np.random.default_rng(5)
+    cfg = MelSpectrogramConfig()
+    tiny = MelSpectrogramConfig(n_fft=32, hop_length=8, win_length=32,
+                                n_mels=8, mel_fmax=None)
+    noise = torch.from_numpy(rng.uniform(-1, 1, segments.shape).astype(
+        np.float32)).cuda()
+    tones = tone_with_pause(torch, np, rng, *segments.shape)
+    entry, err_max = {}, 0.0
+    for name, y, c in (("noise", noise, cfg), ("speech", segments, cfg),
+                       ("zeros", torch.zeros_like(segments), cfg),
+                       ("tiny noise", noise[:3, :300].contiguous(), tiny),
+                       ("tones with a pause", tones, cfg)):
+        with Phase("kernel fused_log_mel") as f:
+            mel, energy = kernels.fused_log_mel(y, c)
+            torch.cuda.synchronize()
+            ref_mel, ref_energy = mel_spectrogram(y, c)
+            exact_mel, exact_energy = (t.float() for t in mel_spectrogram(
+                y.double(), c))
+            if mel.shape != ref_mel.shape or energy.shape != ref_energy.shape:
+                raise AssertionError(f"fused_log_mel {name}: shapes "
+                                     f"{tuple(mel.shape)} {tuple(energy.shape)}")
+            held = [("float64", exact_mel, exact_energy)]
+            if name != "tones with a pause":
+                held.append(("plain", ref_mel, ref_energy))
+            errs = {}
+            for against, m, e in held:
+                errs[f"mel_vs_{against}"] = check_close(
+                    f"fused_log_mel {name} mel vs {against}", mel, m,
+                    LOGMEL_ATOL, torch, rtol=LOGMEL_RTOL)
+                errs[f"energy_vs_{against}"] = check_close(
+                    f"fused_log_mel {name} energy vs {against}", energy, e,
+                    ENERGY_ATOL, torch, rtol=LOGMEL_RTOL)
+            errs["plain_mel_vs_float64"] = (ref_mel - exact_mel).abs().max(
+            ).item()
+            if name == "zeros" and not (torch.equal(mel, torch.log(
+                    torch.full_like(mel, c.compression_clip)))
+                    and not energy.any()):
+                raise AssertionError("fused_log_mel of silence is not "
+                                     "log(clip) and 0")
+            err_max = max(err_max, errs["mel_vs_float64"],
+                          errs.get("mel_vs_plain", 0.0))
+            f.update(case=name, shape=list(y.shape), n_fft=c.n_fft,
+                     mel_min=mel.min().item(), **errs)
+            if name != "speech":
+                continue
+            ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
+            plain_ms = device_ms(lambda: mel_spectrogram(y, c), torch)
+            b, n_frames = energy.shape
+            n_bins = c.n_fft // 2 + 1
+            # the least work of the function per frame: the window, a real
+            # FFT (2.5·n·log2 n, the usual count), power, sqrt and the energy
+            # sum per bin, the filterbank's nonzeros, clip and log per mel
+            per_frame = (c.win_length + 2.5 * c.n_fft * math.log2(c.n_fft)
+                         + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
+                         + 2 * c.n_mels + 1)
+            flops = b * n_frames * per_frame
+            # what the kernel's own algorithm does: the two windowed DFT
+            # products and the dense mel product
+            dft_flops = 2 * b * n_frames * (2 * c.n_fft * n_bins
+                                            + n_bins * c.n_mels)
+            nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
+            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                          library="the plain version (cuFFT rfft + mel "
+                                  "product): no one PyTorch call computes "
+                                  "log-mel",
+                          bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                          dft_flops=dft_flops,
+                          dft_bound_ms=dft_flops / F32_FLOPS * 1e3)
+            f.update(timing)
+            entry.update(timing, shape=list(y.shape))
+    entry["max_abs_err"] = err_max
+    return entry
+
+
+def grad_norm(torch, module):
+    return torch.linalg.vector_norm(torch.stack(
+        [p.grad.norm() for p in module.parameters()])).item()
+
+
+def vocoder_train_phase(torch, kernels, synth, segments):
+    """The vocoder slice's main path at full width: 5 GAN steps of the
+    committed HiFi-GAN V1 against a seeded full discriminator."""
+    from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
+    from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
+    from smart_nar_fast_tts_tpu_torch.training import (
+        VocoderOptimizer, create_vocoder_state, make_vocoder_train_step)
+    from smart_nar_fast_tts_tpu_torch.vocoder import HiFiGANDiscriminator
+    with Phase("vocoder train") as f:
+        tx = VocoderOptimizer()
+        state = create_vocoder_state(committed_vocoder(),
+                                     HiFiGANDiscriminator(seed=0), tx, tx)
+        step = make_vocoder_train_step(MelSpectrogramConfig())
+        trees = {"generator": state.generator,
+                 "discriminator": state.discriminator}
+        before = {t: {n: p.detach().clone() for n, p in
+                      m.state_dict().items()} for t, m in trees.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, metrics = [], []
+        # the main path, through the user's entry points
+        kernels.reset_launches()
+        for i in range(VOC_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            m = step(state, segments)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            m = {k: float(v) for k, v in m._asdict().items()}
+            if not all(math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"GAN step {i + 1}: metrics {m}")
+            metrics.append(m)
+            if i == 0:
+                # every tensor moved, spectral-norm u included, but a u of
+                # one output, which stays ±1
+                stuck = [f"{t}.{n}" for t, m_ in trees.items()
+                         for n, v in m_.state_dict().items()
+                         if v.numel() > 1 and torch.equal(v, before[t][n])]
+                if stuck:
+                    raise AssertionError(f"step 1 left {stuck[:4]} unchanged")
+                norms = {t: grad_norm(torch, m_) for t, m_ in trees.items()}
+        counts = kernels.launches()
+        want = {n: k * VOC_STEPS for n, k in PER_GAN_STEP.items()}
+        if counts != want:
+            raise AssertionError(f"GAN launches {counts}, expected {want}")
+        step_ms = statistics.median(times[-3:])
+        audio = VOC_B * VOC_SEG / synth.sampling_rate
+        f.update(launches=counts, step_ms=times, step_ms_median_last3=step_ms,
+                 segments_per_second=VOC_B / step_ms * 1e3,
+                 audio_seconds_per_second=audio / step_ms * 1e3,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 metrics_per_step=metrics, step1_grad_norms=norms,
+                 params={t: sum(p.numel() for p in m_.parameters())
+                         for t, m_ in trees.items()})
+        del state, step, before
+    return counts
+
+
+def vocoder_train_reference_phase(torch, np):
+    """One GAN step of a narrow configuration (hop 8, n_fft 32, 8 mels, a
+    narrow discriminator) on the card and on the CPU from the same seeded
+    state and segments: metrics and both gradient norms within rtol 1e-3."""
+    import copy
+
+    from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
+    from smart_nar_fast_tts_tpu_torch.training import (
+        VocoderOptimizer, create_vocoder_state, make_vocoder_train_step)
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
+                                                      HiFiGANDiscriminator,
+                                                      HiFiGANGenerator)
+    with Phase("vocoder train reference") as f:
+        torch.manual_seed(0)
+        gen = HiFiGANGenerator(HiFiGANConfig(
+            upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+            upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+            resblock_dilation_sizes=((1, 2),), n_mels=8))
+        disc = HiFiGANDiscriminator(
+            periods=(2, 3), period_channels=(4, 8), n_scales=2,
+            scale_layers=((8, 15, 1, 1), (16, 41, 4, 4), (16, 5, 1, 1)),
+            seed=1)
+        mel_cfg = MelSpectrogramConfig(n_fft=32, hop_length=8, win_length=32,
+                                       n_mels=8, mel_fmax=None)
+        rng = np.random.default_rng(2)
+        t = np.arange(1024) / 22050.0
+        wavs = torch.from_numpy((0.3 * np.sin(2 * np.pi * 440.0 * t)
+                                 + 0.05 * rng.standard_normal((4, 1024))
+                                 ).astype(np.float32))
+        res = {}
+        for device in ("cuda", "cpu"):
+            tx = VocoderOptimizer()
+            state = create_vocoder_state(copy.deepcopy(gen),
+                                         copy.deepcopy(disc), tx, tx,
+                                         device=device)
+            m = make_vocoder_train_step(mel_cfg)(state, wavs)
+            res[device] = {**{k: float(v) for k, v in m._asdict().items()},
+                           "gen_grad_norm": grad_norm(torch, state.generator),
+                           "disc_grad_norm": grad_norm(
+                               torch, state.discriminator)}
+        rel = {k: abs(res["cuda"][k] - v) / abs(v)
+               for k, v in res["cpu"].items()}
+        f.update(card=res["cuda"], cpu=res["cpu"], relative_err=rel)
+        bad = {k: e for k, e in rel.items() if not e <= VOC_RTOL}
+        if bad:
+            raise AssertionError(f"GAN step card vs CPU beyond rtol "
+                                 f"{VOC_RTOL}: {bad}")
+
+
 def bench_inputs(np):
     """bench.py's serving inputs: the same generator, draws and order."""
     with open(os.path.join(REPO, "benchmarks", "results",
@@ -614,7 +1000,6 @@ def main() -> int:
 
     from smart_nar_fast_tts_tpu_torch import kernels
     from smart_nar_fast_tts_tpu_torch.kernels import _build
-    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer, bucket
 
     with Phase("env") as f:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -650,79 +1035,40 @@ def main() -> int:
         entries[name]["grad_max_abs_err"] = err
 
     texts, src_lens, inv = bench_inputs(np)
-    with Phase("e2e") as f:
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        synth = Synthesizer.from_committed()
-        f["load_seconds"] = time.perf_counter() - t0
-        # the main path, once, through the user's entry point
-        kernels.reset_launches()
-        wav, mel_lens = synth.synthesize(texts, src_lens)
-        torch.cuda.synchronize()
-        counts = kernels.launches()
-        for name in ("flash_attention", "gaussian_upsample_banded"):
-            if counts[name] == 0:
-                raise AssertionError(f"serving never launched {name}")
-        for name, n in counts.items():
-            entries[name]["launches_per_serving_batch"] = n
-        out = synth.stage_a(torch.from_numpy(texts), torch.from_numpy(
-            src_lens))
-        cap = bucket(int(out.mel_lens.max()))
-        if out.postnet_mel.shape != (B, synth.t_cap, 80):
-            raise AssertionError(f"mel shape {tuple(out.postnet_mel.shape)}")
-        if wav.shape != (B, cap * synth.hop_length):
-            raise AssertionError(f"wav shape {tuple(wav.shape)}")
-        if not (torch.isfinite(out.postnet_mel).all()
-                and torch.isfinite(wav).all()):
-            raise AssertionError("non-finite mel or waveform")
-        if int(mel_lens.min()) <= 0 or float(wav.abs().max()) > 1.0:
-            raise AssertionError("empty utterance or |wav| > 1")
-        if not torch.equal(mel_lens, out.mel_lens):
-            raise AssertionError("two runs of stage A disagree on mel_lens")
-        mel = out.postnet_mel[:, :cap].contiguous()
-        stage_a_ms = wall_ms(lambda: synth.stage_a(
-            torch.from_numpy(texts), torch.from_numpy(src_lens)), torch)
-        stage_b_ms = wall_ms(lambda: synth.stage_b(mel), torch)
-        seconds = synth.audio_seconds(mel_lens)
-        f.update(launches=counts, mel_frames=int(mel_lens.sum()),
-                 mel_lens=mel_lens.tolist(), bucket=cap,
-                 audio_seconds=seconds, stage_a_ms=stage_a_ms,
-                 stage_b_ms=stage_b_ms,
-                 rtf=(stage_a_ms + stage_b_ms) / 1e3 / seconds,
-                 max_abs_wav=float(wav.abs().max()),
-                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    synth, short, wav, mel_lens, serving = e2e_phase(torch, kernels, texts,
+                                                     src_lens)
+    long_counts = e2e_long_phase(torch, kernels, synth, short, texts,
+                                 src_lens)
+    segments = vocoder_segments(torch, np, wav, mel_lens, synth.hop_length)
+    entries["fused_log_mel"] = dict(
+        route="cuda", source="smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
+        replaces="smart_nar_fast_tts_tpu/ops/pallas/stft.py:46",
+        **kernel_fused_log_mel(torch, np, kernels, segments))
+    reference_phase(torch, np, synth, inv)
 
-    with Phase("reference") as f:
-        # the port's plain versions on the CPU, same weights, small input
-        cpu = Synthesizer.from_committed(device="cpu")
-        rng = np.random.default_rng(0)
-        small = torch.from_numpy(rng.choice(inv, size=(2, 16)))
-        small_lens = torch.tensor([16, 11])
-        got = synth.stage_a(small, small_lens)
-        expect = cpu.stage_a(small, small_lens)
-        if not (torch.equal(got.duration_rounded.cpu(),
-                            expect.duration_rounded)
-                and torch.equal(got.mel_lens.cpu(), expect.mel_lens)):
-            raise AssertionError("durations differ from the CPU run")
-        logd_err = check_close(
-            "log-duration", got.log_duration_prediction.cpu(),
-            expect.log_duration_prediction, PRED_TOL, torch)
-        mel_in = got.postnet_mel[:, :32]
-        wav_err = check_close("vocoder", synth.stage_b(mel_in).cpu(),
-                              cpu.stage_b(mel_in.cpu()), WAV_TOL, torch)
-        # reported, not held to a tolerance: the decoder's attention logits
-        # reach ~2e3 in the committed flagship, so the kernel's bf16
-        # operands (as on the TPU) move log-mel by O(1) against f32
-        mel_err = (got.postnet_mel.cpu() - expect.postnet_mel).abs()
-        f.update(mel_lens=got.mel_lens.tolist(), log_duration_err=logd_err,
-                 vocoder_err=wav_err, postnet_mel_max_err=mel_err.max().item(),
-                 postnet_mel_mean_err=mel_err.mean().item())
-
-    counts = train_phase(torch, np, kernels, synth, inv)
-    for name, n in counts.items():
-        entries[name]["launches"] = n
-        entries[name]["launches_per_train_step"] = n // TRAIN_STEPS
+    train_counts = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
+    gan_counts = vocoder_train_phase(torch, kernels, synth, segments)
+    vocoder_train_reference_phase(torch, np)
+
+    # each kernel's launches on its path's run: flash attention on the
+    # cap-4096 serving batch, upsampling and alignment attention over the
+    # training steps, the log-mel kernel over the GAN steps
+    paths = {"flash_attention": ("serving stage A at cap 4096", long_counts),
+             "gaussian_upsample_banded": (f"{TRAIN_STEPS} train steps",
+                                          train_counts),
+             "alignment_attention": (f"{TRAIN_STEPS} train steps",
+                                     train_counts),
+             "fused_log_mel": (f"{VOC_STEPS} GAN steps", gan_counts)}
+    for name, (path, counts) in paths.items():
+        if counts[name] == 0:
+            raise AssertionError(f"{path} never launched {name}")
+        entries[name].update(
+            launches=counts[name], path=path,
+            launches_per_serving_batch=serving[name],
+            launches_per_serving_batch_cap4096=long_counts[name],
+            launches_per_train_step=train_counts[name] // TRAIN_STEPS,
+            launches_per_gan_step=gan_counts[name] // VOC_STEPS)
 
     emit({"kernels": [{"name": name, **entry}
                       for name, entry in entries.items()]})

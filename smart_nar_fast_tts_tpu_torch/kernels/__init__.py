@@ -8,9 +8,11 @@ it went through the kernels.
 
 from .alignment import alignment_attention, alignment_reference
 from .attention import attention_reference, flash_attention, masked_softmax
+from .stft import fused_log_mel
 from .upsample import gaussian_upsample_banded
 
-WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention)
+WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention,
+            fused_log_mel)
 
 
 def reset_launches() -> None:
@@ -24,4 +26,5 @@ def launches() -> dict[str, int]:
 
 __all__ = ["alignment_attention", "alignment_reference",
            "attention_reference", "flash_attention", "masked_softmax",
-           "gaussian_upsample_banded", "reset_launches", "launches"]
+           "fused_log_mel", "gaussian_upsample_banded", "reset_launches",
+           "launches"]

@@ -26,6 +26,11 @@ from ..kernels import alignment_attention, flash_attention, masked_softmax
 # torch nn.LayerNorm eps, as the JAX package's LN_EPS
 LN_EPS = 1e-5
 
+# self-attention runs the flash kernel only past this many frames, as the
+# JAX model does (smart_nar_fast_tts_tpu/models/layers.py:106-107); shorter
+# self-attention takes the model's f32 einsum branch
+FLASH_MIN_LEN = 2048
+
 
 def conv_last(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """Apply a Conv1d to feature-last (B, T, C) input."""
@@ -63,10 +68,11 @@ class MultiHeadAttention(nn.Module):
     """Post-LN multi-head attention: projections → masked attention → head
     concat → fc → dropout → LayerNorm(out + x).
 
-    - Self-attention (``kv`` None) runs the flash kernel on CUDA and returns
-      no maps.
-    - Cross-attention over ``kv`` returns the full (B, H, Lq, Lk)
-      ``masked_softmax`` maps, in plain PyTorch.
+    - Self-attention (``kv`` None) with ``max(Lq, Lk) > FLASH_MIN_LEN``
+      runs the flash kernel on CUDA and returns no maps.
+    - Shorter self-attention, and cross-attention over ``kv``, run the f32
+      einsum branch and return the full (B, H, Lq, Lk) ``masked_softmax``
+      maps (self-attention's are discarded by the caller).
     - Given ``lens = (src_lens, mel_lens)``, the cross-attention runs the
       alignment kernel and returns only ``{"argmax": (B, Lq) int32,
       "guided_num": (B,)}`` of head 0.
@@ -101,7 +107,7 @@ class MultiHeadAttention(nn.Module):
         q = heads(self.w_qs, x, Lq)
         k = heads(self.w_ks, src, Lk)
         v = heads(self.w_vs, src, Lk)
-        if kv is None:
+        if kv is None and max(Lq, Lk) > FLASH_MIN_LEN:
             attn = None
             out = flash_attention(q, k, v, key_valid)
         elif lens is not None:

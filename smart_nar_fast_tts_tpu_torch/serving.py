@@ -47,6 +47,19 @@ def committed_flagship(cfg: ModelConfig = ModelConfig(),
     return model
 
 
+def committed_vocoder(results_dir: str | Path = RESULTS_DIR
+                      ) -> HiFiGANGenerator:
+    """The committed HiFi-GAN V1 generator (``vocoder_params.npz``, with the
+    config of ``vocoder_meta.json``) on the CPU."""
+    results = Path(results_dir)
+    meta = json.loads((results / "vocoder_meta.json").read_text())
+    config = HiFiGANConfig.from_dict(meta["config"])
+    vocoder = HiFiGANGenerator(config)
+    vocoder.load_state_dict(jax_to_torch_hifigan(load_committed(
+        results / "vocoder_params.npz", HIFIGAN_INDEX), config))
+    return vocoder
+
+
 class Synthesizer:
     """Acoustic model + vocoder on one device, in eval mode."""
 
@@ -66,14 +79,8 @@ class Synthesizer:
         ``flagship_params.npz`` / ``vocoder_params.npz`` and their meta
         files (feature stats, vocoder config)."""
         device = resolve_device(device)
-        results = Path(results_dir)
-        voc_meta = json.loads((results / "vocoder_meta.json").read_text())
-        model = committed_flagship(results_dir=results)
-        voc_cfg = HiFiGANConfig.from_dict(voc_meta["config"])
-        vocoder = HiFiGANGenerator(voc_cfg)
-        vocoder.load_state_dict(jax_to_torch_hifigan(load_committed(
-            results / "vocoder_params.npz", HIFIGAN_INDEX), voc_cfg))
-        return cls(model, vocoder, device)
+        return cls(committed_flagship(results_dir=results_dir),
+                   committed_vocoder(results_dir), device)
 
     @property
     def hop_length(self) -> int:

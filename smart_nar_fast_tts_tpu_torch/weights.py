@@ -10,7 +10,8 @@ Layout rules (the inverse of ``models/convert.py`` and
 ``vocoder/convert.py`` of the JAX package):
 
 - Dense kernel (in, out) → Linear weight (out, in).
-- Conv kernel (k, in, out) → Conv1d weight (out, in, k).
+- Conv kernel (k, in, out) → Conv1d weight (out, in, k); a 2-D conv
+  kernel (kh, kw, in, out) → Conv2d weight (out, in, kh, kw).
 - ConvTranspose kernel (k, in, out), in the lhs-dilated form → torch
   (in, out, k), flipped along k.
 - LayerNorm/BatchNorm scale → weight; BatchNorm batch_stats mean/var →
@@ -25,12 +26,13 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Callable, Mapping
+from typing import Callable, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from .config import ModelConfig
+from .vocoder.discriminators import HiFiGANDiscriminator
 from .vocoder.hifigan import HiFiGANConfig
 
 ASSETS = Path(__file__).resolve().parent / "assets"
@@ -136,6 +138,51 @@ def hifigan_rules(config: HiFiGANConfig = HiFiGANConfig()
     return r
 
 
+def _conv2d_t(a):
+    return a.transpose(3, 2, 0, 1)
+
+
+def discriminator_rules(periods: Sequence[int], n_period_convs: int,
+                        n_scales: int, n_scale_convs: int
+                        ) -> dict[str, Rule]:
+    """{port state-dict key: (flax path, layout transform)} for
+    :class:`~.vocoder.discriminators.HiFiGANDiscriminator` with
+    ``n_period_convs`` strided convs per period and ``n_scale_convs`` convs
+    before ``conv_post`` per scale.
+
+    Weight norm: the raw kernel → ``weight``, the ``WeightNorm_i`` scale →
+    ``scale``.  Spectral norm (scale 0): the raw kernel → ``weight``, and
+    the ``batch_stats`` ``u`` and ``sigma`` → the buffers.  An MPD kernel
+    (5, 1, in, out) → (out, in, 5, 1); an MSD kernel (k, in/g, out) →
+    (out, in/g, k)."""
+    r: dict[str, Rule] = {}
+    for i, p in enumerate(periods):
+        names = [f"conv_{j}" for j in range(n_period_convs)] + [
+            "conv_4", "conv_post"]
+        keys = [f"convs.{j}" for j in range(n_period_convs)] + [
+            "conv_4", "conv_post"]
+        for j, (name, key) in enumerate(zip(names, keys)):
+            tp, fp = f"mpd.{i}.{key}", f"params/mpd_period_{p}"
+            r[f"{tp}.weight"] = (f"{fp}/{name}/kernel", _conv2d_t)
+            r[f"{tp}.bias"] = (f"{fp}/{name}/bias", _same)
+            r[f"{tp}.scale"] = (f"{fp}/WeightNorm_{j}/{name}/kernel/scale",
+                                _same)
+    for s in range(n_scales):
+        names = [f"conv_{j}" for j in range(n_scale_convs)] + ["conv_post"]
+        keys = [f"convs.{j}" for j in range(n_scale_convs)] + ["conv_post"]
+        for j, (name, key) in enumerate(zip(names, keys)):
+            tp, fp = f"msd.scales.{s}.{key}", f"params/msd/scale_{s}"
+            _conv(r, tp, f"{fp}/{name}")
+            if s == 0:
+                sp = f"batch_stats/msd/scale_0/SpectralNorm_{j}/{name}/kernel"
+                r[f"{tp}.u"] = (f"{sp}/u", _same)
+                r[f"{tp}.sigma"] = (f"{sp}/sigma", _same)
+            else:
+                r[f"{tp}.scale"] = (
+                    f"{fp}/WeightNorm_{j}/{name}/kernel/scale", _same)
+    return r
+
+
 def _apply_rules(flat: Mapping[str, np.ndarray], rules: dict[str, Rule]
                  ) -> dict[str, torch.Tensor]:
     """Fill every key of ``rules`` from ``flat``; every leaf of ``flat``
@@ -176,6 +223,17 @@ def jax_to_torch_hifigan(flat: Mapping[str, np.ndarray],
                          ) -> dict[str, torch.Tensor]:
     """Flat flax params of ``HiFiGANGenerator`` → the port's state dict."""
     return _apply_rules(flat, hifigan_rules(config))
+
+
+def jax_to_torch_discriminator(flat: Mapping[str, np.ndarray],
+                               disc: HiFiGANDiscriminator
+                               ) -> dict[str, torch.Tensor]:
+    """Flat flax variables of ``HiFiGANDiscriminator`` (``params`` and the
+    spectral-norm ``batch_stats``) → the state dict of ``disc``, a port
+    discriminator of the same configuration."""
+    return _apply_rules(flat, discriminator_rules(
+        [d.period for d in disc.mpd], len(disc.mpd[0].convs),
+        len(disc.msd.scales), len(disc.msd.scales[0].convs)))
 
 
 def load_committed(npz_path: str | Path, index_path: str | Path

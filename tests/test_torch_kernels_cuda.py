@@ -15,22 +15,30 @@ throughout: ``out`` 1e-5, ``idx`` exact, ``gnum`` rtol 1e-5 / atol 1e-4 (the
 JAX package's kernel test), and ``gnum`` bit-equal from run to run.  The
 backward passes recompute the plain versions, so a gradient through a
 kernel's ``autograd.Function`` equals autograd through its plain version to
-f32 rounding: 1e-4.
+f32 rounding: 1e-4.  The log-mel kernel is f32 FMA against cuFFT in the
+plain version: mel atol 2e-4 / rtol 1e-4, energy atol 2e-3 / rtol 1e-4 (the
+JAX package's kernel test), on noise, the port's synthesised speech and
+silence, which gives exactly log(1e-5) and 0; on tones with a pause under a
+faint noise floor, where the f32 plain version is itself off, against the
+plain version run in float64.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
+                                                mel_spectrogram)
 from smart_nar_fast_tts_tpu_torch.kernels import (
     alignment_attention, alignment_reference, attention_reference,
-    flash_attention, gaussian_upsample_banded)
+    flash_attention, fused_log_mel, gaussian_upsample_banded)
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
 BF16_TOL = 2e-2
 F32_ATOL = 1e-5
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5
 GRAD_TOL = 1e-4
+MEL_ATOL, ENERGY_ATOL, MEL_RTOL = 2e-4, 2e-3, 1e-4
 
 
 @pytest.fixture
@@ -148,3 +156,81 @@ def test_backward_passes_match_the_plain_versions(card):
     want = _grads_of(pick(alignment_reference), (q, k, v), ct)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.fixture(scope="module")
+def speech_segments():
+    """16 segments of 8192 samples of the port's own synthesis (committed
+    weights, four seeded texts), drawn as the GAN step draws them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+
+    from smart_nar_fast_tts_tpu_torch.serving import RESULTS_DIR, Synthesizer
+    from smart_nar_fast_tts_tpu_torch.training import sample_segments
+    meta = json.loads((RESULTS_DIR / "flagship_meta.json").read_text())
+    texts = np.random.default_rng(0).choice(np.asarray(meta["phone_ids"]),
+                                            size=(4, 96))
+    synth = Synthesizer.from_committed()
+    wav, mel_lens = synth.synthesize(texts, np.full(4, 96))
+    clips = [w[:int(n) * synth.hop_length].cpu().numpy()
+             for w, n in zip(wav, mel_lens)]
+    return torch.from_numpy(sample_segments(clips, 16, 8192,
+                                            np.random.default_rng(0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["noise", "speech", "zeros"])
+@pytest.mark.parametrize("shape, kw", [
+    ((16, 8192), {}),
+    ((3, 300), dict(n_fft=32, hop_length=8, win_length=32, n_mels=8,
+                    mel_fmax=None))])
+def test_fused_log_mel(card, speech_segments, shape, kw, kind):
+    cfg = MelSpectrogramConfig(**kw)
+    rng = np.random.default_rng(13)
+    if kind == "noise":
+        y = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    elif kind == "speech":
+        y = speech_segments[:shape[0], :shape[1]].contiguous()
+    else:
+        y = torch.zeros(shape)
+    y = y.to(card)
+    mel, energy = fused_log_mel(y, cfg)
+    torch.cuda.synchronize()
+    ref_mel, ref_energy = mel_spectrogram(y, cfg)
+    assert mel.shape == ref_mel.shape and energy.shape == ref_energy.shape
+    torch.testing.assert_close(mel, ref_mel, atol=MEL_ATOL, rtol=MEL_RTOL)
+    torch.testing.assert_close(energy, ref_energy, atol=ENERGY_ATOL,
+                               rtol=MEL_RTOL)
+    if kind == "zeros":
+        assert torch.equal(mel, torch.log(torch.full_like(
+            mel, cfg.compression_clip)))
+        assert not energy.any()
+
+
+@pytest.mark.cuda
+def test_fused_log_mel_quiet_bins(card):
+    """Harmonic tones with a pause under a noise floor 100 dB down: bins
+    ~110 dB below a frame's loudest, where log compression magnifies the
+    f32 sums' rounding.  Against the plain version run in float64, the
+    kernel stays within the tolerance and no further off than the f32
+    plain version (cuFFT)."""
+    cfg = MelSpectrogramConfig()
+    rng = np.random.default_rng(14)
+    t = np.arange(8192) / 22050.0
+    y = np.zeros((8, 8192))
+    for b in range(8):
+        y[b] = sum(np.sin(2 * np.pi * (90.0 + 15.0 * b) * h * t
+                          + rng.uniform(0, 6)) / h ** 2 for h in range(1, 30))
+        y[b] *= 0.4 * np.exp(-4.0 * t / t[-1])
+        y[b, 8192 // 3: 8192 // 2] = 0.0
+    y = torch.from_numpy((y + 1e-5 * rng.standard_normal(y.shape)).astype(
+        np.float32)).to(card)
+    mel, energy = fused_log_mel(y, cfg)
+    exact_mel, exact_energy = (t.float() for t in mel_spectrogram(
+        y.double(), cfg))
+    torch.testing.assert_close(mel, exact_mel, atol=MEL_ATOL, rtol=MEL_RTOL)
+    torch.testing.assert_close(energy, exact_energy, atol=ENERGY_ATOL,
+                               rtol=MEL_RTOL)
+    plain_err = (mel_spectrogram(y, cfg)[0] - exact_mel).abs().max()
+    assert (mel - exact_mel).abs().max() <= plain_err

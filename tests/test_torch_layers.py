@@ -49,13 +49,43 @@ def test_multi_head_attention(trees):
     variables, model = trees
     x, valid, _ = _inputs(seed=1)
     p = variables["params"]["txt_encoder"]["layer_0"]["attn"]
-    expect, _ = jax_layers.MultiHeadAttention(D, HEADS, 0.0).apply(
+    expect, expect_maps = jax_layers.MultiHeadAttention(D, HEADS, 0.0).apply(
         {"params": p}, jnp.asarray(x), jnp.asarray(x), jnp.asarray(valid))
     with torch.no_grad():
         got, maps = model.txt_encoder.layer_stack[0].slf_attn(
             torch.from_numpy(x), torch.from_numpy(valid))
-    assert maps is None                   # the flash path keeps no maps
+    # below FLASH_MIN_LEN both take the einsum branch and return its maps
+    np.testing.assert_allclose(maps.numpy(), np.asarray(expect_maps),
+                               atol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), atol=ATOL)
+
+
+@pytest.mark.parametrize("length, calls", [(64, 0), (2049, 1)])
+def test_self_attention_dispatch(length, calls):
+    """Self-attention reaches the flash kernel's wrapper only past
+    ``FLASH_MIN_LEN`` (2048) frames, as the JAX model
+    (``smart_nar_fast_tts_tpu/models/layers.py:106-117``); shorter ones
+    take the f32 einsum branch."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.kernels import flash_attention
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    seen = []
+
+    def spy(q, k, v, key_valid):
+        seen.append(tuple(q.shape))
+        return flash_attention(q, k, v, key_valid)
+
+    torch.manual_seed(0)
+    attn = layers.MultiHeadAttention(8, 1)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, length, 8)).astype(np.float32))
+    valid = torch.ones(1, length, dtype=torch.bool)
+    with mock.patch.object(layers, "flash_attention", spy), torch.no_grad():
+        out, maps = attn(x, valid)
+    assert seen == [(1, 1, length, 8)] * calls
+    assert (maps is None) == (calls == 1)
+    assert out.shape == (1, length, 8) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("stack", ["txt_encoder", "mel_decoder"])

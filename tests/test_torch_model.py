@@ -106,11 +106,13 @@ def test_committed_flagship_full_width():
 
 
 def test_flagship_attention_logits_outrun_bf16():
-    """Why the card's mel is held to the f32 run through durations only
-    (``chip_smoke.py``, reference phase): the committed flagship's attention
-    logits QKᵀ/√D exceed 1e3, so rounding q·scale and k to bf16, as the
-    TPU kernel and the port's CUDA kernel do, moves them by more than 1,
-    which reorders the softmax in the decoder."""
+    """Why self-attention runs the bf16 flash kernel only where the JAX
+    model does (past ``FLASH_MIN_LEN`` frames) and the f32 einsum branch
+    below: the committed flagship's attention logits QKᵀ/√D exceed 1e3, so
+    rounding q·scale and k to bf16, as the TPU kernel and the port's CUDA
+    kernel do, moves them by more than 1, which reorders the softmax.  The
+    threshold is patched to 0 here so that all 8 self-attentions reach the
+    spy at a CPU-sized length."""
     from unittest import mock
 
     from smart_nar_fast_tts_tpu_torch.kernels import flash_attention
@@ -137,7 +139,8 @@ def test_flagship_attention_logits_outrun_bf16():
 
     rng = np.random.default_rng(0)
     texts = rng.choice(np.asarray(meta["phone_ids"]), size=(2, 16))
-    with mock.patch.object(layers, "flash_attention", spy), torch.no_grad():
+    with mock.patch.object(layers, "flash_attention", spy), \
+            mock.patch.object(layers, "FLASH_MIN_LEN", 0), torch.no_grad():
         port.eval()(torch.from_numpy(texts), torch.tensor([16, 11]),
                     max_mel_len=256)
     assert len(logits) == 8                   # 4 encoder + 4 decoder layers

@@ -24,6 +24,7 @@ from smart_nar_fast_tts_tpu.ops.pallas.upsample import (
 from smart_nar_fast_tts_tpu.ops.positional import (
     sinusoid_table as jax_sinusoid)
 from smart_nar_fast_tts_tpu_torch import kernels
+from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
 from smart_nar_fast_tts_tpu_torch.kernels import (
     attention_reference, flash_attention, gaussian_upsample_banded,
     masked_softmax)
@@ -162,6 +163,9 @@ def test_cpu_tensors_take_the_plain_versions():
     src_lens = torch.from_numpy(valid.sum(1))
     kernels.alignment_attention(_t(q), _t(k), _t(v), _t(valid), src_lens,
                                 torch.full_like(src_lens, q.shape[2]))
+    kernels.fused_log_mel(torch.zeros(2, 64), MelSpectrogramConfig(
+        n_fft=32, hop_length=8, win_length=32, n_mels=8, mel_fmax=None))
     assert kernels.launches() == {"flash_attention": 0,
                                   "gaussian_upsample_banded": 0,
-                                  "alignment_attention": 0}
+                                  "alignment_attention": 0,
+                                  "fused_log_mel": 0}

@@ -60,7 +60,7 @@ def random_variables(shapes, seed: int):
 
     def draw(path, s):
         name = path_str(path).rsplit("/", 1)[-1]
-        a = rng.randn(*s.shape)
+        a = np.asarray(rng.randn(*s.shape))
         if name == "kernel":
             a = a / np.sqrt(np.prod(s.shape[:-1]))
         elif name in ("scale", "var"):
