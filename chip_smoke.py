@@ -16,7 +16,13 @@ any failure raises (exit code 1):
             attention), then timed beside it (and beside one PyTorch library
             call where one computes the same function); then each kernel's
             backward (its ``autograd.Function``) against autograd through its
-            plain version
+            plain version.  The flash kernel is also held to the plain
+            version that rounds where it does (``attention_bf16_reference``)
+            on prefix masks, a mask with holes and one whose valid keys sit
+            in the last key tile, f32 and bf16 operands; it is timed with
+            f32 and bf16 operands beside SDPA on both, and with one valid
+            key tile per item (its cost beside the products); ptxas
+            registers, shared memory and spills of each of its kernels
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings.
@@ -25,7 +31,7 @@ any failure raises (exit code 1):
   e2e cap 4096  stage A of the same inputs at the 4096-frame cap of the JAX
             package's ``serving_mel_caps``: the decoder's self-attention runs
             the flash kernel (4 launches at (8, 2, 4096, 128)), the encoder's
-            does not
+            does not; then the kernel alone on each launch's own inputs
   kernel fused_log_mel  the log-mel kernel against its plain version on
             noise, the synthesised speech segments of the GAN phase and
             silence, at the GAN step's shape (B 16 × 8192 samples) and a tiny
@@ -94,7 +100,16 @@ VOC_B, VOC_SEG, VOC_STEPS = 16, 8192, 5
 PER_GAN_STEP = {"flash_attention": 0, "alignment_attention": 0,
                 "gaussian_upsample_banded": 0, "fused_log_mel": 2}
 
-BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16
+BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
+                    # against attention_bf16_reference, which rounds at the
+                    # same points, it is held per element to
+                    # kernels.attention_bf16_tolerance (1e-3 + 2^-8·Σp|v|/l,
+                    # + 2^-7·|ref| for a bf16 output) and, where each item's
+                    # valid keys sit in one 128-key tile (the online softmax
+                    # is then the two-pass one), on average to ONE_TILE_MEAN:
+                    # a moved rounding point costs ≥ 1.6e-4 there
+ONE_TILE_MEAN = 1e-5
+FLASH_TILE = 128    # the kernel's key tile (csrc/flash_attention.cu BN)
 F32_TOL = 1e-5      # the upsampling kernel is f32 throughout: sums of at
                     # most L terms, and what the band leaves out weighs
                     # below exp(-36) ≈ 2e-16 of the total
@@ -196,63 +211,168 @@ def check_close(name, got, expect, tol, torch, rtol=0.0):
     return err
 
 
-def kernel_flash_attention(torch, np, kernels):
-    import torch.nn.functional as F
-    rng = np.random.default_rng(1)
-    entry, err_max, crossover = {}, 0.0, []
-    # the serving encoder (8, 2, 128, 128); the serving decoder at each
-    # length of FLASH_TS, timed beside its plain version and SDPA (the
-    # crossover; T_CAP_LONG is the main path's shape); the training encoder
-    # and decoder.  bf16 operands too at the encoder and at T_CAP.
-    cases = [("encoder", B, L)] + [(f"decoder {t}", B, t) for t in FLASH_TS] \
-        + [("train encoder", TRAIN_B, TRAIN_L),
-           ("train decoder", TRAIN_B, TRAIN_T)]
-    for name, b, Lx in cases:
+def flash_valid(torch, np, rng, b, Lx, kind):
+    """key_valid (b, Lx) on the card, item 0 fully masked: ``prefix`` keys
+    below lengths in [Lx/2, Lx]; ``holes`` each key valid with probability
+    0.3 (no prefix); ``last tile`` valid keys only in the kernel's last
+    128-key tile, a ragged one when Lx is not a multiple of 128."""
+    if kind == "prefix":
         lens = rng.integers(Lx // 2, Lx + 1, size=b)
-        lens[0] = 0                                   # a fully masked item
-        valid = torch.from_numpy(np.arange(Lx)[None, :] < lens[:, None]
-                                 ).cuda()
+        lens[0] = 0
+        valid = np.arange(Lx)[None, :] < lens[:, None]
+    elif kind == "holes":
+        valid = rng.random((b, Lx)) < 0.3
+        valid[0] = False
+    else:
+        valid = np.zeros((b, Lx), bool)
+        last = (Lx - 1) // 128 * 128
+        valid[1:, last:] = rng.random((b - 1, Lx - last)) < 0.5
+        valid[1:, Lx - 1] = True
+    return torch.from_numpy(valid).cuda()
+
+
+def flash_errors(torch, kernels, name, out, q, k, v, valid):
+    """The kernel's output against the f32 plain version (BF16_TOL) and the
+    bf16-rounding plain version (``attention_bf16_tolerance`` per element;
+    ONE_TILE_MEAN on average where every item's valid keys sit in one key
+    tile); a fully masked item must be exactly 0.  Returns the two max abs
+    errors, the largest share of the per-element tolerance used and the
+    mean abs error against the bf16 plain version."""
+    ref = kernels.attention_reference(q, k, v, valid)
+    err = check_close(f"flash_attention {name} {q.dtype}", out, ref,
+                      BF16_TOL, torch, rtol=BF16_TOL)
+    ref = kernels.attention_bf16_reference(q, k, v, valid)
+    tol = kernels.attention_bf16_tolerance(q, k, v, valid, ref)
+    gap = (out.float() - ref.float()).abs()
+    share = (gap / tol).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention {name} {q.dtype}: beyond "
+                             "attention_bf16_tolerance of the bf16 plain "
+                             f"version ({share} of it; max abs err "
+                             f"{gap.max().item()})")
+    mean = gap.mean().item()
+    keys = torch.arange(valid.shape[1], device=valid.device)
+    first = torch.where(valid, keys, valid.shape[1]).amin(1) // FLASH_TILE
+    last = torch.where(valid, keys, -1).amax(1) // FLASH_TILE
+    if bool((first == last)[valid.any(1)].all()) and not mean <= ONE_TILE_MEAN:
+        raise AssertionError(f"flash_attention {name} {q.dtype}: mean abs "
+                             f"err {mean} against the bf16 plain version "
+                             f"over {ONE_TILE_MEAN} with every item in one "
+                             "key tile: a rounding point moved")
+    masked = ~valid.any(1)
+    if not (out[masked] == 0).all() or out.dtype != q.dtype:
+        raise AssertionError("flash_attention: masked item not zero or "
+                             "wrong dtype")
+    return err, gap.max().item(), share, mean
+
+
+def flash_ptxas(compiled, lib):
+    """ptxas registers, static shared memory and spills of each kernel of
+    csrc/flash_attention.cu (when this run compiled it), and the attention
+    kernel's dynamic shared memory."""
+    import re
+    out = {"dynamic_smem_bytes": {
+        f"D {d}, Lk {T_CAP_LONG}": lib.flash_attention_smem_bytes(
+            d, T_CAP_LONG) for d in (64, 128)}}
+    if "flash_attention" not in compiled:
+        out["kernels"] = "not compiled in this run: the build directory had it"
+        return out
+    for name, info in compiled["flash_attention"]["kernels"].items():
+        label = re.search(r"(flash_attention|kv_to_bf16)_kernel",
+                          name).group(0)
+        d = re.search(r"ILi(\d+)E", name)
+        if d:
+            label += f"<D {d.group(1)}"
+            if label.startswith("flash_attention_kernel"):
+                label += ", bf16" if "nv_bfloat16" in name else ", f32"
+            label += ">"
+        out[label] = info
+    return out
+
+
+def kernel_flash_attention(torch, np, kernels, compiled):
+    import torch.nn.functional as F
+
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.attention import _SIGNATURES
+    rng = np.random.default_rng(1)
+    entry, err_max, emu_max, share_max, crossover = {}, 0.0, 0.0, 0.0, []
+    # the serving encoder (8, 2, 128, 128); the serving decoder at each
+    # length of FLASH_TS, timed beside its plain version and SDPA on f32
+    # and on bf16 operands (the crossover; T_CAP_LONG is the main path's
+    # shape); the training encoder and decoder; a mask with holes and one
+    # whose only valid keys sit in the last (ragged) tile.  bf16 operands
+    # too at the encoder, at T_CAP and on the two masks.
+    cases = [("encoder", B, L, "prefix")] \
+        + [(f"decoder {t}", B, t, "prefix") for t in FLASH_TS] \
+        + [("train encoder", TRAIN_B, TRAIN_L, "prefix"),
+           ("train decoder", TRAIN_B, TRAIN_T, "prefix"),
+           (f"decoder {T_CAP_LONG} holes", B, T_CAP_LONG, "holes"),
+           ("decoder 4000 last tile", B, 4000, "last tile")]
+    for name, b, Lx, kind in cases:
+        valid = flash_valid(torch, np, rng, b, Lx, kind)
         base = [torch.from_numpy(rng.standard_normal(
             (b, 2, Lx, 128)).astype(np.float32)).cuda() for _ in range(3)]
-        dtypes = (torch.float32, torch.bfloat16) \
-            if name in ("encoder", f"decoder {T_CAP}") else (torch.float32,)
+        dtypes = (torch.float32,) if kind == "prefix" and name not in (
+            "encoder", f"decoder {T_CAP}") else (torch.float32,
+                                                 torch.bfloat16)
         for dtype in dtypes:
             with Phase("kernel flash_attention") as f:
                 q, k, v = (t.to(dtype) for t in base)
                 out = kernels.flash_attention(q, k, v, valid)
                 torch.cuda.synchronize()
-                ref = kernels.attention_reference(q, k, v, valid)
-                err = check_close(f"flash_attention {name} {dtype}", out,
-                                  ref, BF16_TOL, torch, rtol=BF16_TOL)
-                del ref
-                if not (out[0] == 0).all() or out.dtype != dtype:
-                    raise AssertionError("flash_attention: masked item not "
-                                         "zero or wrong dtype")
-                err_max = max(err_max, err)
+                err, err_emu, share, mean = flash_errors(
+                    torch, kernels, name, out, q, k, v, valid)
+                err_max, emu_max = max(err_max, err), max(emu_max, err_emu)
+                share_max = max(share_max, share)
                 f.update(case=name, shape=list(q.shape), dtype=str(dtype),
-                         max_abs_err=err)
-                if dtype != torch.float32 or not name.startswith("decoder"):
+                         mask=kind, valid_keys=int(valid.sum()),
+                         max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
+                         bf16_tolerance_share=share,
+                         mean_abs_err_vs_bf16_plain=mean)
+                if dtype != torch.float32 or not name.startswith("decoder") \
+                        or kind != "prefix":
                     continue
                 mask = valid[:, None, None, :]
+                qb, kb, vb = (t.to(torch.bfloat16) for t in base)
                 ms = device_ms(lambda: kernels.flash_attention(
                     q, k, v, valid), torch)
+                bf16_ms = device_ms(lambda: kernels.flash_attention(
+                    qb, kb, vb, valid), torch)
                 plain_ms = device_ms(lambda: kernels.attention_reference(
                     q, k, v, valid), torch)
                 library_ms = device_ms(
                     lambda: F.scaled_dot_product_attention(
                         q, k, v, attn_mask=mask), torch)
+                library_bf16_ms = device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qb, kb, vb, attn_mask=mask), torch)
                 nbytes = 4 * (q.numel() * 2 + k.numel() + v.numel()) \
                     + valid.numel()
                 # the products over the valid keys: QKᵀ and PV
-                flops = 4 * 2 * Lx * 128 * int(lens.sum())
+                flops = 4 * 2 * Lx * 128 * int(valid.sum())
                 bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
                 timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              bound_share=bound_ms / ms,
+                              tflops=flops / ms / 1e9, bf16_ms=bf16_ms,
+                              library_bf16_ms=library_bf16_ms,
+                              vs_library_bf16=ms / library_bf16_ms)
                 f.update(timing)
                 crossover.append(dict(T=Lx, **timing))
                 if Lx == T_CAP_LONG:
+                    # what a launch costs beside its products: one valid
+                    # key tile per item (q load, output store, set-up)
+                    one = torch.zeros_like(valid)
+                    one[:, :FLASH_TILE] = True
+                    timing["one_tile_ms"] = device_ms(
+                        lambda: kernels.flash_attention(q, k, v, one), torch)
+                    f.update(one_tile_ms=timing["one_tile_ms"])
                     entry.update(timing, shape=list(q.shape))
-    entry.update(max_abs_err=err_max, crossover=crossover)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    entry.update(max_abs_err=err_max, max_abs_err_vs_bf16_plain=emu_max,
+                 bf16_tolerance_share=share_max, crossover=crossover,
+                 ptxas=flash_ptxas(compiled, lib))
     return entry
 
 
@@ -686,10 +806,10 @@ def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
     from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
     with Phase("e2e cap 4096") as f:
         long_synth = Synthesizer(synth.model, synth.vocoder, t_cap=T_CAP_LONG)
-        shapes, flash = [], layers.flash_attention
+        calls, flash = [], layers.flash_attention
 
         def spy(q, k, v, key_valid):          # the model's call, recorded
-            shapes.append(list(q.shape))
+            calls.append((q, k, v, key_valid))
             return flash(q, k, v, key_valid)
 
         kernels.reset_launches()
@@ -698,6 +818,7 @@ def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
                                      torch.from_numpy(src_lens))
         torch.cuda.synchronize()
         counts = kernels.launches()
+        shapes = [list(c[0].shape) for c in calls]
         if counts != PER_SERVING_BATCH_LONG or shapes != [
                 [B, 2, T_CAP_LONG, 128]] * 4:
             raise AssertionError(f"cap-4096 launches {counts} at {shapes}, "
@@ -712,6 +833,26 @@ def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
         diff = (out.postnet_mel[:, :T_CAP] - short.postnet_mel).abs()[shared]
         stage_a_ms = wall_ms(lambda: long_synth.stage_a(
             torch.from_numpy(texts), torch.from_numpy(src_lens)), torch)
+        # the kernel alone at the path's own inputs (shape, mask, values),
+        # after the launch counts were read; the first layer's output
+        # against both plain versions, reported (the flagship's attention
+        # logits reach ~1e3, where bf16 operands move scores by units)
+        with torch.inference_mode():
+            flash_ms = [device_ms(lambda c=c: kernels.flash_attention(*c),
+                                  torch) for c in calls]
+            first = kernels.flash_attention(*calls[0])
+            errs = {f"layer1_vs_{n}": (first - ref(*calls[0])).abs().max(
+            ).item() for n, ref in (
+                ("f32_plain", kernels.attention_reference),
+                ("bf16_plain", kernels.attention_bf16_reference))}
+        valid_keys = int(calls[0][3].sum())
+        flops = 4 * 2 * T_CAP_LONG * 128 * valid_keys
+        nbytes = 4 * 4 * calls[0][0].numel() + calls[0][3].numel()
+        path_bound_ms, path_bound_by = bound(nbytes, flops, BF16_FLOPS)
+        f.update(flash_valid_keys=valid_keys, flash_ms_on_path=flash_ms,
+                 flash_ms_on_path_sum=sum(flash_ms),
+                 flash_bound_ms_on_path=path_bound_ms,
+                 flash_bound_by_on_path=path_bound_by, **errs)
         f.update(launches=counts, flash_shapes=shapes,
                  mel_lens=out.mel_lens.tolist(),
                  mel_lens_cap1000=short.mel_lens.tolist(),
@@ -1011,15 +1152,16 @@ def main() -> int:
                  count=torch.cuda.device_count(), tf32=False)
 
     with Phase("build") as f:
+        compiled = _build.build_all()
         f.update(nvcc=_build.find_nvcc(), out=str(_build.build_dir()),
-                 compiled=_build.build_all())
+                 compiled=compiled)
 
     entries = {
         "flash_attention": dict(
             route="cuda",
             source="smart_nar_fast_tts_tpu_torch/csrc/flash_attention.cu",
             replaces="smart_nar_fast_tts_tpu/ops/pallas/attention.py:52",
-            **kernel_flash_attention(torch, np, kernels)),
+            **kernel_flash_attention(torch, np, kernels, compiled)),
         "gaussian_upsample_banded": dict(
             route="cuda",
             source="smart_nar_fast_tts_tpu_torch/csrc/gaussian_upsample.cu",

@@ -1,210 +1,755 @@
-// Flash attention forward for the FFT blocks' self-attention.
+// Flash attention forward for the FFT blocks' self-attention, on Hopper.
 //
 // Replaces the TPU kernel `_flash_kernel` / `_flash_forward` of
-// smart_nar_fast_tts_tpu/ops/pallas/attention.py: masked softmax(QK^T/sqrt(D))V
-// with an online softmax over key tiles, so the (Lq, Lk) scores never reach
-// device memory.  Numerics follow the TPU kernel: q*scale, k, v and the
-// probability tile are rounded to bf16 and products are summed in f32; the
-// softmax statistics m and l stay f32.  An invalid key gets score -1e30 and
-// probability 0; a row with no valid key writes 0 (l is clamped at 1e-37).
+// smart_nar_fast_tts_tpu/ops/pallas/attention.py:52-118: masked
+// softmax(QK^T/sqrt(D))V with an online softmax over key tiles, so the
+// (Lq, Lk) scores never reach device memory.  It computes the TPU kernel's
+// function, rounding where it rounds: q is multiplied by scale = 1/sqrt(D) in
+// f32 and then rounded to bf16; k and v are rounded to bf16; scores are
+// summed in f32; p = exp(s - m_new) is computed in f32 and only then rounded
+// to bf16 for the PV product, which sums in f32; m, l and alpha stay f32.
+// exp(x) is taken as exp2(x * log2(e)), the factor applied to f32 scores
+// after the product.  An invalid key gets score -1e30 and probability 0; a
+// row with no valid key writes 0 (l is clamped at 1e-37).  Query rows past an
+// item's length are computed like any other row.
 //
-// Bound on the H100: at the decoder's serving shape (D = 128, Lq = Lk = 1000)
-// the two products are ~250 FLOP per byte of f32 q, k, v and out, just under
-// the card's bf16 ridge (~295), so at tensor-core rates it would be bound by
-// memory; this first version does the products with f32 FMA on CUDA cores
-// (67 TFLOP/s peak), which makes it bound by FMA issue.
-// Design for that: the TPU grid's sequential key-block axis becomes a loop
-// inside the block; one block owns 64 query rows of one (batch, head); four
-// threads share a row, each keeping a quarter of the row's q, output and
-// every score of the current 32-key tile in registers, and the K and V tiles
-// are staged once per block in shared memory (as f32 holding the bf16-rounded
-// values), read as float4 with no bank conflicts.  The ragged edges of Lq and
-// Lk are masked in the kernel: no padding copies.  Later work: bf16 mma /
-// wgmma for the two products.
-#include <cuda_runtime.h>
+// Bound on the H100: at the decoder's serving shapes (D 128, Lq = Lk = 4096,
+// a third to all of the keys valid) the two products are ~1000 bf16 FLOP per
+// byte of f32 q, k, v and out, above the card's bf16 ridge (~295), so the
+// least time is the tensor cores' over the valid keys.
+// Design for that (one block per 128 query rows of one (batch, head)):
+//  * both products run on the tensor cores as `wgmma` (sm_90a), bf16
+//    operands and f32 accumulators in registers: two consumer warpgroups of
+//    64 query rows each compute S = Q K^T (m64n128k16, Q and K from shared
+//    memory), then P V (m64nDk16) with P rounded to bf16 in registers as the
+//    A operand and V's tile read from shared memory, transposed by the
+//    instruction;
+//  * a warpgroup's tile n S product is issued together with its tile n - 1
+//    P V product, so that the softmax of tile n (exp on the special-function
+//    units) runs while P V is on the tensor cores.  The softmax never writes
+//    S's registers while P V runs (ptxas would serialize the wgmmas), and
+//    the first tile is peeled off the loop, so that both products are
+//    issued on every pass;
+//  * a producer warpgroup gives its registers to the consumers (setmaxnreg
+//    24 / 240); one of its warps keeps a 3-stage ring of bf16 K and V tiles
+//    (128 keys) in shared memory filled by TMA (`cp.async.bulk.tensor`,
+//    128-byte swizzle, completion on an mbarrier); a stage is released
+//    through a second mbarrier once its P V product is done;
+//  * a key tile with no valid key for the block's item is skipped by every
+//    warp alike: such a tile would give alpha = 1 and p = 0, so skipping it
+//    changes no bit.  The block first writes each tile's valid-key words to
+//    shared memory (warp ballots, all loads in flight at once, while the
+//    consumers' q loads are in flight too); every warp reads them there.
+//    They take 16 bytes a tile beside the q tiles and the ring (225 KB),
+//    which bounds Lk at 16,000 keys at D 128 (the model's longest: 8192);
+//  * f32 inputs (the model's case) first pass through `kv_to_bf16_kernel`,
+//    which rounds k and v to bf16 into scratch the caller allocates (only
+//    the tiles that hold a valid key: 12 bytes per element read and
+//    written), so TMA reads bf16 tiles; q is scaled, rounded and stored
+//    swizzled by the consumers themselves, once per block;
+//  * the ragged edges of Lq and Lk are masked in the kernel (TMA fills keys
+//    past Lk with zeros, rows past Lq are computed and not stored): no
+//    padding copies.
+// What it leaves on the table: one block per SM (registers and shared
+// memory), so a block's q load, output store and set-up are not hidden
+// behind another block's products; `chip_smoke.py` times them as the
+// kernel with one valid key tile per item.  Taking turns between the two
+// warpgroups (ping-pong) and a persistent grid that loads the next block's
+// q during this one's stores were each measured no faster here; removing
+// the K/V loads altogether did not speed the loop up either, so it is
+// bound by the consumers' instructions, not by L2.
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 32;                 // keys per shared-memory tile
-constexpr int TPR = 4;                 // threads per query row
-constexpr int THREADS = BQ * TPR;      // 256
+constexpr int BM = 128;                  // query rows per block
+constexpr int BN = 128;                  // keys per tile
+constexpr int STAGES = 3;                // K/V tiles in flight
+constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS + 128; // and a producer warpgroup
+constexpr int ROW_BYTES = 128;           // a swizzled row: 64 bf16
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int ENCODE_FAILED = -1;        // status: no tensor map
+constexpr int TOO_MANY_KEYS = -2;        // status: masks exceed shared memory
+constexpr int MAX_SMEM = 232448;         // a block's shared memory on sm_90
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// Shared memory, from a 1024-byte aligned base: each warpgroup's q tile,
+// then the K ring, the V ring, the mbarriers and each key tile's valid-key
+// words (16 bytes a tile, sized at launch).  Every tile is stored as
+// D / 64 slabs of 64 columns, one 128-byte row per key (or query row), with
+// the 16-byte chunks of row r XOR-ed by r % 8 (TMA's 128-byte swizzle).
+template <int D>
+struct Smem {
+  static constexpr int SLABS = D / 64;
+  static constexpr int Q_WG = 64 * D * 2;            // one warpgroup's q
+  static constexpr int Q_SLAB = 64 * ROW_BYTES;
+  static constexpr int TILE = BN * D * 2;            // one K or V tile
+  static constexpr int TILE_SLAB = BN * ROW_BYTES;
+  static constexpr int K = 2 * Q_WG;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BARS = V + STAGES * TILE;
+  static constexpr int MASKS = BARS + 2 * STAGES * 8;
+  static constexpr int BYTES = MASKS + 1024;  // + alignment; + the masks
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-// Thread (r, g), r = tid / 4 the row within the tile and g = tid % 4, owns
-// the columns d = 16 i + 4 g + c (i < D / 16, c < 4): the four threads of a
-// row read one 64-byte run of a K or V row per step.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+// Returns once the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | (static_cast<uint64_t>(lbo >> 4) << 16)
+       | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {   // N groups may stay open
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from touching registers that an asynchronous wgmma
+// reads or writes before the wait that ends it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define ACC8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
+#define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
+#define REGS32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define REGS64                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x 128, f32) = or += A (64 x 16) B (16 x 128): A and B^T K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : ACC64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B (16 x N): B
+// N-major in shared memory (transposed by the instruction).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
+      : ACC64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef ACC8
+#undef ACC32
+#undef ACC64
+#undef REGS32
+#undef REGS64
+
+// O += P V over a tile's 128 keys in steps of 16 (issued and committed, not
+// waited for): V is the N-major B operand, 8-key groups 1024 bytes apart,
+// 64-column slabs TILE_SLAB apart.
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2],
+                                           const uint32_t (&pa)[32],
+                                           uint32_t v_smem) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+    wgmma_rs(o, pa + 4 * kk,
+             wgmma_desc(v_smem + kk * 16 * ROW_BYTES, Smem<D>::TILE_SLAB,
+                        1024));
+  wgmma_commit();
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The valid keys of tile [key0, key0 + 128) as four 32-bit words (bit j of
+// word c: key key0 + 32 c + j); keys past Lk are invalid.  Every lane of the
+// warp gets the same words.
+__device__ __forceinline__ void tile_mask(const uint8_t* valid_b, int Lk,
+                                          int key0, int lane,
+                                          uint32_t (&w)[4]) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int key = key0 + 32 * c + lane;
+    w[c] = __ballot_sync(0xffffffffu, key < Lk && valid_b[key] != 0);
+  }
+}
+
+// Every key tile's words into masks[t]: warp w takes tiles w, w + WARPS, ...,
+// four at a time with all their loads in flight before the ballots.
+__device__ __forceinline__ void build_masks(const uint8_t* valid_b, int Lk,
+                                            int n_tiles, int warp, int lane,
+                                            uint4* masks) {
+  constexpr int WARPS = THREADS / 32;
+  for (int t0 = warp; t0 < n_tiles; t0 += 4 * WARPS) {
+    bool ok[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = (t0 + u * WARPS) * BN + 32 * c + lane;
+        ok[u][c] = key < Lk && valid_b[key] != 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = __ballot_sync(0xffffffffu, ok[u][c]);
+      if (lane == 0 && t0 + u * WARPS < n_tiles)
+        masks[t0 + u * WARPS] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One warpgroup's 64 query rows from row0 in two steps, so that other work
+// overlaps the loads: load_q reads them (rows past Lq are zeros), store_q
+// writes bf16(q * scale) swizzled at dst.
+template <int D>
+constexpr int Q_CHUNKS = 64 * (D / 8) / 128;   // 8-column chunks a thread
+
 template <int D, typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v,
+__device__ __forceinline__ void load_q(const T* q_bh, int Lq, int row0,
+                                       int wl, float (&x)[Q_CHUNKS<D>][8]) {
+#pragma unroll
+  for (int i = 0; i < Q_CHUNKS<D>; ++i) {
+    const int c = wl + 128 * i, r = c / (D / 8), j = c % (D / 8);
+    if (row0 + r < Lq) {
+      load8(q_bh + (size_t)(row0 + r) * D + 8 * j, x[i]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[i][e] = 0.f;
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_q(const float (&x)[Q_CHUNKS<D>][8],
+                                        uint8_t* dst, int wl, float scale) {
+#pragma unroll
+  for (int i = 0; i < Q_CHUNKS<D>; ++i) {
+    const int c = wl + 128 * i, r = c / (D / 8), j = c % (D / 8);
+    uint4 u;
+    u.x = bf16x2(x[i][0] * scale, x[i][1] * scale);
+    u.y = bf16x2(x[i][2] * scale, x[i][3] * scale);
+    u.z = bf16x2(x[i][4] * scale, x[i][5] * scale);
+    u.w = bf16x2(x[i][6] * scale, x[i][7] * scale);
+    *reinterpret_cast<uint4*>(dst + (j / 8) * Smem<D>::Q_SLAB
+                              + r * ROW_BYTES + ((j % 8) ^ (r % 8)) * 16) = u;
+  }
+}
+
+// One tile's online softmax for a thread's two rows (a row's 128 scores
+// sit in the four lanes of a quad): an invalid key's score is -1e30 (if
+// MASKED), m and l move on, alpha = exp(m_old - m_new), and p = exp(s - m)
+// in f32 is summed into l and rounded to bf16 pairs in the A layout of
+// m64n*k16: keys 16 kk .. 16 kk + 15 in pn[4 kk .. 4 kk + 3].
+template <bool MASKED>
+__device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
+                                             int quad, float& m0, float& m1,
+                                             float& l0, float& l1,
+                                             float& alpha0, float& alpha1,
+                                             uint32_t (&pn)[32]) {
+  const uint32_t wq[4] = {w.x >> (2 * quad), w.y >> (2 * quad),
+                          w.z >> (2 * quad), w.w >> (2 * quad)};
+  auto score = [&](int i) {
+    return !MASKED || ((wq[i / 16] >> (8 * (i / 4 % 4) + i % 2)) & 1u)
+               ? sc[i] : NEG_INF;
+  };
+  float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(score(4 * i), score(4 * i + 1)));
+    mx1 = fmaxf(mx1, fmaxf(score(4 * i + 2), score(4 * i + 3)));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  alpha0 = exp2_approx((m0 - mn0) * LOG2E);
+  alpha1 = exp2_approx((m1 - mn1) * LOG2E);
+  m0 = mn0;
+  m1 = mn1;
+  const float ms0 = mn0 * LOG2E, ms1 = mn1 * LOG2E;
+  float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {   // an invalid key's -1e30 gives p = 0
+    const float p0 = exp2_approx(fmaf(score(4 * i), LOG2E, -ms0));
+    const float p1 = exp2_approx(fmaf(score(4 * i + 1), LOG2E, -ms0));
+    const float p2 = exp2_approx(fmaf(score(4 * i + 2), LOG2E, -ms1));
+    const float p3 = exp2_approx(fmaf(score(4 * i + 3), LOG2E, -ms1));
+    ps0 += p0 + p1;
+    ps1 += p2 + p3;
+    pn[2 * i] = bf16x2(p0, p1);
+    pn[2 * i + 1] = bf16x2(p2, p3);
+  }
+  l0 = l0 * alpha0 + ps0;
+  l1 = l1 * alpha1 + ps1;
+}
+
+// tile_softmax for a tile with any keys masked, or with none
+__device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
+                                             int quad, float& m0, float& m1,
+                                             float& l0, float& l1,
+                                             float& alpha0, float& alpha1,
+                                             uint32_t (&pn)[32]) {
+  if ((w.x & w.y & w.z & w.w) == 0xffffffffu)
+    tile_softmax<false>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+  else
+    tile_softmax<true>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+}
+
+__device__ __forceinline__ bool any_key(uint4 w) {
+  return (w.x | w.y | w.z | w.w) != 0;
+}
+
+// S = (q scale) K^T for the tile in ring stage n % STAGES, once it has
+// arrived (issued and committed, not waited for): over D in steps of 16;
+// within a 64-column slab the start address moves 32 bytes a step, and
+// 8-row groups are 1024 bytes apart.
+template <int D>
+__device__ __forceinline__ void s_product(float (&sc)[64], uint32_t q_smem,
+                                          uint32_t k_smem, uint32_t full,
+                                          int n) {
+  mbar_wait(full + 8 * (n % STAGES), (n / STAGES) & 1);
+  __syncwarp();                                // wgmma needs whole warps
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n128(
+        sc, wgmma_desc(q_smem + (kk / 4) * Smem<D>::Q_SLAB + off, 16, 1024),
+        wgmma_desc(k_smem + (kk / 4) * Smem<D>::TILE_SLAB + off, 16, 1024),
+        kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const T* __restrict__ q,
                        const uint8_t* __restrict__ key_valid,
                        T* __restrict__ out, int H, int Lq, int Lk,
                        float scale) {
-  constexpr int NC = D / TPR;          // columns per thread
-  constexpr int NV = NC / 4;           // float4 groups per thread
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
-  __shared__ float valid_s[BK];
+  using S = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - raw);
+  const uint32_t full = base + S::BARS;        // full[s] at full + 8 s
+  const uint32_t empty = full + 8 * STAGES;    // empty[s] at empty + 8 s
 
-  const int bh = blockIdx.y;
-  const int b = bh / H;
   const int tid = threadIdx.x;
-  const int r = tid / TPR;
-  const int g = tid % TPR;
-  const int row = blockIdx.x * BQ + r;
-  const bool row_ok = row < Lq;
-  const size_t q_off = ((size_t)bh * Lq + (row_ok ? row : 0)) * D;
-  const size_t kv_base = (size_t)bh * Lk * D;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y;
+  const uint8_t* valid_b = key_valid + (size_t)(bh / H) * Lk;
+  const int n_tiles = (Lk + BN - 1) / BN;
+  uint4* masks = reinterpret_cast<uint4*>(base_ptr + S::MASKS);
 
-  float qr[NC];
-  float o[NC];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int d = 16 * i + 4 * g + c;
-      qr[4 * i + c] = row_ok ? bf16_round(load_f(q + q_off + d) * scale) : 0.f;
-      o[4 * i + c] = 0.f;
+  // the consumers: warpgroup wg owns query rows q0 .. q0 + 63; their q
+  // loads are in flight while every warp builds the key tiles' masks
+  const int wg = warp / 4, wl = tid % 128;
+  const int q0 = blockIdx.x * BM + 64 * wg;
+  float x[Q_CHUNKS<D>][8];
+  if (warp < CONSUMERS / 32) load_q<D>(q + (size_t)bh * Lq * D, Lq, q0, wl, x);
+  build_masks(valid_b, Lk, n_tiles, warp, lane, masks);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  float m = NEG_INF;
-  float l = 0.f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < Lk; k0 += BK) {
-    __syncthreads();                   // the previous tile is consumed
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D;
-      const int d = idx - j * D;
-      const int key = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (key < Lk) {
-        const size_t off = kv_base + (size_t)key * D + d;
-        kv = bf16_round(load_f(k + off));
-        vv = bf16_round(load_f(v + off));
+  if (warp >= CONSUMERS / 32) {
+    // the producer warpgroup gives its registers to the consumers; one
+    // warp fills the ring with the tiles that hold a valid key
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp != CONSUMERS / 32) return;
+    int n = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (!any_key(masks[t])) continue;
+      const int s = n % STAGES;
+      if (lane == 0) {
+        mbar_wait(empty + 8 * s, ((n / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * S::TILE);
+#pragma unroll
+        for (int h = 0; h < S::SLABS; ++h) {
+          tma_load(base + S::K + s * S::TILE + h * S::TILE_SLAB, &k_map,
+                   full + 8 * s, 64 * h, t * BN, bh);
+          tma_load(base + S::V + s * S::TILE + h * S::TILE_SLAB, &v_map,
+                   full + 8 * s, 64 * h, t * BN, bh);
+        }
       }
-      ks[j][d] = kv;
-      vs[j][d] = vv;
+      __syncwarp();
+      ++n;
     }
-    if (tid < BK) {
-      const int key = k0 + tid;
-      valid_s[tid] =
-          (key < Lk && key_valid[(size_t)b * Lk + key] != 0) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    float s[BK];
-    float tile_max = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(&ks[j][0]);
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 kk = kr[4 * i + g];
-        part = fmaf(qr[4 * i + 0], kk.x, part);
-        part = fmaf(qr[4 * i + 1], kk.y, part);
-        part = fmaf(qr[4 * i + 2], kk.z, part);
-        part = fmaf(qr[4 * i + 3], kk.w, part);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      s[j] = valid_s[j] > 0.f ? part : NEG_INF;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new) * valid_s[j];
-      psum += p;
-      s[j] = bf16_round(p);            // the PV product takes bf16 p
-    }
-    l = l * alpha + psum;
-    m = m_new;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(&vs[j][0]);
-      const float p = s[j];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const float4 vv = vr[4 * i + g];
-        o[4 * i + 0] = fmaf(p, vv.x, o[4 * i + 0]);
-        o[4 * i + 1] = fmaf(p, vv.y, o[4 * i + 1]);
-        o[4 * i + 2] = fmaf(p, vv.z, o[4 * i + 2]);
-        o[4 * i + 3] = fmaf(p, vv.w, o[4 * i + 3]);
-      }
-    }
+    return;
   }
 
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-37f);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int quad = lane % 4;
+  const uint32_t q_smem = base + wg * S::Q_WG;
+  store_q<D>(x, base_ptr + wg * S::Q_WG, wl, scale);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  named_sync(1 + wg, 128);
+
+  // accumulator layout (m64nN f32): d[4 i + e] holds row 16 (warp % 4) +
+  // lane / 4 + 8 (e / 2), column 8 i + 2 quad + e % 2
+  float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+
+  // Tile n's S = Q K^T is issued together with tile n - 1's O += P V, so
+  // tile n's softmax runs while that product is on the tensor cores; stage
+  // n - 1 is released once it is done, and only then is O rescaled and the
+  // next P put in place.  The first tile is peeled off, so that the loop
+  // issues both products every time (a product issued on one branch only
+  // would make the compiler copy accumulators while it runs).
+  uint32_t pa[32];
+  int n = 0, t = 0;
+  while (t < n_tiles && !any_key(masks[t])) ++t;
+  if (t < n_tiles) {
+    float sc[64];
+    s_product<D>(sc, q_smem, base + S::K, full, 0);
+    wgmma_wait<0>();
+    pin(sc);
+    float alpha0, alpha1;
+    tile_softmax(sc, masks[t], quad, m0, m1, l0, l1, alpha0, alpha1, pa);
+    uint32_t v_prev = base + S::V;
+    for (n = 1, ++t; t < n_tiles; ++t) {
+      if (!any_key(masks[t])) continue;
+      const int s = n % STAGES;
+      s_product<D>(sc, q_smem, base + S::K + s * S::TILE, full, n);
+      pv_product<D>(o, pa, v_prev);
+      wgmma_wait<1>();                         // S is done, P V runs on
+      pin(sc);
+      uint32_t pn[32];
+      tile_softmax(sc, masks[t], quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+      wgmma_wait<0>();                         // tile n - 1's P V is done
+      pin(o);
+      pin(pa);
+      mbar_arrive(empty + 8 * ((n - 1) % STAGES));
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int d = 16 * i + 4 * g + c;
-        store_f(out + q_off + d, o[4 * i + c] / denom);
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha0;
+        o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1;
+        o[4 * i + 3] *= alpha1;
       }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pa[i] = pn[i];
+      v_prev = base + S::V + s * S::TILE;
+      ++n;
     }
+    pv_product<D>(o, pa, v_prev);              // the last tile's P V
+    wgmma_wait<0>();
+    pin(o);
+    pin(pa);
+    mbar_arrive(empty + 8 * ((n - 1) % STAGES));
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // l clamped at 1e-37; with no valid key at all (o = 0) dividing by 1
+  // writes the same zeros without the divider's slow path
+  const float den0 = n ? fmaxf(l0, 1e-37f) : 1.f;
+  const float den1 = n ? fmaxf(l1, 1e-37f) : 1.f;
+  const int r0 = q0 + 16 * (warp % 4) + lane / 4, r1 = r0 + 8;
+  T* out_bh = out + (size_t)bh * Lq * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + 2 * quad;
+    if (r0 < Lq)
+      store2(out_bh + (size_t)r0 * D + col, o[4 * i] / den0,
+             o[4 * i + 1] / den0);
+    if (r1 < Lq)
+      store2(out_bh + (size_t)r1 * D + col, o[4 * i + 2] / den1,
+             o[4 * i + 3] / den1);
   }
 }
 
+// k and v (B H, Lk, D) f32 -> bf16 scratch, for the key tiles that hold a
+// valid key of their item (the only tiles the attention kernel reads).
+template <int D>
+__global__ void __launch_bounds__(256)
+kv_to_bf16_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                  const uint8_t* __restrict__ key_valid,
+                  __nv_bfloat16* __restrict__ k16,
+                  __nv_bfloat16* __restrict__ v16, int H, int Lk) {
+  const int key0 = blockIdx.x * BN, bh = blockIdx.y;
+  uint32_t w[4];
+  tile_mask(key_valid + (size_t)(bh / H) * Lk, Lk, key0, threadIdx.x % 32,
+            w);
+  if ((w[0] | w[1] | w[2] | w[3]) == 0) return;
+  const size_t off = ((size_t)bh * Lk + key0) * D;
+  const int chunks = min(BN, Lk - key0) * D / 8;
+  for (int c = threadIdx.x; c < chunks; c += 256) {
+    float x[8];
+    uint4 u;
+    load8(k + off + 8 * c, x);
+    u = make_uint4(bf16x2(x[0], x[1]), bf16x2(x[2], x[3]),
+                   bf16x2(x[4], x[5]), bf16x2(x[6], x[7]));
+    *reinterpret_cast<uint4*>(k16 + off + 8 * c) = u;
+    load8(v + off + 8 * c, x);
+    u = make_uint4(bf16x2(x[0], x[1]), bf16x2(x[2], x[3]),
+                   bf16x2(x[4], x[5]), bf16x2(x[6], x[7]));
+    *reinterpret_cast<uint4*>(v16 + off + 8 * c) = u;
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so that the library links against no libcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a (BH, Lk, D) bf16 tensor in boxes of 128 keys x 64 columns
+// with the 128-byte swizzle; keys past Lk read as zeros.
+bool encode(CUtensorMap* map, const void* base, int D, int Lk, int BH) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Lk, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Lk * D * 2};
+  const cuuint32_t box[3] = {64, BN, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* key_valid, void* out, int B, int H, int Lq,
-                   int Lk, float scale, cudaStream_t stream) {
-  const dim3 grid((Lq + BQ - 1) / BQ, B * H);
-  flash_attention_kernel<D, T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(key_valid),
-      static_cast<T*>(out), H, Lq, Lk, scale);
-  return cudaGetLastError();
+int launch(const void* q, const void* k, const void* v,
+           const uint8_t* key_valid, void* out, void* kv_scratch, int B,
+           int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+  const void* k16 = k;
+  const void* v16 = v;
+  if (std::is_same<T, float>::value) {
+    __nv_bfloat16* s = static_cast<__nv_bfloat16*>(kv_scratch);
+    k16 = s;
+    v16 = s + (size_t)B * H * Lk * D;
+    kv_to_bf16_kernel<D><<<dim3((Lk + BN - 1) / BN, B * H), 256, 0,
+                           stream>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v),
+        key_valid, s, s + (size_t)B * H * Lk * D, H, Lk);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  CUtensorMap k_map, v_map;
+  if (!encode(&k_map, k16, D, Lk, B * H) || !encode(&v_map, v16, D, Lk, B * H))
+    return ENCODE_FAILED;
+  const int smem = Smem<D>::BYTES + 16 * ((Lk + BN - 1) / BN);
+  if (smem > MAX_SMEM) return TOO_MANY_KEYS;
+  static int allowed = 0;               // the largest size granted so far
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<D, T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  flash_attention_kernel<D, T>
+      <<<dim3((Lq + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
+          k_map, v_map, static_cast<const T*>(q), key_valid,
+          static_cast<T*>(out), H, Lq, Lk, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, Lq, D), k and v (B, H, Lk, D), out (B, H, Lq, D): contiguous, all
-// f32 (dtype 0) or all bf16 (dtype 1); key_valid (B, Lk) one byte per key.
-// D is 64 or 128.  Returns the cudaError_t of the launch.
+// q (B, H, Lq, D), k and v (B, H, Lk, D), out (B, H, Lq, D): contiguous and
+// 16-byte aligned, all f32 (dtype 0) or all bf16 (dtype 1); key_valid
+// (B, Lk) one byte per key.  D is 64 or 128.  For f32, kv_scratch holds
+// 2 B H Lk D bf16 (the rounded k, then v); for bf16 it is unused.  Returns
+// the cudaError_t of the launches, or -1 if no TMA map could be made.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, const void* key_valid,
-                                       void* out, int B, int H, int Lq,
-                                       int Lk, int D, int dtype, float scale,
-                                       void* stream) {
+                                       void* out, void* kv_scratch, int B,
+                                       int H, int Lq, int Lk, int D,
+                                       int dtype, float scale, void* stream) {
   if (B == 0 || H == 0 || Lq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Lk == 0)  // no key: every row writes 0
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, (size_t)B * H * Lq * D * (dtype == 0 ? 4 : 2), s));
+  const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
   if (D == 128 && dtype == 0)
-    return launch<128, float>(q, k, v, key_valid, out, B, H, Lq, Lk, scale, s);
+    return launch<128, float>(q, k, v, valid, out, kv_scratch, B, H, Lq, Lk,
+                              scale, s);
   if (D == 128 && dtype == 1)
-    return launch<128, __nv_bfloat16>(q, k, v, key_valid, out, B, H, Lq, Lk,
-                                      scale, s);
+    return launch<128, __nv_bfloat16>(q, k, v, valid, out, kv_scratch, B, H,
+                                      Lq, Lk, scale, s);
   if (D == 64 && dtype == 0)
-    return launch<64, float>(q, k, v, key_valid, out, B, H, Lq, Lk, scale, s);
+    return launch<64, float>(q, k, v, valid, out, kv_scratch, B, H, Lq, Lk,
+                             scale, s);
   if (D == 64 && dtype == 1)
-    return launch<64, __nv_bfloat16>(q, k, v, key_valid, out, B, H, Lq, Lk,
-                                     scale, s);
+    return launch<64, __nv_bfloat16>(q, k, v, valid, out, kv_scratch, B, H,
+                                     Lq, Lk, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The attention kernel's dynamic shared memory at head dim D and Lk keys,
+// in bytes.
+extern "C" int flash_attention_smem_bytes(int D, int Lk) {
+  const int masks = 16 * ((Lk + BN - 1) / BN);
+  return masks + (D == 128 ? Smem<128>::BYTES : Smem<64>::BYTES);
+}
+
 extern "C" const char* flash_attention_error_string(int status) {
+  if (status == ENCODE_FAILED)
+    return "cuTensorMapEncodeTiled is unavailable or refused the tensor map";
+  if (status == TOO_MANY_KEYS)
+    return "Lk too large: the key tiles' masks do not fit in shared memory "
+           "(at most 16,000 keys at D 128)";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -7,7 +7,8 @@ it went through the kernels.
 """
 
 from .alignment import alignment_attention, alignment_reference
-from .attention import attention_reference, flash_attention, masked_softmax
+from .attention import (attention_bf16_reference, attention_bf16_tolerance,
+                        attention_reference, flash_attention, masked_softmax)
 from .stft import fused_log_mel
 from .upsample import gaussian_upsample_banded
 
@@ -25,6 +26,7 @@ def launches() -> dict[str, int]:
 
 
 __all__ = ["alignment_attention", "alignment_reference",
-           "attention_reference", "flash_attention", "masked_softmax",
-           "fused_log_mel", "gaussian_upsample_banded", "reset_launches",
-           "launches"]
+           "attention_bf16_reference", "attention_bf16_tolerance",
+           "attention_reference",
+           "flash_attention", "masked_softmax", "fused_log_mel",
+           "gaussian_upsample_banded", "reset_launches", "launches"]

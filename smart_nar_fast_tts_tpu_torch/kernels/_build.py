@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -67,10 +68,38 @@ def _lib_path(src: Path) -> Path:
     return build_dir() / f"libsmart_tts_{src.stem}.so"
 
 
+def ptxas_kernels(log: str) -> dict[str, dict]:
+    """Registers, static shared memory, spill and stack bytes of each entry
+    function, from ``ptxas -v`` output; keyed by the mangled name."""
+    kernels, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            kernels[name] = {}
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if found:
+            stack, stores, loads = map(int, found.groups())
+            kernels[name].update(stack_bytes=stack,
+                                 spill_bytes=stores + loads)
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            smem = re.search(r"(\d+) bytes smem", line)
+            kernels[name].update(registers=int(found.group(1)),
+                                 static_smem_bytes=int(smem.group(1))
+                                 if smem else 0)
+    return kernels
+
+
 def build_all() -> dict[str, dict]:
     """Compile every source missing from the build directory, all nvcc
-    processes at once.  Returns, for each source built, its seconds and the
-    ptxas lines on registers, shared memory and spills of its kernels."""
+    processes at once.  Returns, for each source built, its seconds, the
+    ptxas lines on registers, shared memory and spills of its kernels, and
+    those numbers for each kernel (:func:`ptxas_kernels`)."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
     todo = [s for s in sources() if not _lib_path(s).is_file()]
@@ -95,7 +124,8 @@ def build_all() -> dict[str, dict]:
             "seconds": time.perf_counter() - t0,
             "ptxas": [line.split("info    : ")[-1].strip()
                       for line in log.splitlines()
-                      if "registers" in line or "spill" in line]}
+                      if "registers" in line or "spill" in line],
+            "kernels": ptxas_kernels(log)}
         if proc.returncode != 0:
             os.unlink(tmp)
             errors.append(f"nvcc failed on {src.name}:\n{log}")

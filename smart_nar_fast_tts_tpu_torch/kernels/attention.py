@@ -1,10 +1,14 @@
 """Flash attention: the CUDA kernel ``csrc/flash_attention.cu`` and its
-plain version.
+plain versions.
 
 The kernel replaces the TPU kernel ``flash_attention`` of
 ``smart_nar_fast_tts_tpu/ops/pallas/attention.py``.  Like it, it rounds
 q·scale, k, v and the probabilities to bf16 and accumulates in f32, so it
-agrees with the f32 plain version to bf16 precision (~1e-2), not f32.
+agrees with the f32 plain version :func:`attention_reference` to bf16
+precision (~1e-2), and with :func:`attention_bf16_reference`, which rounds at
+the same points, to the difference between an online and a two-pass softmax
+(~1e-3).  Its products run on Hopper's tensor cores (``wgmma``); for f32
+inputs the wrapper allocates bf16 scratch for the rounded k and v.
 
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
 version and returns that function's vector-Jacobian product: the gradient of
@@ -21,6 +25,7 @@ import torch
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+NEG_INF = -1e30     # an invalid key's score in the TPU kernel
 
 
 def masked_softmax(scores: torch.Tensor, key_valid: torch.Tensor
@@ -47,12 +52,56 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def attention_bf16_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, key_valid: torch.Tensor
+                             ) -> torch.Tensor:
+    """Plain version that rounds where the TPU kernel does, with a two-pass
+    softmax: bf16(q·scale) (the product in f32), bf16 k and v, f32 scores,
+    an invalid key's score -1e30, ``p = exp(s − m)·mask`` in f32 and rounded
+    to bf16 for the PV product, the sum l of the f32 ``p``, ``out = PV /
+    max(l, 1e-37)``.  For tests and ``chip_smoke.py``: it pins the kernel's
+    rounding points more tightly than :func:`attention_reference`."""
+    bf16 = torch.bfloat16
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qs = (q.float() * scale).to(bf16).float()
+    scores = torch.einsum("bhqd,bhkd->bhqk", qs, k.to(bf16).float())
+    valid = key_valid[:, None, None, :]
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * valid
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bhkd->bhqd", p.to(bf16).float(),
+                       v.to(bf16).float())
+    return (out / torch.clamp(l, min=1e-37)).to(q.dtype)
+
+
+def attention_bf16_tolerance(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, key_valid: torch.Tensor,
+                             ref: torch.Tensor) -> torch.Tensor:
+    """Per-element bound on how far an output that rounds where the TPU
+    kernel does may lie from ``ref = attention_bf16_reference(q, k, v,
+    key_valid)``: 1e-3 for the order of the f32 sums; plus
+    2^-8·Σⱼ pⱼ|vⱼ|/l, since an f32 difference far below bf16 precision
+    (another summation order, an online softmax's running max) can tip the
+    bf16 rounding of a probability by one ulp, 2^-8 of it, and where a few
+    keys dominate that moves the output by up to this much; plus, for a
+    bf16 output, one ulp of its own rounding (2^-7·|ref|).  About 5×
+    tighter than the f32 plain version's 2e-2 where attention is spread;
+    the f32 plain version itself falls outside it where few keys are
+    valid."""
+    spread = attention_bf16_reference(q, k, v.abs(), key_valid).float()
+    tol = 1e-3 + 2.0 ** -8 * spread
+    if ref.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    return tol
+
+
 # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
 _SIGNATURES = {
     "flash_attention_forward": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_attention_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int),
 }
 
 
@@ -80,10 +129,15 @@ def _launch(q, k, v, key_valid):
     Lk = k.shape[2]
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
+    # f32: the kernel rounds k and v to bf16 here first (TMA reads bf16)
+    scratch = (torch.empty((2, B, H, Lk, D), dtype=torch.bfloat16,
+                           device=q.device)
+               if q.dtype == torch.float32 else None)
     with torch.cuda.device(q.device):
         status = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            out.data_ptr(), B, H, Lq, Lk, D, _DTYPE_CODES[q.dtype],
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, H, Lq, Lk, D, _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError("flash_attention: launch failed: "
@@ -97,7 +151,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors.
 
     A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
-    the kernel: q, k, v contiguous, all f32 or all bf16, D 64 or 128;
+    the kernel: q, k, v contiguous and 16-byte aligned, all f32 or all
+    bf16, D 64 or 128;
     key_valid (B, Lk) bool.  The output has q's dtype and, on CUDA, a
     backward through :class:`_FlashAttention`."""
     if q.device.type == "cpu":
@@ -122,6 +177,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: inputs on different devices")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     return _FlashAttention.apply(q, k, v, key_valid, _launch)
 
 

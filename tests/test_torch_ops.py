@@ -4,9 +4,12 @@ package, on the CPU.
 Inputs are made with numpy from a seed and handed to both.  Tolerances:
 1e-5 where both sides compute the same f32 math (only summation order
 differs); 2e-2 against the Pallas flash kernel, which rounds its operands to
-bf16 (the tolerance of ``tests/test_pallas_kernels.py``).  The CUDA kernels
-themselves run only on a card; ``tests/test_torch_kernels_cuda.py``, which
-imports no JAX, holds them against the plain versions there.
+bf16 (the tolerance of ``tests/test_pallas_kernels.py``), and
+``attention_bf16_tolerance`` (1e-3 + 2^-8·Σp|v|/l) between it and
+``attention_bf16_reference``, which rounds at the same points.  The
+CUDA kernels themselves run only on a card;
+``tests/test_torch_kernels_cuda.py``, which imports no JAX, holds them
+against the plain versions there.
 """
 
 import jax.numpy as jnp
@@ -122,6 +125,27 @@ def test_flash_plain_version_matches_pallas_kernel(lq, lk):
                        jnp.asarray(valid), 16, 16, True)
     np.testing.assert_allclose(got.numpy(), np.asarray(expect),
                                atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("D, L, lens", [(128, 600, [600, 333]),
+                                        (64, 300, [5, 300])])
+def test_bf16_plain_version_matches_pallas_kernel(D, L, lens):
+    """The bf16-rounding plain version against the Pallas kernel in
+    interpret mode, which rounds at the same points: only the online
+    softmax's running max separates them (8.7e-4 at the first shape,
+    within ``attention_bf16_tolerance``).  Where an item has 5 valid keys
+    the f32 plain version falls outside that tolerance: it can tell."""
+    q, k, v, valid = _attn_data(Lq=L, Lk=L, D=D, seed=6, lens=lens)
+    ref = kernels.attention_bf16_reference(_t(q), _t(k), _t(v), _t(valid))
+    tol = kernels.attention_bf16_tolerance(_t(q), _t(k), _t(v), _t(valid),
+                                           ref).numpy()
+    expect = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(valid),
+                                  256, 256, True))
+    assert (np.abs(ref.numpy() - expect) <= tol).all()
+    if lens[0] < 16:
+        f32 = attention_reference(_t(q), _t(k), _t(v), _t(valid)).numpy()
+        assert (np.abs(f32 - expect) > tol).any()
 
 
 def test_flash_fully_masked_item_is_zero():
