@@ -22,7 +22,13 @@ any failure raises (exit code 1):
             in the last key tile, f32 and bf16 operands; it is timed with
             f32 and bf16 operands beside SDPA on both, and with one valid
             key tile per item (its cost beside the products); ptxas
-            registers, shared memory and spills of each of its kernels
+            registers, shared memory and spills of each of its kernels.
+            The alignment kernel (3xTF32 products) is also held to
+            ``alignment_tf32x3_reference`` at the training shape, a ragged
+            one and L 1000, and on q = 0 and v = identity (each product
+            apart); it is timed beside its plain version and f32 SDPA on
+            ``out`` alone, against its 3xTF32 tensor-core bound and the f32
+            CUDA-core one, with its ptxas figures
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings.
@@ -74,6 +80,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 
 # bench.py's serving shape (bench.py:58-62, :123-135)
@@ -123,6 +130,11 @@ WAV_TOL = 1e-3      # the vocoder (f32 convolutions, no TF32) on one input
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5   # the alignment kernel's guided
                     # numerator: sums of up to T·L f32 terms (the JAX
                     # package's kernel test)
+TF32X3_ATOL, TF32X3_MEAN = 8e-6, 1e-6   # the alignment kernel's out against
+                    # alignment_tf32x3_reference (operands rounded where the
+                    # kernel rounds them), at most and on average: the gap is
+                    # the order of the f32 sums in the scores
+                    # (tests/test_torch_kernels_cuda.py)
 GRAD_TOL = 1e-4     # a backward recomputes the plain version: f32 rounding
 TRAIN_RTOL = 1e-4   # a train step on the card vs the CPU, f32 both (its
                     # self-attention takes the einsum branch): 1.2e-5 on
@@ -450,36 +462,89 @@ def alignment_inputs(torch, np, rng, b, h, t, l, d):
             torch.from_numpy(mel).cuda())
 
 
-def kernel_alignment_attention(torch, np, kernels):
+def alignment_ptxas(compiled, lib):
+    """ptxas registers, static shared memory and spills of each kernel of
+    csrc/alignment_attention.cu (when this run compiled it), and the
+    dynamic shared memory of each instantiation."""
+    import re
+    out = {"dynamic_smem_bytes": {f"D {d}": lib.alignment_attention_smem_bytes(
+        d) for d in (32, 64, 128)}}
+    if "alignment_attention" not in compiled:
+        out["kernels"] = "not compiled in this run: the build directory had it"
+        return out
+    for name, info in compiled["alignment_attention"]["kernels"].items():
+        label = re.search(r"(alignment|gnum_reduce)_kernel", name).group(0)
+        d = re.search(r"ILi(\d+)E", name)
+        out[label + (f"<D {d.group(1)}>" if d else "")] = info
+    return out
+
+
+def alignment_check(torch, kernels, name, args):
+    """The kernel against the f32 plain version (out F32_TOL, idx exact,
+    gnum GNUM_ATOL/GNUM_RTOL), twice (idx and gnum bit-equal) and against
+    alignment_tf32x3_reference (out TF32X3_ATOL at most and TF32X3_MEAN on
+    average, gnum as above); returns the figures."""
+    out, idx, gnum = kernels.alignment_attention(*args)
+    _, idx2, gnum2 = kernels.alignment_attention(*args)
+    torch.cuda.synchronize()
+    r_out, r_idx, r_gnum = kernels.alignment_reference(*args)
+    err = check_close(f"alignment_attention {name} out", out, r_out,
+                      F32_TOL, torch)
+    n_idx = int((idx != r_idx).sum())
+    if n_idx:
+        raise AssertionError(f"alignment_attention {name}: {n_idx} argmax "
+                             "indices differ")
+    gnum_err = check_close(f"alignment_attention {name} gnum", gnum, r_gnum,
+                           GNUM_ATOL, torch, rtol=GNUM_RTOL)
+    if not (torch.equal(gnum, gnum2) and torch.equal(idx, idx2)):
+        raise AssertionError("alignment_attention: two launches differ")
+    t_out, t_idx, t_gnum = kernels.alignment_tf32x3_reference(*args)
+    gap = (out - t_out).abs()
+    if not (gap.max() <= TF32X3_ATOL and gap.mean() <= TF32X3_MEAN):
+        raise AssertionError(f"alignment_attention {name}: out beyond the "
+                             f"3xTF32 plain version's tolerance (max "
+                             f"{gap.max().item()}, mean {gap.mean().item()})")
+    # reported, not held: the 3xTF32 plain version sums its three products
+    # apart and may settle a near-tie otherwise (idx is held to f32 above)
+    n_t_idx = int((idx != t_idx).sum())
+    t_gnum_err = check_close(f"alignment_attention {name} gnum (3xTF32)",
+                             gnum, t_gnum, GNUM_ATOL, torch, rtol=GNUM_RTOL)
+    return dict(max_abs_err=err, mean_abs_err=(out - r_out).abs().mean().item(),
+                max_abs_err_vs_tf32x3_plain=gap.max().item(),
+                mean_abs_err_vs_tf32x3_plain=gap.mean().item(),
+                gnum_max_abs_err=gnum_err,
+                gnum_max_abs_err_vs_tf32x3_plain=t_gnum_err,
+                idx_differ=n_idx, idx_differ_vs_tf32x3_plain=n_t_idx,
+                gnum_bit_equal_across_launches=True)
+
+
+def kernel_alignment_attention(torch, np, kernels, compiled):
     import torch.nn.functional as F
+
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.alignment import _SIGNATURES
     rng = np.random.default_rng(3)
     entry, err_max = None, 0.0
-    # the flagship training shape, and a ragged one (T not a multiple of
-    # the kernel's 32-frame tile, L 13)
+    # the flagship training shape, a ragged one (T not a multiple of 16,
+    # L 13) and L 1000 (max_seq_len; 16 key chunks); then each product
+    # apart: q = 0 (uniform p: PV alone) and v = identity (out = P: QKᵀ
+    # through the softmax alone)
     for name, shape in (("train", (TRAIN_B, 2, TRAIN_T, TRAIN_L, 128)),
-                        ("ragged", (3, 2, 45, 13, 128))):
+                        ("ragged", (3, 2, 45, 13, 128)),
+                        ("L 1000", (2, 2, 1500, 1000, 128)),
+                        ("q zero", (4, 2, 300, 128, 128)),
+                        ("v identity", (4, 2, 300, 128, 128))):
         with Phase("kernel alignment_attention") as f:
             args = alignment_inputs(torch, np, rng, *shape)
-            out, idx, gnum = kernels.alignment_attention(*args)
-            _, idx2, gnum2 = kernels.alignment_attention(*args)
-            torch.cuda.synchronize()
-            r_out, r_idx, r_gnum = kernels.alignment_reference(*args)
-            err = check_close(f"alignment_attention {name} out", out, r_out,
-                              F32_TOL, torch)
-            n_idx = int((idx != r_idx).sum())
-            if n_idx:
-                raise AssertionError(f"alignment_attention {name}: {n_idx} "
-                                     "argmax indices differ")
-            gnum_err = check_close(f"alignment_attention {name} gnum", gnum,
-                                   r_gnum, GNUM_ATOL, torch, rtol=GNUM_RTOL)
-            if not (torch.equal(gnum, gnum2) and torch.equal(idx, idx2)):
-                raise AssertionError("alignment_attention: two launches "
-                                     "differ")
-            err_max = max(err_max, err)
-            f.update(case=name, shape=list(shape), max_abs_err=err,
-                     gnum_max_abs_err=gnum_err, idx_differ=n_idx,
-                     src_lens=args[4].tolist()[:4],
-                     gnum_bit_equal_across_launches=True)
+            if name == "q zero":
+                args = (torch.zeros_like(args[0]), *args[1:])
+            elif name == "v identity":
+                eye = torch.eye(128, device="cuda").expand(4, 2, 128, 128)
+                args = (*args[:2], eye.contiguous(), *args[3:])
+            checks = alignment_check(torch, kernels, name, args)
+            err_max = max(err_max, checks["max_abs_err"])
+            f.update(case=name, shape=list(shape), **checks,
+                     src_lens=args[4].tolist()[:4])
             if name != "train":
                 continue
             q, k, v, valid = args[:4]
@@ -488,20 +553,26 @@ def kernel_alignment_attention(torch, np, kernels):
                                  torch)
             sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=valid[:, None, None, :]), torch)
-            nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + idx.numel()
-                          + gnum.numel() + 2 * args[4].numel()) \
-                + valid.numel()
-            # QKᵀ and PV over the valid keys, every frame, in f32
+            nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
+                          + TRAIN_B * TRAIN_T + TRAIN_B
+                          + 2 * args[4].numel()) + valid.numel()
+            # QKᵀ and PV over the valid keys, every frame: three TF32
+            # passes each on the tensor cores, or once at the f32 rate
             b_, h_, t_, _, d_ = shape
             flops = 4 * h_ * t_ * d_ * int(valid.sum())
-            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-            f.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                     sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, flops=flops, bytes=nbytes)
-            entry = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                         sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, shape=list(shape))
-    entry["max_abs_err"] = err_max
+            bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+            f32_bound_ms, f32_bound_by = bound(nbytes, flops, F32_FLOPS)
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                          sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, bound_share=bound_ms / ms,
+                          f32_bound_ms=f32_bound_ms,
+                          f32_bound_by=f32_bound_by,
+                          f32_bound_share=f32_bound_ms / ms,
+                          tflops_3xtf32=3 * flops / ms / 1e9)
+            f.update(timing, flops=flops, bytes=nbytes)
+            entry = dict(timing, shape=list(shape))
+    lib = _build.load("alignment_attention", _SIGNATURES)
+    entry.update(max_abs_err=err_max, ptxas=alignment_ptxas(compiled, lib))
     return entry
 
 
@@ -1171,7 +1242,7 @@ def main() -> int:
             route="cuda",
             source="smart_nar_fast_tts_tpu_torch/csrc/alignment_attention.cu",
             replaces="smart_nar_fast_tts_tpu/ops/pallas/alignment.py:67",
-            **kernel_alignment_attention(torch, np, kernels)),
+            **kernel_alignment_attention(torch, np, kernels, compiled)),
     }
     for name, err in kernel_backward(torch, np, kernels).items():
         entries[name]["grad_max_abs_err"] = err

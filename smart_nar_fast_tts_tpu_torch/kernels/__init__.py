@@ -6,7 +6,8 @@ wrapper counts its launches in ``<wrapper>.launches``, so a run can show that
 it went through the kernels.
 """
 
-from .alignment import alignment_attention, alignment_reference
+from .alignment import (alignment_attention, alignment_reference,
+                        alignment_tf32x3_reference)
 from .attention import (attention_bf16_reference, attention_bf16_tolerance,
                         attention_reference, flash_attention, masked_softmax)
 from .stft import fused_log_mel
@@ -26,6 +27,7 @@ def launches() -> dict[str, int]:
 
 
 __all__ = ["alignment_attention", "alignment_reference",
+           "alignment_tf32x3_reference",
            "attention_bf16_reference", "attention_bf16_tolerance",
            "attention_reference",
            "flash_attention", "masked_softmax", "fused_log_mel",

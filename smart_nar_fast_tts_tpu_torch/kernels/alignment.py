@@ -7,8 +7,20 @@ cross-attention needs, besides ``P·V``, only two reductions of head 0's
 probabilities: the per-frame argmax over the text axis (duration targets)
 and the guided-attention numerator ``Σ W·p`` over the valid (frame, phoneme)
 pairs.  The kernel returns exactly those, and the (B, H, T, L)
-probabilities never reach device memory.  It computes in full f32 (scores by
-f32 FMA, no TF32, no bf16): near-ties in the argmax decide duration targets.
+probabilities never reach device memory.
+
+Its products run on the tensor cores in 3xTF32, the counterpart of the TPU
+kernel's ``Precision.HIGHEST``: each operand of QKᵀ and of PV (q, k, the
+unnormalised probabilities and v) is split into two tf32 parts, ``hi =
+tf32(x)`` and ``lo = tf32(x − hi)``, both rounded to nearest, and a product
+sums ``hi·hi + hi·lo + lo·hi`` in f32.  That is about f32 accuracy (the
+dropped ``lo·lo`` weighs ~2⁻²²), so the kernel is held to the f32 plain
+version :func:`alignment_reference` at the f32 tolerances (``out`` 1e-5,
+``idx`` exact: near-ties in the argmax decide duration targets), and its
+``out`` to :func:`alignment_tf32x3_reference`, which rounds its operands
+where the kernel does, within 8e-6 (the order of the f32 sums in the
+scores, not the rounding points, makes the rest of the gap).  Single-pass
+TF32 (~1e-3) would fail both.
 
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes ``out`` and the
 numerator with the plain version and differentiates them; the argmax has no
@@ -33,6 +45,7 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "alignment_attention_tiles": ([ctypes.c_int], ctypes.c_int),
+    "alignment_attention_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "alignment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -68,15 +81,66 @@ def alignment_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-37)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(v.dtype)
 
-    s0 = masked[:, 0].detach()
-    L = s0.shape[-1]
-    pos = torch.arange(L, device=s0.device)
-    hit = s0 == s0.amax(dim=-1, keepdim=True)
-    idx = torch.where(hit, pos, L).amin(dim=-1).to(torch.int32)
-
+    L = k.shape[2]
     w, pair_valid = guided_weight(q.shape[2], L, src_lens, mel_lens, sigma)
     gnum = torch.where(pair_valid, w * p[:, 0], 0.0).sum(dim=(1, 2))
-    return out, idx, gnum
+    return out, _first_argmax(masked[:, 0].detach()), gnum
+
+
+def _first_argmax(scores: torch.Tensor) -> torch.Tensor:
+    """int32 index of each row's maximum over the last axis, the first
+    among equal maxima."""
+    L = scores.shape[-1]
+    pos = torch.arange(L, device=scores.device)
+    hit = scores == scores.amax(dim=-1, keepdim=True)
+    return torch.where(hit, pos, L).amin(dim=-1).to(torch.int32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 (10 explicit mantissa bits), to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product_tf32x3(equation: str, a: torch.Tensor, b: torch.Tensor
+                    ) -> torch.Tensor:
+    """``einsum(equation, a, b)`` in 3xTF32: each operand split as ``hi =
+    tf32(x)``, ``lo = tf32(x − hi)``; ``lo·hi + hi·lo`` then ``hi·hi``, f32
+    sums (the products of tf32 values are exact in f32)."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    small = (torch.einsum(equation, a_lo, b_hi)
+             + torch.einsum(equation, a_hi, b_lo))
+    return small + torch.einsum(equation, a_hi, b_hi)
+
+
+def alignment_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, key_valid: torch.Tensor,
+                               src_lens: torch.Tensor, mel_lens: torch.Tensor,
+                               sigma: float = 0.2
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version that rounds where the kernel does: scores =
+    3xTF32(q, k) · f32(1/√D); an invalid key's score -1e30; ``e = exp(s −
+    m)·mask`` in f32; ``l = max(Σe, 1e-37)``; ``out = 3xTF32(e, v) ·
+    (1/l)``; ``gnum = Σ_t (Σ_n W·e) · (1/l)`` over the valid pairs; ``idx``
+    the first argmax of head 0's masked scores.  For tests and
+    ``chip_smoke.py``: it pins the kernel's rounding points more tightly
+    than :func:`alignment_reference`.  Matmuls must run in f32 (TF32 off)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = _product_tf32x3("bhqd,bhkd->bhqk", q, k) * scale
+    valid = key_valid[:, None, None, :]
+    masked = torch.where(valid, scores, NEG_INF)
+    e = torch.exp(masked - masked.amax(dim=-1, keepdim=True)) * valid
+    inv = 1.0 / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-37)
+    out = _product_tf32x3("bhqk,bhkd->bhqd", e, v) * inv
+
+    w, pair_valid = guided_weight(q.shape[2], k.shape[2], src_lens,
+                                  mel_lens, sigma)
+    rows = torch.where(pair_valid, w * e[:, 0], 0.0).sum(dim=-1)
+    gnum = (rows * inv[:, 0, :, 0]).sum(dim=-1)
+    return out, _first_argmax(masked[:, 0]), gnum
 
 
 class _AlignmentAttention(torch.autograd.Function):
@@ -120,7 +184,7 @@ def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
             src.data_ptr(), mel.data_ptr(), out.data_ptr(), idx.data_ptr(),
             partial.data_ptr(), gnum.data_ptr(), B, H, T, L, D,
-            math.sqrt(D), 2.0 * float(sigma) ** 2,
+            1.0 / math.sqrt(D), 2.0 * float(sigma) ** 2,
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(
@@ -140,8 +204,8 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32, gnum (B,) f32), as :func:`alignment_reference`.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: q, k, v contiguous float32, D a multiple of 4 up to 128, with a
-    backward through :class:`_AlignmentAttention`."""
+    kernel: q, k, v contiguous float32 (16-byte aligned), D a multiple of 4
+    up to 128, any L, with a backward through :class:`_AlignmentAttention`."""
     if q.device.type == "cpu":
         return alignment_reference(q, k, v, key_valid, src_lens, mel_lens,
                                    sigma)
@@ -169,6 +233,9 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("alignment_attention: inputs on different devices")
     if not all(t.is_contiguous() for t in (q, k, v, key_valid)):
         raise ValueError("alignment_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("alignment_attention: q, k, v must be 16-byte "
+                         "aligned")
     return _AlignmentAttention.apply(q, k, v, key_valid, src_lens, mel_lens,
                                      sigma, _launch)
 

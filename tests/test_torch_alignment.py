@@ -3,9 +3,11 @@ alignment attention's plain version, the gradients of the three kernel
 wrappers, duration extraction, and BatchNorm's training statistics.
 
 Tolerances: alignment ``out`` 1e-5, ``idx`` exact, ``gnum`` 1e-4 (the JAX
-package's own kernel test, ``tests/test_pallas_kernels.py``); gradients 1e-4
-(the same test's); durations exact; BatchNorm 1e-5.  Everything is f32 on
-both sides.  The JAX kernels run in interpret mode; the port's wrappers take
+package's own kernel test, ``tests/test_pallas_kernels.py``), for the f32
+plain version and for the plain version that rounds as the CUDA kernel does
+(``alignment_tf32x3_reference``: 3xTF32 products, about f32 accuracy);
+gradients 1e-4 (the same test's); durations exact; BatchNorm 1e-5.
+Everything is f32 on both sides.  The JAX kernels run in interpret mode; the port's wrappers take
 their plain versions on the CPU, and each ``torch.autograd.Function`` that
 the CUDA branch uses is driven here with the plain version as its forward,
 so its backward is held to JAX's too.
@@ -30,7 +32,7 @@ from smart_nar_fast_tts_tpu_torch.kernels import (
     alignment_attention, alignment_reference, attention_reference,
     flash_attention, gaussian_upsample_banded)
 from smart_nar_fast_tts_tpu_torch.kernels.alignment import (
-    _AlignmentAttention)
+    _AlignmentAttention, alignment_tf32x3_reference, tf32_round)
 from smart_nar_fast_tts_tpu_torch.kernels.attention import _FlashAttention
 from smart_nar_fast_tts_tpu_torch.kernels.upsample import _GaussianUpsample
 from smart_nar_fast_tts_tpu_torch.models.layers import MaskedBatchNorm
@@ -71,6 +73,57 @@ def test_alignment_plain_version_matches_jax(shape):
         np.testing.assert_array_equal(idx.numpy(), e_idx)
         np.testing.assert_allclose(gnum.numpy(), e_gnum, atol=GNUM_ATOL)
     assert idx.dtype == torch.int32 and gnum.shape == (B,)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 45, 13, 32), (2, 2, 48, 16, 16)])
+def test_alignment_tf32x3_plain_version_matches_jax(shape):
+    B, H, T, L, D = shape
+    data = _alignment_data(B, H, T, L, D, seed=T)
+    out, idx, gnum = alignment_tf32x3_reference(*_torch(*data), SIGMA)
+    jx = [jnp.asarray(a) for a in data]
+    for expect in (_alignment_reference(*jx, SIGMA),
+                   jax_alignment(*jx, SIGMA, 16, True)):
+        e_out, e_idx, e_gnum = (np.asarray(a) for a in expect)
+        np.testing.assert_allclose(out.numpy(), e_out, atol=OUT_ATOL)
+        np.testing.assert_array_equal(idx.numpy(), e_idx)
+        np.testing.assert_allclose(gnum.numpy(), e_gnum, atol=GNUM_ATOL)
+    assert idx.dtype == torch.int32 and gnum.shape == (B,)
+
+
+def test_alignment_tf32x3_argmax_at_the_card_check_inputs():
+    """``chip_smoke.py``'s seeded alignment inputs at the flagship training
+    shape (``alignment_inputs``, ``default_rng(3)``, its first draw): the
+    3xTF32 plain version's head-0 argmax equals the f32 plain version's on
+    all 43,008 rows.  Only head 0 goes in: ``idx`` reads no other head."""
+    rng = np.random.default_rng(3)
+    b, h, t, l, d = 48, 2, 896, 128, 128
+    q, k, v = (rng.standard_normal((b, h, n, d)).astype(np.float32)
+               for n in (t, l, l))
+    src = rng.integers(max(3 * l // 4, 1), l + 1, size=b)
+    src[-1] = max(l - 5, 1)
+    mel = rng.integers(3 * t // 4, t + 1, size=b)
+    valid = np.arange(l)[None, :] < src[:, None]
+    args = _torch(q[:, :1], k[:, :1], v[:, :1], valid, src, mel)
+    _, idx_f32, _ = alignment_reference(*args)
+    _, idx_3x, _ = alignment_tf32x3_reference(*args)
+    exact = np.einsum("btd,bnd->btn", q[:, 0].astype(np.float64),
+                      k[:, 0].astype(np.float64))
+    top2 = np.sort(np.where(valid[:, None, :], exact, -np.inf), axis=-1)
+    gap = (top2[..., -1] - top2[..., -2]).min()
+    differ = int((idx_3x != idx_f32).sum())
+    assert differ == 0, (f"{differ} of {b * t} rows differ; the smallest "
+                         f"f64 top-two gap of the unscaled scores is {gap:.3e}")
+
+
+@pytest.mark.parametrize("x, expect", [
+    (1.0, 1.0), (1 + 2**-11, 1 + 2**-10), (-(1 + 2**-11), -(1 + 2**-10)),
+    (1 + 2**-11 - 2**-20, 1.0), (1 + 2**-10 + 2**-11, 1 + 2**-9),
+    (2 - 2**-12, 2.0), (0.0, 0.0)])
+def test_tf32_round_is_to_nearest_ties_away(x, expect):
+    """``cvt.rna.tf32.f32``: 10 explicit mantissa bits, to nearest, ties
+    away from zero, a carry moving into the exponent."""
+    got = tf32_round(torch.tensor([x], dtype=torch.float32))
+    assert got.item() == expect
 
 
 def test_alignment_argmax_takes_the_first_of_equal_maxima():

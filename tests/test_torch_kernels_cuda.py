@@ -17,9 +17,24 @@ online softmax is the two-pass one (a moved rounding point costs ≥ 1.6e-4
 there); the upsampling kernel is
 f32 throughout and agrees with the dense plain version to 1e-5 (f32
 rounding of sums of at most L terms; the phonemes it leaves out weigh below
-exp(-36)); the alignment kernel is f32
-throughout: ``out`` 1e-5, ``idx`` exact, ``gnum`` rtol 1e-5 / atol 1e-4 (the
-JAX package's kernel test), and ``gnum`` bit-equal from run to run.  The
+exp(-36)); the alignment kernel runs both products in 3xTF32 (tf32 hi
+and lo parts of each operand, rounded to nearest, lo·lo dropped: about f32
+accuracy), and is held to the f32 plain version at the f32 tolerances:
+``out`` 1e-5, ``idx`` exact, ``gnum`` rtol 1e-5 / atol 1e-4 (the JAX
+package's kernel test), ``idx`` and ``gnum`` bit-equal from run to run; and
+to ``alignment_tf32x3_reference``, which rounds its operands where the kernel
+does, with ``out`` within 8e-6 at most and 1e-6 on average and ``gnum`` as
+above.  That bound is only a little tighter than 1e-5 because what separates
+the kernel from either plain version is not operand rounding but the order
+of its f32 sums (mma.sync accumulating 3·D/8 k-steps into a score): score
+errors of a few 1e-5, carried into ``out`` through ``p·v`` (``chip_smoke.py``
+on an H100 at (48, 2, 896, 128, 128): 5.2e-6 at most, 1.9e-7 on average,
+against 6.2e-6 and 1.9e-7 from the f32 plain version).  Single-pass TF32
+would miss both by ~100×.  ``idx`` is held to the f32 plain version only:
+the 3xTF32 plain version, which sums its three products apart, settles
+near-ties its own way (at seed 10 of the training shape it takes key 16
+where the f32 plain version, the kernel and float64 take key 45: a top-two
+gap of 5.9e-6).  The
 backward passes recompute the plain versions, so a gradient through a
 kernel's ``autograd.Function`` equals autograd through its plain version to
 f32 rounding: 1e-4.  The log-mel kernel is f32 FMA against cuFFT in the
@@ -37,7 +52,8 @@ import torch
 from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                 mel_spectrogram)
 from smart_nar_fast_tts_tpu_torch.kernels import (
-    alignment_attention, alignment_reference, attention_bf16_reference,
+    alignment_attention, alignment_reference, alignment_tf32x3_reference,
+    attention_bf16_reference,
     attention_bf16_tolerance, attention_reference, flash_attention,
     fused_log_mel, gaussian_upsample_banded)
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
@@ -46,6 +62,7 @@ BF16_TOL = 2e-2
 ONE_TILE_MEAN = 1e-5
 F32_ATOL = 1e-5
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5
+TF32X3_ATOL, TF32X3_MEAN = 8e-6, 1e-6
 GRAD_TOL = 1e-4
 MEL_ATOL, ENERGY_ATOL, MEL_RTOL = 2e-4, 2e-3, 1e-4
 
@@ -132,10 +149,20 @@ def _alignment_inputs(card, B, H, T, L, D, seed):
     return q, k, v, valid, src, mel
 
 
+def _check_tf32x3(args, out, gnum):
+    """The kernel's outputs against the plain version that rounds its
+    operands where it does (``idx`` is held to the f32 one)."""
+    e_out, _, e_gnum = alignment_tf32x3_reference(*args)
+    gap = (out - e_out).abs()
+    assert gap.max() <= TF32X3_ATOL and gap.mean() <= TF32X3_MEAN
+    torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(48, 2, 896, 128, 128),
                                    (3, 2, 45, 13, 128),
-                                   (2, 3, 100, 70, 32)])
+                                   (2, 3, 100, 70, 32),
+                                   (2, 2, 1500, 1000, 128)])
 def test_alignment_attention(card, shape):
     args = _alignment_inputs(card, *shape, seed=10)
     out, idx, gnum = alignment_attention(*args)
@@ -146,6 +173,28 @@ def test_alignment_attention(card, shape):
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
     assert torch.equal(idx2, idx)
     assert torch.equal(gnum2, gnum)                   # bit-equal
+    _check_tf32x3(args, out, gnum)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["q zero", "v identity"])
+def test_alignment_attention_products_apart(card, case):
+    """q = 0: uniform probabilities, so ``out`` is the PV product alone (the
+    mean of the valid v rows); v = identity (L = D): ``out`` is P itself,
+    the QKᵀ product through the softmax alone."""
+    q, k, v, valid, src, mel = _alignment_inputs(card, 4, 2, 300, 128, 128,
+                                                 seed=15)
+    if case == "q zero":
+        q = torch.zeros_like(q)
+    else:
+        v = torch.eye(128, device=card).expand(4, 2, 128, 128).contiguous()
+    args = (q, k, v, valid, src, mel)
+    out, idx, gnum = alignment_attention(*args)
+    e_out, e_idx, e_gnum = alignment_reference(*args)
+    torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
+    assert torch.equal(idx, e_idx)
+    torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
+    _check_tf32x3(args, out, gnum)
 
 
 def _grads_of(fn, leaves, cotangents):
