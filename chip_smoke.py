@@ -28,21 +28,29 @@ any failure raises (exit code 1):
             one and L 1000, and on q = 0 and v = identity (each product
             apart); it is timed beside its plain version and f32 SDPA on
             ``out`` alone, against its 3xTF32 tensor-core bound and the f32
-            CUDA-core one, with its ptxas figures
+            CUDA-core one, with its ptxas figures.  The upsampling kernel is
+            also checked on a channel tail (D 70), 300 phonemes of 0 or 1
+            frames, all durations 0 and T 4096 (frames past Σd exactly 0,
+            mel_len exact), with its ptxas figures
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
-            set to 0 just before and read just after; then stage timings.
-            Self-attention runs the flash kernel only past 2048 frames, as
-            the JAX model, so this path launches upsampling alone
+            set to 0 just before and read just after; then stage timings,
+            and the upsampling kernel alone on the path's own recorded
+            inputs.  Self-attention runs the flash kernel only past 2048
+            frames, as the JAX model, so this path launches upsampling alone
   e2e cap 4096  stage A of the same inputs at the 4096-frame cap of the JAX
             package's ``serving_mel_caps``: the decoder's self-attention runs
             the flash kernel (4 launches at (8, 2, 4096, 128)), the encoder's
-            does not; then the kernel alone on each launch's own inputs
+            does not; then the kernel alone on each launch's own inputs, and
+            the upsampling kernel on its launch's (T 4096)
   kernel fused_log_mel  the log-mel kernel against its plain version on
             noise, the synthesised speech segments of the GAN phase and
             silence, at the GAN step's shape (B 16 × 8192 samples) and a tiny
             configuration, and against the plain version run in float64 on
-            those and on tones with a pause; then timed
+            those and on tones with a pause; its f64 FFT also within 5e-6 of
+            the float64 run and 2e-6 of ``log_mel_fft_reference`` on all of
+            those, (3, 5000) and n_fft 4096, bit-equal across launches, and
+            n_fft 1000 refused; then timed, with its ptxas figures
   reference the card's output against the port's CPU run (plain versions)
             on a small input: durations exact, postnet mel within 1e-3
   train     the training slice's main path: ``make_train_step`` on the
@@ -125,6 +133,11 @@ MEL_TOL = 1e-3      # postnet mel on the card vs the f32 CPU run (ROADMAP's
                     # "done" tolerance for mels)
 LOGMEL_ATOL, LOGMEL_RTOL = 2e-4, 1e-4    # the log-mel kernel against its
 ENERGY_ATOL = 2e-3  # plain version (cuFFT): the JAX package's kernel test
+FFT_MEL_ATOL, FFT_ENERGY_RTOL = 5e-6, 1e-6  # its f64 FFT against the
+                    # float64 plain version: f32 rounding of the mel value and
+                    # logf's last ulp (~1e-6), and of the energy (6e-8)
+FFT_REF_ATOL = 2e-6  # against log_mel_fft_reference (the same schedule in
+                    # float64 torch): the two logs' last ulps
 VOC_RTOL = 1e-3     # a narrow GAN step on the card vs the CPU, f32 both
 WAV_TOL = 1e-3      # the vocoder (f32 convolutions, no TF32) on one input
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5   # the alignment kernel's guided
@@ -388,18 +401,89 @@ def kernel_flash_attention(torch, np, kernels, compiled):
     return entry
 
 
-def kernel_gaussian_upsample(torch, np, kernels):
+def kernel_ptxas(compiled, stem, lib, smem):
+    """ptxas registers, static shared memory and spills of each kernel of
+    csrc/<stem>.cu (when this run compiled it), and the dynamic shared
+    memory a block takes at each size in ``smem`` ({label: bytes} from the
+    library's own query)."""
+    import re
+    out = {"dynamic_smem_bytes": smem}
+    if stem not in compiled:
+        out["kernels"] = "not compiled in this run: the build directory had it"
+        return out
+    for name, info in compiled[stem]["kernels"].items():
+        out[re.search(r"[a-z_]+_kernel", name).group(0)] = info
+    return out
+
+
+def upsample_bound(torch, x, d, valid, T, sigma=10.0):
+    """(bound ms, bound_by) of banded upsampling on these inputs: x, the
+    durations, valid and mel_len read or written once, out written once;
+    2·D operations per (frame, phoneme) pair within the band, over valid
+    phonemes and frames below min(Σd, T)."""
     from smart_nar_fast_tts_tpu_torch.kernels.upsample import BAND_SIGMAS
+    b, _, D = x.shape
+    dv = d.float() * valid
+    e = torch.cumsum(dv, 1)
+    c = e - 0.5 * dv
+    t = torch.arange(T, device=x.device, dtype=torch.float32)
+    near = ((t[None, :, None] - c[:, None, :]).abs()
+            <= BAND_SIGMAS * sigma) & (valid[:, None, :] > 0) \
+        & (t[None, :, None] < e[:, -1, None, None])
+    flops = 2 * D * int(near.sum())
+    nbytes = 4 * (x.numel() + d.numel() + valid.numel() + b * T * D + b)
+    return bound(nbytes, flops, F32_FLOPS)
+
+
+def upsample_check(torch, kernels, name, x, d, T, valid, sigma=10.0):
+    """The upsampling kernel against the dense plain version: out within
+    F32_TOL, exactly 0 past Σd, mel_len exact; then timed beside it."""
     from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
+    with torch.inference_mode():
+        out, mel_len = kernels.gaussian_upsample_banded(x, d, T, valid,
+                                                        sigma=sigma)
+        torch.cuda.synchronize()
+        ref, ref_len, _ = gaussian_upsample(x, d, T, valid, sigma=sigma)
+        err = check_close(f"gaussian_upsample {name}", out, ref, F32_TOL,
+                          torch)
+        if not torch.equal(mel_len, ref_len):
+            raise AssertionError(f"gaussian_upsample {name}: mel_len "
+                                 f"{mel_len.tolist()} != {ref_len.tolist()}")
+        total = (d.float() * valid).sum(1)
+        past = torch.arange(T, device=x.device)[None] >= total[:, None]
+        if out[past].any():
+            raise AssertionError(f"gaussian_upsample {name}: frames past "
+                                 "the total are not 0")
+        ms = device_ms(lambda: kernels.gaussian_upsample_banded(
+            x, d, T, valid, sigma=sigma), torch)
+        plain_ms = device_ms(lambda: gaussian_upsample(
+            x, d, T, valid, sigma=sigma), torch)
+    bound_ms, bound_by = upsample_bound(torch, x, d, valid, T, sigma)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by,
+                shape=[*x.shape, T], total_frames=total.tolist()[:8])
+
+
+def kernel_gaussian_upsample(torch, np, kernels, compiled):
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.upsample import _SIGNATURES
     rng = np.random.default_rng(2)
     entry, err_max = {}, 0.0
     # serving: Σd below T (durations 0..7) and above T (4..15); training:
-    # (48, 128, 256) to 896 frames, Σd around T (durations 5..9)
-    for name, b, Lx, T, (lo, hi) in (
-            ("short", B, L, T_CAP, (0, 8)), ("long", B, L, T_CAP, (4, 16)),
-            ("train", TRAIN_B, TRAIN_L, TRAIN_T, (5, 10))):
+    # (48, 128, 256) to 896 frames, Σd around T (durations 5..9); then a
+    # channel tail (D 70), 300 phonemes of 0 or 1 frames (~180 in one
+    # tile's band: many 32-phoneme chunks), all durations 0, and T 4096
+    # with Σd about 1200
+    for name, b, Lx, D, T, (lo, hi) in (
+            ("short", B, L, 256, T_CAP, (0, 8)),
+            ("long", B, L, 256, T_CAP, (4, 16)),
+            ("train", TRAIN_B, TRAIN_L, 256, TRAIN_T, (5, 10)),
+            ("D 70", 4, L, 70, T_CAP, (0, 15)),
+            ("L 300", 2, 300, 256, 400, (0, 2)),
+            ("all zero", 3, L, 256, 500, (0, 1)),
+            ("T 4096", B, L, 256, T_CAP_LONG, (8, 12))):
         if name != "long":
-            x = torch.from_numpy(rng.standard_normal((b, Lx, 256)).astype(
+            x = torch.from_numpy(rng.standard_normal((b, Lx, D)).astype(
                 np.float32)).cuda()
             lens = torch.from_numpy(rng.integers(Lx - 32, Lx + 1, size=b)
                                     ).cuda()
@@ -408,44 +492,26 @@ def kernel_gaussian_upsample(torch, np, kernels):
         with Phase("kernel gaussian_upsample") as f:
             d = torch.from_numpy(rng.integers(lo, hi, size=(b, Lx))
                                  ).float().cuda()
-            out, mel_len = kernels.gaussian_upsample_banded(x, d, T, valid)
-            torch.cuda.synchronize()
-            ref, ref_len, _ = gaussian_upsample(x, d, T, valid)
-            err = check_close(f"gaussian_upsample {name}", out, ref,
-                              F32_TOL, torch)
-            if not torch.equal(mel_len, ref_len):
-                raise AssertionError("gaussian_upsample: mel_len differs")
-            err_max = max(err_max, err)
-            ms = device_ms(lambda: kernels.gaussian_upsample_banded(
-                x, d, T, valid), torch)
-            plain_ms = device_ms(lambda: gaussian_upsample(
-                x, d, T, valid), torch)
-            # (frame, phoneme) pairs within the band (σ = 10, the default
-            # used above), over valid phonemes and frames below min(Σd, T)
-            dv = d * valid
-            e = torch.cumsum(dv, 1)
-            c = e - 0.5 * dv
-            t = torch.arange(T, device="cuda", dtype=torch.float32)
-            near = ((t[None, :, None] - c[:, None, :]).abs()
-                    <= BAND_SIGMAS * 10.0) \
-                & (valid[:, None, :] > 0) \
-                & (t[None, :, None] < e[:, -1, None, None])
-            flops = 2 * 256 * int(near.sum())
-            nbytes = 4 * (x.numel() + d.numel() + valid.numel()
-                          + out.numel() + mel_len.numel())
-            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-            f.update(case=name, total_frames=e[:, -1].tolist()[:8],
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            res = upsample_check(torch, kernels, name, x, d, T, valid)
+            err_max = max(err_max, res["max_abs_err"])
+            f.update(case=name, **res)
             if name == "long":
-                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                             bound_ms=bound_ms, bound_by=bound_by,
-                             shape=[B, L, 256, T_CAP])
+                entry.update({k: res[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "shape")})
             elif name == "train":
-                entry.update(train_ms=ms, train_plain_ms=plain_ms,
-                             train_bound_ms=bound_ms, train_bound_by=bound_by,
-                             train_shape=[b, Lx, 256, T])
-    entry["max_abs_err"] = err_max
+                entry.update({f"train_{k}": res[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "shape")})
+            elif name == "short":
+                entry.update(short_ms=res["ms"], short_bound_ms=res[
+                    "bound_ms"])
+            elif name == "T 4096":
+                entry.update(t4096_ms=res["ms"], t4096_bound_ms=res[
+                    "bound_ms"])
+    lib = _build.load("gaussian_upsample", _SIGNATURES)
+    entry.update(max_abs_err=err_max, ptxas=kernel_ptxas(
+        compiled, "gaussian_upsample", lib,
+        {f"L {n}": lib.gaussian_upsample_smem_bytes(n) for n in (128, 300)}))
     return entry
 
 
@@ -819,17 +885,47 @@ def train_reference_phase(torch, np, inv):
                                  f"{bad}")
 
 
+def upsampling_spy(calls):
+    """A stand-in for the model's ``gaussian_upsample_banded`` that records
+    each call's arguments and calls the wrapper."""
+    from smart_nar_fast_tts_tpu_torch.models import variance
+    wrapper = variance.gaussian_upsample_banded
+
+    def spy(*args, **kwargs):
+        calls.append((args, kwargs))
+        return wrapper(*args, **kwargs)
+    return spy
+
+
+def upsampling_on_path(torch, kernels, calls):
+    """The upsampling kernel alone on a path's own recorded inputs (shape,
+    durations, mask), after the launch counts were read: checked against
+    the dense plain version and timed beside it."""
+    (x, d, T, valid), kw = calls[0]
+    res = upsample_check(torch, kernels, f"on the path at T {T}", x, d, T,
+                         valid, kw.get("sigma", 10.0))
+    return {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "max_abs_err", "shape", "total_frames")}
+
+
 def e2e_phase(torch, kernels, texts, src_lens):
     """The serving main path at cap 1000, once, through the user's entry
-    point; then stage timings."""
+    point; then stage timings and the upsampling kernel alone on the
+    path's own inputs."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import variance
     from smart_nar_fast_tts_tpu_torch.serving import Synthesizer, bucket
     with Phase("e2e") as f:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         synth = Synthesizer.from_committed()
         f["load_seconds"] = time.perf_counter() - t0
+        calls = []
         kernels.reset_launches()
-        wav, mel_lens = synth.synthesize(texts, src_lens)
+        with mock.patch.object(variance, "gaussian_upsample_banded",
+                               upsampling_spy(calls)):
+            wav, mel_lens = synth.synthesize(texts, src_lens)
         torch.cuda.synchronize()
         counts = kernels.launches()
         if counts != PER_SERVING_BATCH:
@@ -861,7 +957,9 @@ def e2e_phase(torch, kernels, texts, src_lens):
                  rtf=(stage_a_ms + stage_b_ms) / 1e3 / seconds,
                  max_abs_wav=float(wav.abs().max()),
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    return synth, out, wav, mel_lens, counts
+        upsampling = upsampling_on_path(torch, kernels, calls)
+        f.update(upsampling_on_path=upsampling)
+    return synth, out, wav, mel_lens, counts, upsampling
 
 
 def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
@@ -873,18 +971,20 @@ def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
     through the kernel's bf16 operands: reported, not held."""
     from unittest import mock
 
-    from smart_nar_fast_tts_tpu_torch.models import layers
+    from smart_nar_fast_tts_tpu_torch.models import layers, variance
     from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
     with Phase("e2e cap 4096") as f:
         long_synth = Synthesizer(synth.model, synth.vocoder, t_cap=T_CAP_LONG)
-        calls, flash = [], layers.flash_attention
+        calls, flash, up_calls = [], layers.flash_attention, []
 
         def spy(q, k, v, key_valid):          # the model's call, recorded
             calls.append((q, k, v, key_valid))
             return flash(q, k, v, key_valid)
 
         kernels.reset_launches()
-        with mock.patch.object(layers, "flash_attention", spy):
+        with mock.patch.object(layers, "flash_attention", spy), \
+                mock.patch.object(variance, "gaussian_upsample_banded",
+                                  upsampling_spy(up_calls)):
             out = long_synth.stage_a(torch.from_numpy(texts),
                                      torch.from_numpy(src_lens))
         torch.cuda.synchronize()
@@ -930,7 +1030,9 @@ def e2e_long_phase(torch, kernels, synth, short, texts, src_lens):
                  postnet_mel_vs_cap1000_max=diff.max().item(),
                  postnet_mel_vs_cap1000_mean=diff.mean().item(),
                  stage_a_ms=stage_a_ms)
-    return counts
+        upsampling = upsampling_on_path(torch, kernels, up_calls)
+        f.update(upsampling_on_path=upsampling)
+    return counts, upsampling
 
 
 def reference_phase(torch, np, synth, inv):
@@ -990,37 +1092,48 @@ def tone_with_pause(torch, np, rng, b, n):
     return torch.from_numpy(out.astype(np.float32)).cuda()
 
 
-def kernel_fused_log_mel(torch, np, kernels, segments):
+def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
     """The log-mel kernel against its plain version (cuFFT rfft and the mel
     product) on noise, the speech segments and silence at the GAN step's
     shape and on noise at a tiny configuration; each also against the plain
     version run in float64.  On tones with a pause, where the f32 plain
-    version is itself off, the kernel is held to the float64 run only.
-    Then timed on the speech segments."""
+    version is itself off, the kernel is held to the float64 run only.  Its
+    FFT is f64 up to an f32 epilogue, so on every case, and on (3, 5000)
+    and n_fft 4096 besides, it is also held to the float64 run within
+    FFT_MEL_ATOL / FFT_ENERGY_RTOL and to ``log_mel_fft_reference`` (its
+    schedule in float64 torch) within FFT_REF_ATOL, and two launches are
+    bit-equal; n_fft 1000 raises.  Then timed on the speech segments."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.stft import _SIGNATURES
     rng = np.random.default_rng(5)
     cfg = MelSpectrogramConfig()
     tiny = MelSpectrogramConfig(n_fft=32, hop_length=8, win_length=32,
                                 n_mels=8, mel_fmax=None)
+    wide = MelSpectrogramConfig(n_fft=4096, win_length=4096,
+                                hop_length=1024)
     noise = torch.from_numpy(rng.uniform(-1, 1, segments.shape).astype(
         np.float32)).cuda()
     tones = tone_with_pause(torch, np, rng, *segments.shape)
-    entry, err_max = {}, 0.0
+    entry, err_max, fft_err_max = {}, 0.0, 0.0
     for name, y, c in (("noise", noise, cfg), ("speech", segments, cfg),
                        ("zeros", torch.zeros_like(segments), cfg),
                        ("tiny noise", noise[:3, :300].contiguous(), tiny),
-                       ("tones with a pause", tones, cfg)):
+                       ("tones with a pause", tones, cfg),
+                       ("(3, 5000)", noise[:3, :5000].contiguous(), cfg),
+                       ("n_fft 4096", noise[:4].contiguous(), wide)):
         with Phase("kernel fused_log_mel") as f:
             mel, energy = kernels.fused_log_mel(y, c)
+            mel2, energy2 = kernels.fused_log_mel(y, c)
             torch.cuda.synchronize()
             ref_mel, ref_energy = mel_spectrogram(y, c)
-            exact_mel, exact_energy = (t.float() for t in mel_spectrogram(
-                y.double(), c))
+            exact_mel, exact_energy = mel_spectrogram(y.double(), c)
+            fft_mel, fft_energy = kernels.log_mel_fft_reference(y, c)
             if mel.shape != ref_mel.shape or energy.shape != ref_energy.shape:
                 raise AssertionError(f"fused_log_mel {name}: shapes "
                                      f"{tuple(mel.shape)} {tuple(energy.shape)}")
-            held = [("float64", exact_mel, exact_energy)]
+            held = [("float64", exact_mel.float(), exact_energy.float())]
             if name != "tones with a pause":
                 held.append(("plain", ref_mel, ref_energy))
             errs = {}
@@ -1031,8 +1144,32 @@ def kernel_fused_log_mel(torch, np, kernels, segments):
                 errs[f"energy_vs_{against}"] = check_close(
                     f"fused_log_mel {name} energy vs {against}", energy, e,
                     ENERGY_ATOL, torch, rtol=LOGMEL_RTOL)
-            errs["plain_mel_vs_float64"] = (ref_mel - exact_mel).abs().max(
+            # in float64: the f64 FFT's own error, not the run's f32 rounding
+            errs["mel_vs_float64"] = (mel.double() - exact_mel).abs().max(
             ).item()
+            errs["energy_rel_vs_float64"] = ((
+                energy.double() - exact_energy).abs() / exact_energy.clamp(
+                min=1e-30)).max().item()
+            if (errs["mel_vs_float64"] > FFT_MEL_ATOL
+                    or errs["energy_rel_vs_float64"] > FFT_ENERGY_RTOL):
+                raise AssertionError(
+                    f"fused_log_mel {name} vs float64: mel "
+                    f"{errs['mel_vs_float64']} (atol {FFT_MEL_ATOL}), energy "
+                    f"{errs['energy_rel_vs_float64']} relative (rtol "
+                    f"{FFT_ENERGY_RTOL})")
+            errs["mel_vs_fft_reference"] = check_close(
+                f"fused_log_mel {name} mel vs log_mel_fft_reference", mel,
+                fft_mel, FFT_REF_ATOL, torch)
+            check_close(f"fused_log_mel {name} energy vs "
+                        "log_mel_fft_reference", energy, fft_energy, 0.0,
+                        torch, rtol=FFT_ENERGY_RTOL)
+            if not (torch.equal(mel, mel2) and torch.equal(energy, energy2)):
+                raise AssertionError(f"fused_log_mel {name}: two launches "
+                                     "differ")
+            errs["plain_mel_vs_float64"] = (ref_mel.double() - exact_mel
+                                            ).abs().max().item()
+            errs["fft_reference_mel_vs_float64"] = (
+                fft_mel.double() - exact_mel).abs().max().item()
             if name == "zeros" and not (torch.equal(mel, torch.log(
                     torch.full_like(mel, c.compression_clip)))
                     and not energy.any()):
@@ -1040,8 +1177,9 @@ def kernel_fused_log_mel(torch, np, kernels, segments):
                                      "log(clip) and 0")
             err_max = max(err_max, errs["mel_vs_float64"],
                           errs.get("mel_vs_plain", 0.0))
+            fft_err_max = max(fft_err_max, errs["mel_vs_float64"])
             f.update(case=name, shape=list(y.shape), n_fft=c.n_fft,
-                     mel_min=mel.min().item(), **errs)
+                     mel_min=mel.min().item(), bit_equal=True, **errs)
             if name != "speech":
                 continue
             ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
@@ -1055,22 +1193,28 @@ def kernel_fused_log_mel(torch, np, kernels, segments):
                          + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
                          + 2 * c.n_mels + 1)
             flops = b * n_frames * per_frame
-            # what the kernel's own algorithm does: the two windowed DFT
-            # products and the dense mel product
-            dft_flops = 2 * b * n_frames * (2 * c.n_fft * n_bins
-                                            + n_bins * c.n_mels)
             nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
             bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
                           library="the plain version (cuFFT rfft + mel "
                                   "product): no one PyTorch call computes "
                                   "log-mel",
-                          bound_ms=bound_ms, bound_by=bound_by, flops=flops,
-                          dft_flops=dft_flops,
-                          dft_bound_ms=dft_flops / F32_FLOPS * 1e3)
+                          bound_ms=bound_ms, bound_by=bound_by, flops=flops)
             f.update(timing)
             entry.update(timing, shape=list(y.shape))
-    entry["max_abs_err"] = err_max
+    with Phase("kernel fused_log_mel") as f:
+        try:
+            kernels.fused_log_mel(noise, MelSpectrogramConfig(
+                n_fft=1000, win_length=1000))
+        except ValueError as e:
+            f.update(case="n_fft 1000", raised=str(e))
+        else:
+            raise AssertionError("fused_log_mel took n_fft 1000")
+    lib = _build.load("log_mel", _SIGNATURES)
+    entry.update(max_abs_err=err_max, fft_max_abs_err_vs_float64=fft_err_max,
+                 ptxas=kernel_ptxas(compiled, "log_mel", lib, {
+                     f"n_fft {n}": lib.log_mel_smem_bytes(n)
+                     for n in (1024, 4096)}))
     return entry
 
 
@@ -1237,7 +1381,7 @@ def main() -> int:
             route="cuda",
             source="smart_nar_fast_tts_tpu_torch/csrc/gaussian_upsample.cu",
             replaces="smart_nar_fast_tts_tpu/ops/pallas/upsample.py:25",
-            **kernel_gaussian_upsample(torch, np, kernels)),
+            **kernel_gaussian_upsample(torch, np, kernels, compiled)),
         "alignment_attention": dict(
             route="cuda",
             source="smart_nar_fast_tts_tpu_torch/csrc/alignment_attention.cu",
@@ -1248,15 +1392,17 @@ def main() -> int:
         entries[name]["grad_max_abs_err"] = err
 
     texts, src_lens, inv = bench_inputs(np)
-    synth, short, wav, mel_lens, serving = e2e_phase(torch, kernels, texts,
-                                                     src_lens)
-    long_counts = e2e_long_phase(torch, kernels, synth, short, texts,
-                                 src_lens)
+    synth, short, wav, mel_lens, serving, ups_cap1000 = e2e_phase(
+        torch, kernels, texts, src_lens)
+    long_counts, ups_cap4096 = e2e_long_phase(torch, kernels, synth, short,
+                                              texts, src_lens)
+    entries["gaussian_upsample_banded"].update(
+        cap1000_path=ups_cap1000, cap4096_path=ups_cap4096)
     segments = vocoder_segments(torch, np, wav, mel_lens, synth.hop_length)
     entries["fused_log_mel"] = dict(
         route="cuda", source="smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
         replaces="smart_nar_fast_tts_tpu/ops/pallas/stft.py:46",
-        **kernel_fused_log_mel(torch, np, kernels, segments))
+        **kernel_fused_log_mel(torch, np, kernels, segments, compiled))
     reference_phase(torch, np, synth, inv)
 
     train_counts = train_phase(torch, np, kernels, synth, inv)

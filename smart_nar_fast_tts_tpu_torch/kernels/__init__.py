@@ -10,7 +10,7 @@ from .alignment import (alignment_attention, alignment_reference,
                         alignment_tf32x3_reference)
 from .attention import (attention_bf16_reference, attention_bf16_tolerance,
                         attention_reference, flash_attention, masked_softmax)
-from .stft import fused_log_mel
+from .stft import fused_log_mel, log_mel_fft_reference
 from .upsample import gaussian_upsample_banded
 
 WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention,
@@ -31,4 +31,5 @@ __all__ = ["alignment_attention", "alignment_reference",
            "attention_bf16_reference", "attention_bf16_tolerance",
            "attention_reference",
            "flash_attention", "masked_softmax", "fused_log_mel",
-           "gaussian_upsample_banded", "reset_launches", "launches"]
+           "gaussian_upsample_banded", "log_mel_fft_reference",
+           "reset_launches", "launches"]

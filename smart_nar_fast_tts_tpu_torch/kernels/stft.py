@@ -1,12 +1,23 @@
-"""Fused STFT → log-mel: the CUDA kernel ``csrc/log_mel.cu`` and its plain
-version, :func:`~..audio.stft.mel_spectrogram`.
+"""Fused STFT → log-mel: the CUDA kernel ``csrc/log_mel.cu``, its plain
+version :func:`~..audio.stft.mel_spectrogram`, and
+:func:`log_mel_fft_reference`, the kernel's schedule in float64 torch.
 
 The kernel replaces the TPU kernel ``fused_log_mel`` of
-``smart_nar_fast_tts_tpu/ops/pallas/stft.py``: the DFT as two products
-against the Hann-windowed cos and −sin bases, then magnitude, the mel
-product and ``log(max(·, clip))``, and the frame energy, in f32 FMA.  The
-plain version computes the magnitude by ``torch.fft.rfft`` instead, so the
-two agree to f32 rounding of the DFT sums, not bit for bit.
+``smart_nar_fast_tts_tpu/ops/pallas/stft.py``.  It takes the real FFT of
+each windowed frame in f64: a complex FFT of n_fft/2 points on the (even,
+odd) sample pairs, in Stockham radix-4 stages (one radix-2 stage first when
+log2(n_fft/2) is odd), then the split step to n_fft/2 + 1 bins; power,
+magnitude and the energy in f64; the mel sums over each filter's contiguous
+bin range in f64, rounded to f32; then ``log(max(·, clip))`` in f32, as
+the TPU kernel.  The window, twiddles and mel ranges are host tables built
+in float64 (:func:`log_mel_tables`).  Why f64: an f32 FFT rounds quiet bins
+(~110 dB below a frame's loudest) too coarsely for log compression; cuFFT's
+f32 log-mel is 2.1e-3 from float64 there.
+
+:func:`log_mel_fft_reference` runs the same stages, twiddle table and mel
+table in float64 torch, vectorised over frames, then the same f32
+epilogue: the tests hold the kernel to it and to the float64 plain version.
+The port itself never calls it.
 
 Forward only, as the TPU kernel (no ``custom_vjp``): both call sites of the
 GAN step take no gradient through it.
@@ -16,42 +27,86 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..audio.stft import MelSpectrogramConfig, mel_spectrogram
+from ..audio.stft import MelSpectrogramConfig, frame_signal, mel_spectrogram
 from . import _build
+
+# the n_fft the kernel takes: powers of two in this range
+MIN_N_FFT, MAX_N_FFT = 32, 4096
 
 # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
 _SIGNATURES = {
     "log_mel_forward": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "log_mel_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "log_mel_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
-def dft_mel_constants(cfg: MelSpectrogramConfig
-                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(windowed cos basis, windowed −sin basis, melᵀ) as f32 numpy arrays
-    of shapes (n_fft, n_bins), (n_fft, n_bins), (n_bins, n_mels): the bases
-    in float64, then cast, as the TPU kernel's ``_dft_mel_constants``."""
+def check_n_fft(n_fft: int) -> None:
+    """Raise unless n_fft is a power of two in [MIN_N_FFT, MAX_N_FFT]."""
+    if not (MIN_N_FFT <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0):
+        raise ValueError(f"fused_log_mel: n_fft {n_fft} must be a power of "
+                         f"two from {MIN_N_FFT} to {MAX_N_FFT}")
+
+
+def fft_radices(m: int) -> list[int]:
+    """The Stockham stages of an m-point FFT (m a power of two): one
+    radix-2 stage first when log2(m) is odd, then radix-4 stages."""
+    k = m.bit_length() - 1
+    return [2] * (k % 2) + [4] * (k // 2)
+
+
+@dataclass(frozen=True)
+class LogMelTables:
+    """Host tables of the kernel, as numpy arrays.
+
+    - ``window`` (n_fft,) float64: ``cfg.window``.
+    - ``twiddles`` (n_fft, 2) float64: re, im of exp(-2πik/n_fft).  The FFT
+      of n_fft/2 points takes W_{n_fft/2}^j as row 2j; the split step takes
+      row k.
+    - ``mel_ranges`` (n_mels, 3) int32: each filter's first nonzero bin,
+      the count of bins up to its last nonzero one (0 for an empty filter),
+      and the offset of its weights in ``mel_weights``.
+    - ``mel_weights`` float32: ``cfg.mel_basis``'s own values over those
+      ranges, packed filter after filter.
+    """
+    window: np.ndarray
+    twiddles: np.ndarray
+    mel_ranges: np.ndarray
+    mel_weights: np.ndarray
+
+
+def log_mel_tables(cfg: MelSpectrogramConfig) -> LogMelTables:
     n = cfg.n_fft
-    k = np.arange(n)[:, None] * np.arange(n // 2 + 1)[None, :]
-    ang = 2.0 * np.pi * k / n
-    win = np.asarray(cfg.window, np.float64)[:, None]
-    cos_b = (np.cos(ang) * win).astype(np.float32)
-    sin_b = (-np.sin(ang) * win).astype(np.float32)
-    mel_t = np.ascontiguousarray(np.asarray(cfg.mel_basis, np.float32).T)
-    return cos_b, sin_b, mel_t
+    ang = -2.0 * np.pi * np.arange(n) / n
+    basis = np.asarray(cfg.mel_basis, np.float32)
+    ranges, weights, offset = [], [], 0
+    for row in basis:
+        nz = np.flatnonzero(row)
+        start, count = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size \
+            else (0, 0)
+        ranges.append((start, count, offset))
+        weights.append(row[start:start + count])
+        offset += count
+    return LogMelTables(
+        window=np.asarray(cfg.window, np.float64),
+        twiddles=np.stack([np.cos(ang), np.sin(ang)], axis=1),
+        mel_ranges=np.asarray(ranges, np.int32).reshape(-1, 3),
+        mel_weights=np.concatenate(weights).astype(np.float32))
 
 
 @functools.lru_cache(maxsize=8)
-def _constants_on(cfg: MelSpectrogramConfig, device: torch.device
-                  ) -> tuple[torch.Tensor, ...]:
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in dft_mel_constants(cfg))
+def _tables_on(cfg: MelSpectrogramConfig, device: torch.device
+               ) -> tuple[torch.Tensor, ...]:
+    t = log_mel_tables(cfg)
+    return tuple(torch.from_numpy(a).to(device) for a in (
+        t.window, t.twiddles, t.mel_ranges, t.mel_weights))
 
 
 def num_frames(n_samples: int, cfg: MelSpectrogramConfig) -> int:
@@ -60,14 +115,72 @@ def num_frames(n_samples: int, cfg: MelSpectrogramConfig) -> int:
         // cfg.hop_length
 
 
+def _stockham_fft(z: torch.Tensor, w_n: torch.Tensor) -> torch.Tensor:
+    """Forward FFT over the last axis of complex z (..., m) by the kernel's
+    stages; ``w_n`` (2m,) complex holds exp(-2πik/(2m)).  At a stage of
+    length n and stride s (n·s = m), input q + s·(p + k·n/r) goes into
+    butterfly (p, q), and output k of that butterfly, times W_n^{kp}
+    = w_n[2·k·p·s], goes to q + s·(r·p + k)."""
+    lead, m = z.shape[:-1], z.shape[-1]
+    n, s = m, 1
+    for r in fft_radices(m):
+        q = n // r
+        x = z.reshape(*lead, r, q, s)
+        p = torch.arange(q, device=z.device)
+        tw = [w_n[2 * k * p * s][:, None] for k in range(1, r)]
+        if r == 2:
+            a, b = x.unbind(-3)
+            y = (a + b, (a - b) * tw[0])
+        else:
+            a, b, c, d = x.unbind(-3)
+            apc, amc, bpd, jbmd = a + c, a - c, b + d, 1j * (b - d)
+            y = (apc + bpd, (amc - jbmd) * tw[0], (apc - bpd) * tw[1],
+                 (amc + jbmd) * tw[2])
+        z = torch.stack(y, dim=-2).reshape(*lead, m)
+        n, s = q, s * r
+    return z
+
+
+def log_mel_fft_reference(y: torch.Tensor, cfg: MelSpectrogramConfig
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) float32 waveform → (log-mel (B, n_mels, F), energy (B, F)),
+    float32, by the kernel's schedule: the window, the radix stages and the
+    split step with the kernel's tables, power, magnitude, energy and the
+    sparse mel sums in float64; the mel value rounded to float32, then
+    ``log(max(·, clip))`` in float32."""
+    check_n_fft(cfg.n_fft)
+    window, twiddles, ranges, weights = _tables_on(cfg, y.device)
+    m = cfg.n_fft // 2
+    w_n = torch.complex(twiddles[:, 0], twiddles[:, 1])
+    frames = frame_signal(y.double(), cfg.n_fft, cfg.hop_length) * window
+    z = _stockham_fft(torch.complex(frames[..., 0::2], frames[..., 1::2]),
+                      w_n)
+    k = torch.arange(m + 1, device=y.device)
+    zk = z[..., k % m]
+    zc = z[..., (m - k) % m].conj()
+    spec = 0.5 * (zk + zc) - 0.5j * (zk - zc) * w_n[k]
+    power = spec.real ** 2 + spec.imag ** 2                  # (B, F, m + 1)
+    # each filter's range as a padded gather; pads weigh 0
+    start, count, offset = ranges.long().unbind(1)
+    j = torch.arange(max(int(count.max()), 1), device=y.device)
+    inside = j[None, :] < count[:, None]
+    bins = torch.where(inside, start[:, None] + j, 0)
+    wpad = torch.where(inside, weights.double()[
+        torch.where(inside, offset[:, None] + j, 0)], 0.0)
+    mel = (power.sqrt()[..., bins] * wpad).sum(-1).float()   # (B, F, n_mels)
+    mel = torch.log(torch.clamp(mel, min=cfg.compression_clip))
+    energy = power.sum(-1).sqrt().float()
+    return mel.transpose(1, 2).contiguous(), energy
+
+
 def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, S) waveform → (log-mel (B, n_mels, F), energy (B, F)), as
     :func:`~..audio.stft.mel_spectrogram`.
 
     A CPU tensor takes that plain version.  A CUDA tensor launches the
-    kernel: y contiguous float32, n_fft a multiple of 4, S > n_fft/2.  No
-    gradient flows through the kernel."""
+    kernel: y contiguous float32, n_fft a power of two from 32 to 4096,
+    S > n_fft/2.  No gradient flows through the kernel."""
     if y.device.type == "cpu":
         return mel_spectrogram(y, cfg)
     if y.device.type != "cuda":
@@ -75,22 +188,23 @@ def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
     if y.ndim != 2 or y.dtype != torch.float32 or not y.is_contiguous():
         raise ValueError("fused_log_mel: y must be contiguous (B, S) "
                          f"float32, got {tuple(y.shape)} {y.dtype}")
+    check_n_fft(cfg.n_fft)
     B, S = y.shape
-    if cfg.n_fft % 4 or S <= cfg.n_fft // 2:
-        raise ValueError(f"fused_log_mel: n_fft {cfg.n_fft} must be a "
-                         f"multiple of 4 with n_fft/2 below S = {S}")
+    if S <= cfg.n_fft // 2:
+        raise ValueError(f"fused_log_mel: n_fft/2 = {cfg.n_fft // 2} must "
+                         f"be below S = {S} (reflect padding)")
     F = num_frames(S, cfg)
-    cos_b, sin_b, mel_t = _constants_on(cfg, y.device)
+    window, twiddles, ranges, weights = _tables_on(cfg, y.device)
     mel = torch.empty((B, cfg.n_mels, F), dtype=torch.float32,
                       device=y.device)
     energy = torch.empty((B, F), dtype=torch.float32, device=y.device)
     lib = _build.load("log_mel", _SIGNATURES)
     with torch.cuda.device(y.device):
         status = lib.log_mel_forward(
-            y.data_ptr(), cos_b.data_ptr(), sin_b.data_ptr(),
-            mel_t.data_ptr(), mel.data_ptr(), energy.data_ptr(), B, S, F,
-            cfg.n_fft, cfg.hop_length, cfg.n_mels,
-            float(cfg.compression_clip),
+            y.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+            ranges.data_ptr(), weights.data_ptr(), mel.data_ptr(),
+            energy.data_ptr(), B, S, F, cfg.n_fft, cfg.hop_length,
+            cfg.n_mels, float(cfg.compression_clip),
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError("fused_log_mel: launch failed: "

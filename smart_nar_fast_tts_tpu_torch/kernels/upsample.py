@@ -5,6 +5,7 @@ The kernel replaces the TPU kernel ``gaussian_upsample_banded`` of
 ``smart_nar_fast_tts_tpu/ops/pallas/upsample.py``.  It computes in full f32;
 the only difference from the dense version is that a phoneme more than
 ``BAND_SIGMAS``·σ from a frame tile is left out, a weight below exp(-36).
+One launch computes the centers, the total and ``mel_len`` besides ``out``.
 
 Its backward, as the TPU kernel's ``custom_vjp``, is the vector-Jacobian
 product of the dense version, recomputed, for each input that needs one.
@@ -26,7 +27,10 @@ BAND_SIGMAS = 6.0
 _SIGNATURES = {
     "gaussian_upsample_forward": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int),
+    "gaussian_upsample_max_l": ([], ctypes.c_int),
+    "gaussian_upsample_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "gaussian_upsample_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -61,25 +65,26 @@ class _GaussianUpsample(torch.autograd.Function):
 
 def _launch(x, durations, phon_valid, max_len, sigma):
     B, L, D = x.shape
+    d = durations.float().contiguous()
     valid = phon_valid.float().contiguous()
-    d = durations.float() * valid
-    e = torch.cumsum(d, dim=1)
-    centers = (e - 0.5 * d).contiguous()
-    total = e[:, -1].contiguous()
     lib = _build.load("gaussian_upsample", _SIGNATURES)
+    if L > lib.gaussian_upsample_max_l():
+        raise ValueError(f"gaussian_upsample_banded: L {L} over the "
+                         f"kernel's {lib.gaussian_upsample_max_l()}")
     out = torch.empty((B, max_len, D), dtype=torch.float32, device=x.device)
+    mel_len = torch.empty((B,), dtype=torch.int32, device=x.device)
+    vec = int(D % 4 == 0 and x.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         status = lib.gaussian_upsample_forward(
-            x.data_ptr(), centers.data_ptr(), valid.data_ptr(),
-            total.data_ptr(), out.data_ptr(), B, L, max_len, D,
-            float(sigma) ** -2, BAND_SIGMAS * float(sigma),
+            x.data_ptr(), d.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            mel_len.data_ptr(), B, L, max_len, D, float(sigma) ** -2,
+            BAND_SIGMAS * float(sigma), vec,
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(
             "gaussian_upsample_banded: launch failed: "
             + lib.gaussian_upsample_error_string(status).decode())
     gaussian_upsample_banded.launches += 1
-    mel_len = torch.clamp(total, max=max_len).to(torch.int32)
     return out, mel_len
 
 

@@ -42,7 +42,11 @@ plain version: mel atol 2e-4 / rtol 1e-4, energy atol 2e-3 / rtol 1e-4 (the
 JAX package's kernel test), on noise, the port's synthesised speech and
 silence, which gives exactly log(1e-5) and 0; on tones with a pause under a
 faint noise floor, where the f32 plain version is itself off, against the
-plain version run in float64.
+plain version run in float64.  Its FFT is f64 up to an f32 epilogue, so it
+is also held within 5e-6 of the float64 plain version in log-mel and 1e-6
+relative in energy (f32 rounding of the mel value and ``logf``'s last ulp,
+~1e-6), and within 2e-6 of ``log_mel_fft_reference``, which runs its
+schedule in float64 torch; its outputs are bit-equal from launch to launch.
 """
 
 import numpy as np
@@ -55,7 +59,7 @@ from smart_nar_fast_tts_tpu_torch.kernels import (
     alignment_attention, alignment_reference, alignment_tf32x3_reference,
     attention_bf16_reference,
     attention_bf16_tolerance, attention_reference, flash_attention,
-    fused_log_mel, gaussian_upsample_banded)
+    fused_log_mel, gaussian_upsample_banded, log_mel_fft_reference)
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
 BF16_TOL = 2e-2
@@ -65,6 +69,7 @@ GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5
 TF32X3_ATOL, TF32X3_MEAN = 8e-6, 1e-6
 GRAD_TOL = 1e-4
 MEL_ATOL, ENERGY_ATOL, MEL_RTOL = 2e-4, 2e-3, 1e-4
+FFT_MEL_ATOL, FFT_REF_ATOL, FFT_ENERGY_RTOL = 5e-6, 2e-6, 1e-6
 
 
 @pytest.fixture
@@ -137,6 +142,36 @@ def test_gaussian_upsample(card, max_len):
     e_out, e_len, _ = gaussian_upsample(x, d, max_len, valid)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
     torch.testing.assert_close(mel_len, e_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["D 70", "L 300", "all zero", "T 4096"])
+def test_gaussian_upsample_cases(card, case):
+    """A channel tail (D not a multiple of 4: scalar staging and stores);
+    300 phonemes of 0 or 1 frames, ~180 of them in one tile's band (the
+    32-phoneme chunks run many rounds); all durations 0 (zeros, mel_len 0);
+    T 4096 with Σd about 1200 (most tiles past Σd)."""
+    B, L, D, T, durations = {
+        "D 70": (4, 128, 70, 1000, (0, 15)),
+        "L 300": (2, 300, 256, 400, (0, 2)),
+        "all zero": (3, 128, 256, 500, (0, 1)),
+        "T 4096": (8, 128, 256, 4096, (8, 12))}[case]
+    rng = np.random.default_rng(10)
+    x = _randn(rng, B, L, D).to(card)
+    d = torch.from_numpy(rng.integers(*durations, (B, L))).float().to(card)
+    lens = torch.from_numpy(rng.integers(L - 32, L + 1, B)).to(card)
+    valid = (torch.arange(L, device=card)[None] < lens[:, None]).float()
+    out, mel_len = gaussian_upsample_banded(x, d, T, valid)
+    e_out, e_len, _ = gaussian_upsample(x, d, T, valid)
+    torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
+    assert torch.equal(mel_len, e_len)
+    total = (d * valid).sum(1)
+    past = torch.arange(T, device=card)[None] >= total[:, None]
+    assert not out[past].any()
+    if case == "all zero":
+        assert not mel_len.any()
+    elif case == "T 4096":
+        assert 1000 < total.mean() < 1400
 
 
 def _alignment_inputs(card, B, H, T, L, D, seed):
@@ -318,3 +353,58 @@ def test_fused_log_mel_quiet_bins(card):
                                rtol=MEL_RTOL)
     plain_err = (mel_spectrogram(y, cfg)[0] - exact_mel).abs().max()
     assert (mel - exact_mel).abs().max() <= plain_err
+
+
+def _tones_with_pause(rng, B, S):
+    t = np.arange(S) / 22050.0
+    y = np.zeros((B, S))
+    for b in range(B):
+        y[b] = sum(np.sin(2 * np.pi * (90.0 + 15.0 * b) * h * t
+                          + rng.uniform(0, 6)) / h ** 2 for h in range(1, 30))
+        y[b] *= 0.4 * np.exp(-4.0 * t / t[-1])
+        y[b, S // 3: S // 2] = 0.0
+    return torch.from_numpy((y + 1e-5 * rng.standard_normal(y.shape)).astype(
+        np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["quiet bins", "noise", "ragged",
+                                  "n_fft 4096", "tiny"])
+def test_fused_log_mel_fft(card, case):
+    """The f64 FFT kernel against the float64 plain version and against
+    ``log_mel_fft_reference`` (its schedule in float64 torch), on the tones
+    with a pause, noise at the GAN shape, (3, 5000) (20 frames an item,
+    S not a multiple of the hop, reflect padding at both ends), n_fft 4096 and n_fft 32;
+    two launches bit-equal."""
+    kw = {"n_fft 4096": dict(n_fft=4096, win_length=4096, hop_length=1024),
+          "tiny": dict(n_fft=32, hop_length=8, win_length=32, n_mels=8,
+                       mel_fmax=None)}.get(case, {})
+    cfg = MelSpectrogramConfig(**kw)
+    rng = np.random.default_rng(15)
+    if case == "quiet bins":
+        y = _tones_with_pause(rng, 8, 8192)
+    else:
+        shape = {"ragged": (3, 5000), "n_fft 4096": (4, 20000),
+                 "tiny": (3, 300)}.get(case, (16, 8192))
+        y = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+    y = y.to(card)
+    mel, energy = fused_log_mel(y, cfg)
+    mel2, energy2 = fused_log_mel(y, cfg)
+    exact_mel, exact_energy = mel_spectrogram(y.double(), cfg)
+    torch.testing.assert_close(mel.double(), exact_mel, atol=FFT_MEL_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(energy.double(), exact_energy, atol=0,
+                               rtol=FFT_ENERGY_RTOL)
+    ref_mel, ref_energy = log_mel_fft_reference(y, cfg)
+    torch.testing.assert_close(mel, ref_mel, atol=FFT_REF_ATOL, rtol=0)
+    torch.testing.assert_close(energy, ref_energy, atol=0,
+                               rtol=FFT_ENERGY_RTOL)
+    assert torch.equal(mel, mel2) and torch.equal(energy, energy2)
+
+
+@pytest.mark.cuda
+def test_fused_log_mel_rejects_n_fft(card):
+    """The kernel takes n_fft a power of two from 32 to 4096."""
+    cfg = MelSpectrogramConfig(n_fft=1000, win_length=1000)
+    with pytest.raises(ValueError, match="power of two from 32 to 4096"):
+        fused_log_mel(torch.zeros(2, 5000, device=card), cfg)
