@@ -30,8 +30,15 @@ any failure raises (exit code 1):
             ``out`` alone, against its 3xTF32 tensor-core bound and the f32
             CUDA-core one, with its ptxas figures.  The upsampling kernel is
             also checked on a channel tail (D 70), 300 phonemes of 0 or 1
-            frames, all durations 0 and T 4096 (frames past Σd exactly 0,
-            mel_len exact), with its ptxas figures
+            frames, all durations 0, T 4096 (frames past Σd exactly 0,
+            mel_len exact) and phonemes longer than 12σ (one of 132 frames;
+            [7, 9, 4, 11, 6, d_last] for d_last 120-190), with its ptxas
+            figures
+  kernel ... general  the widths the first kernels do not take: flash
+            attention at head dims 32, 80, 96 (zero-padded to 64 or 128)
+            and 192, 256 (the general kernel), alignment attention at D 30,
+            96 (padded) and 192 (general), the log-mel DFT kernel at n_fft
+            16, 800, 1000, 1200 and 8192; each general kernel timed
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings,
@@ -49,10 +56,23 @@ any failure raises (exit code 1):
             configuration, and against the plain version run in float64 on
             those and on tones with a pause; its f64 FFT also within 5e-6 of
             the float64 run and 2e-6 of ``log_mel_fft_reference`` on all of
-            those, (3, 5000) and n_fft 4096, bit-equal across launches, and
-            n_fft 1000 refused; then timed, with its ptxas figures
+            those, (3, 5000) and n_fft 4096, bit-equal across launches; then
+            timed, with its ptxas figures
   reference the card's output against the port's CPU run (plain versions)
             on a small input: durations exact, postnet mel within 1e-3
+  cli       this slice's main path: ``smart_nar_fast_tts_tpu_torch.cli.
+            synthesize.main(argv)`` on ``configs/scaled/`` copies (under the
+            git-ignored ``build/cli_smoke/``), a port checkpoint of the
+            committed 8-speaker flagship and HiFi-GAN V1 as an upstream
+            torch checkpoint: (a) ``--text``, speaker 3; (b) a passage that
+            escalates to cap 4096 (4 flash and 2 upsampling launches); (c)
+            ``--source`` on 12 sentences, batch 8; (d) duration and pitch
+            controls; (e) Griffin-Lim; each with the launch counts set to 0
+            just before and read just after; every .wav and .png checked;
+            durations exact and postnet mel within 1e-3 against the CPU
+            (in (b) with the card's flash outputs replayed, each held to
+            ``attention_bf16_reference`` of its own inputs); then the CLI
+            imported where yaml, matplotlib and JAX cannot be
   train     the training slice's main path: ``make_train_step`` on the
             committed flagship with ``intended``/``first`` duration
             extraction (the alignment kernel's path) at the flagship training
@@ -126,8 +146,8 @@ BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
 ONE_TILE_MEAN = 1e-5
 FLASH_TILE = 128    # the kernel's key tile (csrc/flash_attention.cu BN)
 F32_TOL = 1e-5      # the upsampling kernel is f32 throughout: sums of at
-                    # most L terms, and what the band leaves out weighs
-                    # below exp(-36) ≈ 2e-16 of the total
+                    # most L terms; what the band leaves out weighs below
+                    # exp(-104), which f32 exp rounds to 0
 PRED_TOL = 1e-2     # log-durations on the card vs the f32 CPU run
 MEL_TOL = 1e-3      # postnet mel on the card vs the f32 CPU run (ROADMAP's
                     # "done" tolerance for mels)
@@ -508,6 +528,21 @@ def kernel_gaussian_upsample(torch, np, kernels, compiled):
             elif name == "T 4096":
                 entry.update(t4096_ms=res["ms"], t4096_bound_ms=res[
                     "bound_ms"])
+    # phonemes longer than 12σ, which the band must reach (ROADMAP §C.1):
+    # one of 132 frames at T 140, and [7, 9, 4, 11, 6, d_last] for d_last
+    # 120..190 as one batch
+    for name, rows, T in (
+            ("d 132", [[132]], 140),
+            ("d_last 120-190", [[7, 9, 4, 11, 6, n] for n in range(120, 191)],
+             37 + 190 + 8)):
+        with Phase("kernel gaussian_upsample") as f:
+            d = torch.tensor(rows, dtype=torch.float32, device="cuda")
+            x = torch.from_numpy(rng.standard_normal(
+                (*d.shape, 256)).astype(np.float32)).cuda()
+            res = upsample_check(torch, kernels, name, x, d, T,
+                                 torch.ones_like(d))
+            err_max = max(err_max, res["max_abs_err"])
+            f.update(case=name, **res)
     lib = _build.load("gaussian_upsample", _SIGNATURES)
     entry.update(max_abs_err=err_max, ptxas=kernel_ptxas(
         compiled, "gaussian_upsample", lib,
@@ -1102,7 +1137,8 @@ def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
     and n_fft 4096 besides, it is also held to the float64 run within
     FFT_MEL_ATOL / FFT_ENERGY_RTOL and to ``log_mel_fft_reference`` (its
     schedule in float64 torch) within FFT_REF_ATOL, and two launches are
-    bit-equal; n_fft 1000 raises.  Then timed on the speech segments."""
+    bit-equal.  Then timed on the speech segments.  Other n_fft sizes go to
+    the DFT kernel (:func:`kernel_general_paths`)."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
     from smart_nar_fast_tts_tpu_torch.kernels import _build
@@ -1202,14 +1238,6 @@ def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
                           bound_ms=bound_ms, bound_by=bound_by, flops=flops)
             f.update(timing)
             entry.update(timing, shape=list(y.shape))
-    with Phase("kernel fused_log_mel") as f:
-        try:
-            kernels.fused_log_mel(noise, MelSpectrogramConfig(
-                n_fft=1000, win_length=1000))
-        except ValueError as e:
-            f.update(case="n_fft 1000", raised=str(e))
-        else:
-            raise AssertionError("fused_log_mel took n_fft 1000")
     lib = _build.load("log_mel", _SIGNATURES)
     entry.update(max_abs_err=err_max, fft_max_abs_err_vs_float64=fft_err_max,
                  ptxas=kernel_ptxas(compiled, "log_mel", lib, {
@@ -1332,6 +1360,516 @@ def vocoder_train_reference_phase(torch, np):
                                  f"{VOC_RTOL}: {bad}")
 
 
+def alignment_general_check(torch, kernels, name, args):
+    """The general alignment kernel (f32 CUDA-core products) against the
+    f32 plain version: out F32_TOL, idx exact, gnum GNUM_ATOL/GNUM_RTOL;
+    two launches bit-equal."""
+    out, idx, gnum = kernels.alignment_attention(*args)
+    out2, idx2, gnum2 = kernels.alignment_attention(*args)
+    torch.cuda.synchronize()
+    r_out, r_idx, r_gnum = kernels.alignment_reference(*args)
+    err = check_close(f"alignment_attention {name} out", out, r_out,
+                      F32_TOL, torch)
+    n_idx = int((idx != r_idx).sum())
+    if n_idx:
+        raise AssertionError(f"alignment_attention {name}: {n_idx} argmax "
+                             "indices differ")
+    gnum_err = check_close(f"alignment_attention {name} gnum", gnum, r_gnum,
+                           GNUM_ATOL, torch, rtol=GNUM_RTOL)
+    if not (torch.equal(out, out2) and torch.equal(idx, idx2)
+            and torch.equal(gnum, gnum2)):
+        raise AssertionError(f"alignment_attention {name}: two launches "
+                             "differ")
+    return dict(max_abs_err=err,
+                mean_abs_err=(out - r_out).abs().mean().item(),
+                gnum_max_abs_err=gnum_err, idx_differ=0, bit_equal=True)
+
+
+def routed(kernels, name, fn):
+    """``fn()``, and whether the wrapper launched its second kernel
+    (``name`` of :func:`kernels.general_launches`) for it."""
+    before = kernels.general_launches()[name]
+    out = fn()
+    return out, kernels.general_launches()[name] > before
+
+
+def kernel_general_paths(torch, np, kernels, compiled):
+    """The widths the first kernels do not take (ROADMAP §C.2).  Flash
+    attention at head dims 32, 80 and 96 (zero-padded to the tensor-core
+    kernel's 64 or 128) and 192 and 256 (the general kernel), f32 and bf16
+    operands, held as the tensor-core kernel is (:func:`flash_errors`);
+    alignment attention at D 30 and 96 (zero-padded to a multiple of 4:
+    :func:`alignment_check`) and 192 (the general kernel:
+    :func:`alignment_general_check`); the log-mel DFT kernel at n_fft 16,
+    800, 1000, 1200 and 8192 against the float64 plain version
+    (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and ``log_mel_dft_reference``
+    (FFT_REF_ATOL), bit-equal across launches.  Then each general kernel
+    timed: flash at (8, 2, 4096, 192) beside its plain version and SDPA,
+    alignment at the training shape with D 192, log-mel at (16, 8192) with
+    n_fft 1200.  Returns the three kernels' entries."""
+    import torch.nn.functional as F
+
+    from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
+                                                    mel_spectrogram)
+    rng = np.random.default_rng(6)
+    flash, align, dft = {}, {}, {}
+    flash_err = align_err = dft_err = 0.0
+    for D in (32, 80, 96, 192, 256):
+        valid = flash_valid(torch, np, rng, 4, 700, "prefix")
+        base = [torch.from_numpy(rng.standard_normal(
+            (4, 2, 700, D)).astype(np.float32)).cuda() for _ in range(3)]
+        for dtype in (torch.float32, torch.bfloat16):
+            with Phase("kernel flash_attention general widths") as f:
+                q, k, v = (t.to(dtype) for t in base)
+                out, general = routed(
+                    kernels, "flash_attention_general",
+                    lambda: kernels.flash_attention(q, k, v, valid))
+                torch.cuda.synchronize()
+                if general != (D > 128):
+                    raise AssertionError(f"flash_attention D {D}: general "
+                                         f"kernel launched: {general}")
+                err, err_emu, share, mean = flash_errors(
+                    torch, kernels, f"D {D}", out, q, k, v, valid)
+                if general:
+                    flash_err = max(flash_err, err_emu)
+                f.update(D=D, dtype=str(dtype), shape=list(q.shape),
+                         route="general" if general else
+                         "tensor cores, D zero-padded",
+                         max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
+                         bf16_tolerance_share=share,
+                         mean_abs_err_vs_bf16_plain=mean)
+    with Phase("kernel flash_attention general") as f:
+        valid = flash_valid(torch, np, rng, B, T_CAP_LONG, "prefix")
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, 2, T_CAP_LONG, 192)).astype(np.float32)).cuda()
+            for _ in range(3))
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        mask = valid[:, None, None, :]
+        out = kernels.flash_attention(q, k, v, valid)
+        err, err_emu, share, _ = flash_errors(torch, kernels, "D 192 timed",
+                                              out, q, k, v, valid)
+        ms = device_ms(lambda: kernels.flash_attention(q, k, v, valid),
+                       torch, reps=5, warmup=1)
+        plain_ms = device_ms(lambda: kernels.attention_reference(
+            q, k, v, valid), torch, reps=5, warmup=1)
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask), torch)
+        library_f32_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), torch)
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + valid.numel()
+        flops = 4 * 2 * T_CAP_LONG * 192 * int(valid.sum())
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+        flash = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                     library="SDPA on bf16 operands",
+                     library_f32_ms=library_f32_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, bound_share=bound_ms / ms,
+                     shape=list(q.shape), max_abs_err=max(flash_err, err_emu),
+                     max_abs_err_vs_f32_plain=err,
+                     bf16_tolerance_share=share)
+        f.update(flash)
+    for D in (30, 96, 192):
+        with Phase("kernel alignment_attention general widths") as f:
+            args = alignment_inputs(torch, np, rng, 4, 2, 300, 70, D)
+            check = (alignment_general_check if D > 128 else
+                     alignment_check)
+            checks, general = routed(
+                kernels, "alignment_attention_general",
+                lambda: check(torch, kernels, f"D {D}", args))
+            if general != (D > 128):
+                raise AssertionError(f"alignment_attention D {D}: general "
+                                     f"kernel launched: {general}")
+            if general:
+                align_err = max(align_err, checks["max_abs_err"])
+            f.update(D=D, route="general" if general else
+                     "tensor cores, D zero-padded", **checks)
+    with Phase("kernel alignment_attention general") as f:
+        shape = (TRAIN_B, 2, TRAIN_T, TRAIN_L, 192)
+        args = alignment_inputs(torch, np, rng, *shape)
+        checks = alignment_general_check(torch, kernels, "D 192 timed", args)
+        q, k, v, valid = args[:4]
+        ms = device_ms(lambda: kernels.alignment_attention(*args), torch)
+        plain_ms = device_ms(lambda: kernels.alignment_reference(*args),
+                             torch)
+        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=valid[:, None, None, :]), torch)
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
+                      + TRAIN_B * TRAIN_T + TRAIN_B
+                      + 2 * args[4].numel()) + valid.numel()
+        flops = 4 * 2 * TRAIN_T * 192 * int(valid.sum())
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+        align = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                     sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, bound_share=bound_ms / ms,
+                     shape=list(shape),
+                     max_abs_err=max(align_err, checks["max_abs_err"]))
+        f.update(align, gnum_max_abs_err=checks["gnum_max_abs_err"])
+    tones = tone_with_pause(torch, np, rng, 4, 16384)
+    for n in (16, 800, 1000, 1200, 8192):
+        with Phase("kernel fused_log_mel dft") as f:
+            c = MelSpectrogramConfig(n_fft=n, win_length=n,
+                                     hop_length=max(n // 4, 1))
+            (mel, energy), general = routed(
+                kernels, "fused_log_mel_dft",
+                lambda: kernels.fused_log_mel(tones, c))
+            mel2, energy2 = kernels.fused_log_mel(tones, c)
+            torch.cuda.synchronize()
+            if not general:
+                raise AssertionError(f"fused_log_mel n_fft {n}: the DFT "
+                                     "kernel did not run")
+            exact_mel, exact_energy = mel_spectrogram(tones.double(), c)
+            twin_mel, twin_energy = kernels.log_mel_dft_reference(tones, c)
+            mel_err = (mel.double() - exact_mel).abs().max().item()
+            energy_err = ((energy.double() - exact_energy).abs()
+                          / exact_energy.clamp(min=1e-30)).max().item()
+            if mel_err > FFT_MEL_ATOL or energy_err > FFT_ENERGY_RTOL:
+                raise AssertionError(
+                    f"fused_log_mel n_fft {n} vs float64: mel {mel_err} "
+                    f"(atol {FFT_MEL_ATOL}), energy {energy_err} relative "
+                    f"(rtol {FFT_ENERGY_RTOL})")
+            twin_err = check_close(f"fused_log_mel n_fft {n} vs "
+                                   "log_mel_dft_reference", mel, twin_mel,
+                                   FFT_REF_ATOL, torch)
+            check_close(f"fused_log_mel n_fft {n} energy vs "
+                        "log_mel_dft_reference", energy, twin_energy, 0.0,
+                        torch, rtol=FFT_ENERGY_RTOL)
+            if not (torch.equal(mel, mel2) and torch.equal(energy, energy2)):
+                raise AssertionError(f"fused_log_mel n_fft {n}: two "
+                                     "launches differ")
+            dft_err = max(dft_err, mel_err)
+            f.update(n_fft=n, shape=list(tones.shape), route="dft",
+                     mel_vs_float64=mel_err, energy_rel_vs_float64=energy_err,
+                     mel_vs_dft_reference=twin_err, bit_equal=True)
+    with Phase("kernel fused_log_mel dft") as f:
+        c = MelSpectrogramConfig(n_fft=1200, win_length=1200)
+        y = torch.from_numpy(rng.uniform(-1, 1, (VOC_B, VOC_SEG)).astype(
+            np.float32)).cuda()
+        mel, energy = kernels.fused_log_mel(y, c)
+        ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
+        plain_ms = device_ms(lambda: mel_spectrogram(y, c), torch)
+        b, n_frames = energy.shape
+        n_bins = c.n_fft // 2 + 1
+        # the function's least work, as for the FFT kernel's entry
+        per_frame = (c.win_length + 2.5 * c.n_fft * math.log2(c.n_fft)
+                     + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
+                     + 2 * c.n_mels + 1)
+        flops = b * n_frames * per_frame
+        nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
+        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+        dft = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                   library="the plain version (cuFFT rfft + mel product): "
+                           "no one PyTorch call computes log-mel",
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms, shape=list(y.shape),
+                   n_fft=1200, max_abs_err=dft_err)
+        f.update(dft)
+    ptxas = kernel_ptxas(compiled, "attention_general", None, {})
+    flash.update(ptxas=ptxas)
+    align.update(ptxas=ptxas)
+    return {"flash_attention_general": flash,
+            "alignment_attention_general": align,
+            "fused_log_mel_dft": dft}
+
+
+# the CLI phase: configs/scaled/ and the committed 8-speaker flagship, with
+# the committed HiFi-GAN V1 as an upstream-layout torch checkpoint
+CLI_DIR = os.path.join(REPO, "build", "cli_smoke")
+CLI_SPEAKER = 3
+CLI_TEXT = ("The quick brown fox jumps over the lazy dog, while five boxing "
+            "wizards jump quickly.")
+# 336 phonemes: a predicted length between 2048 and 4096 frames
+CLI_LONG = (
+    "Speech synthesis turns written text into sound that people can listen "
+    "to. A fast system reads the whole sentence at once, predicts how long "
+    "each sound should last, and then paints a picture of the voice, frame "
+    "by frame, before a second network turns that picture into a waveform. "
+    "Long passages like this one are a good test, because the number of "
+    "frames grows past the first capacity, so the program must notice, "
+    "choose a larger capacity, and run the model again without cutting any "
+    "words.")
+# each within the configured text bucket (24 phonemes)
+CLI_SOURCE = ("Hello world.", "Good morning to you.",
+              "The sun is bright today.", "Please call me soon.",
+              "We went for a walk.", "It is time to eat.",
+              "She sells sea shells.", "Open the door slowly.",
+              "Read the book again.", "The cat sat on a mat.",
+              "Turn left at the light.", "Rain falls on the roof.")
+
+
+def cli_workspace(torch, np):
+    """``build/cli_smoke/``: copies of ``configs/scaled/*.yaml`` whose paths
+    point there, ``stats.json`` from ``scaled_flagship_meta.json``, a port
+    checkpoint of the committed 8-speaker flagship at its training step,
+    HiFi-GAN V1 as ``{"generator": state_dict}`` (weight norm written out)
+    with its ``config.json``, and the metadata file of the source run.
+    Returns (config paths, step, vocoder path, metadata path)."""
+    import re
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.config import Config
+    from smart_nar_fast_tts_tpu_torch.serving import (committed_flagship,
+                                                      committed_vocoder)
+    from smart_nar_fast_tts_tpu_torch.text import text_to_sequence
+    from smart_nar_fast_tts_tpu_torch.text.g2p import G2P
+    from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
+                                                       create_train_state)
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(os.path.join(CLI_DIR, "preprocessed"))
+    moved = {"preprocessed_path": "preprocessed", "data_path": "raw",
+             "ckpt_path": "ckpt", "log_path": "log", "result_path": "result"}
+    paths = []
+    for name in ("preprocess", "model", "train"):
+        with open(os.path.join(REPO, "configs", "scaled",
+                               f"{name}.yaml")) as f:
+            text = f.read()
+        for key, sub in moved.items():
+            text = re.sub(rf'(\n\s*{key}:\s*)"[^"]*"',
+                          lambda m, s=sub: f'{m.group(1)}"'
+                          f'{os.path.join(CLI_DIR, s)}"', text)
+        paths.append(os.path.join(CLI_DIR, f"{name}.yaml"))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    results = os.path.join(REPO, "benchmarks", "results")
+    with open(os.path.join(results, "scaled_flagship_meta.json")) as f:
+        meta = json.load(f)
+    st = meta["stats"]
+    with open(os.path.join(CLI_DIR, "preprocessed", "stats.json"), "w") as f:
+        json.dump({kind: [st[f"{kind}_{k}"] for k in ("min", "max", "mean",
+                                                      "std")]
+                   for kind in ("pitch", "energy")}, f)
+    cfg = Config.from_yaml_triplet(*paths)
+    if cfg.train.ckpt_path != os.path.join(CLI_DIR, "ckpt"):
+        raise AssertionError(f"ckpt_path {cfg.train.ckpt_path}")
+    state = create_train_state(
+        committed_flagship(cfg.model, name="scaled_flagship"),
+        cfg.train.optimizer, "cpu")
+    state.step = int(meta["steps"])
+    CheckpointManager(cfg.train.ckpt_path).save(state)
+    vocoder = committed_vocoder()
+    sd = {}
+    for key, value in vocoder.state_dict().items():
+        if key.endswith(".weight") and value.ndim == 3:   # weight norm, dim 0
+            base = key[:-len(".weight")]
+            sd[base + ".weight_g"] = value.flatten(1).norm(dim=1)[:, None,
+                                                                  None]
+            sd[base + ".weight_v"] = value
+        else:
+            sd[key] = value
+    voc_dir = os.path.join(CLI_DIR, "hifigan")
+    os.makedirs(voc_dir)
+    voc_path = os.path.join(voc_dir, "generator_v1.pth.tar")
+    torch.save({"generator": sd}, voc_path)
+    with open(os.path.join(results, "vocoder_meta.json")) as f:
+        voc_config = json.load(f)["config"]
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump({**voc_config, "num_mels": voc_config.get("n_mels", 80)},
+                  f)
+    g2p = G2P(cfg.preprocess.lexicon_path)
+    lines = []
+    for i, sentence in enumerate(CLI_SOURCE):
+        phones = g2p(sentence)
+        n = len(text_to_sequence(phones, list(cfg.preprocess.text_cleaners)))
+        if n > max(cfg.train.text_buckets):
+            raise AssertionError(f"{sentence!r}: {n} phonemes")
+        lines.append(f"utt{i:02d}|{i % cfg.model.n_speakers}|{phones}|"
+                     f"{sentence}")
+    meta_path = os.path.join(CLI_DIR, "metadata.txt")
+    with open(meta_path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return paths, state.step, voc_path, meta_path
+
+
+def cli_run(torch, np, kernels, synthesize, argv, flash_calls=None):
+    """One call of the CLI's ``main`` with the launch counts set to 0 just
+    before and read just after; checks every written file.  Returns (the
+    utterances, counts, wall seconds, seconds of audio)."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    flash = layers.flash_attention
+
+    def spy(q, k, v, key_valid):          # the model's call, recorded
+        out = flash(q, k, v, key_valid)
+        flash_calls.append((q, k, v, key_valid, out))
+        return out
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(layers, "flash_attention",
+                           spy if flash_calls is not None else flash):
+        utts = synthesize.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**kernels.launches(), **kernels.general_launches()}
+    for u in utts:
+        with open(u.base + ".png", "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{u.base}.png is no PNG")
+        if os.path.getsize(u.base + ".wav") != 44 + 2 * u.wav.shape[0]:
+            raise AssertionError(f"{u.base}.wav: wrong size")
+        if not (u.mel_len > 0 and np.isfinite(u.postnet_mel).all()
+                and np.isfinite(u.wav).all()):
+            raise AssertionError(f"{u.name}: empty or non-finite output")
+    seconds = sum(u.mel_len for u in utts) * 256 / 22050
+    return utts, counts, wall, seconds
+
+
+def cli_reference(torch, np, kernels, synthesize, cfg, step, runs):
+    """Each run's batches through the same checkpoint on the CPU (the plain
+    versions), at the run's controls: capacity and durations exact, the
+    postnet mel within MEL_TOL.  In the long run the decoder's flash
+    launches are replaced on the CPU by their card outputs (recorded on
+    the path), which were held to ``attention_bf16_reference`` of their own
+    inputs; so the rest of the model is held at MEL_TOL there too.  Also
+    reported: the long run against a CPU run whose flash calls take
+    ``attention_bf16_reference``."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    model, restored = synthesize.load_model(cfg, step, torch.device("cpu"))
+    if restored != step:
+        raise AssertionError(f"CPU model restored step {restored}")
+    report = {}
+    for name, (utts, controls, flash_calls) in runs.items():
+        fwd = synthesize.make_forward(model, cfg, *controls)
+        errs, done = [], {}
+        for u in utts:
+            key = id(u.batch)
+            if key not in done:
+                if flash_calls:
+                    card = [c[4].cpu() for c in flash_calls]
+                    with mock.patch.object(layers, "flash_attention",
+                                           lambda *a: card.pop(0)):
+                        done[key] = fwd(*u.batch)
+                    if card:
+                        raise AssertionError(f"{name}: {len(card)} flash "
+                                             "outputs not replayed")
+                else:
+                    done[key] = fwd(*u.batch)
+            out = done[key]
+            L = len(u.ids)
+            if out.postnet_mel.shape[1] != u.cap or int(
+                    out.mel_lens[u.j]) != u.mel_len:
+                raise AssertionError(f"{name} {u.name}: capacity or mel_len "
+                                     "differs from the CPU run")
+            if not np.array_equal(out.duration_rounded[u.j, :L].numpy(),
+                                  u.duration):
+                raise AssertionError(f"{name} {u.name}: durations differ "
+                                     "from the CPU run")
+            n = u.postnet_mel.shape[0]
+            errs.append(np.abs(out.postnet_mel[u.j, :n].numpy()
+                               - u.postnet_mel).max())
+        err = float(max(errs))
+        if not err <= MEL_TOL:
+            raise AssertionError(f"{name}: postnet mel {err} from the CPU "
+                                 f"run, over {MEL_TOL}")
+        report[name] = err
+        if flash_calls:
+            def bf16_plain(q, k, v, key_valid):
+                return kernels.attention_bf16_reference(q, k, v, key_valid)
+            with mock.patch.object(layers, "flash_attention", bf16_plain):
+                out = fwd(*utts[0].batch)
+            n = utts[0].postnet_mel.shape[0]
+            gap = np.abs(out.postnet_mel[0, :n].numpy()
+                         - utts[0].postnet_mel)
+            report[f"{name}_vs_cpu_bf16_plain_max"] = float(gap.max())
+            report[f"{name}_vs_cpu_bf16_plain_mean"] = float(gap.mean())
+    return report
+
+
+def cli_phase(torch, np, kernels):
+    """This slice's main path: ``python -m
+    smart_nar_fast_tts_tpu_torch.cli.synthesize`` as ``main(argv)`` on the
+    committed 8-speaker flagship (``configs/scaled/``) and HiFi-GAN V1, each
+    run with the launch counts set to 0 just before and read just after:
+    (a) ``--text`` with speaker 3; (b) a passage whose predicted length
+    passes 2048 frames: it escalates to cap 4096 (4 flash launches, 2
+    upsampling: probe and rerun), each flash output held to
+    ``attention_bf16_reference`` of its own inputs; (c) ``--source`` on 12
+    sentences, batch 8, the configured text bucket; (d) ``--duration_control
+    1.8 --pitch_control 1.2``; (e) Griffin-Lim (no vocoder checkpoint).
+    Every .wav and .png is checked; durations and postnet mel against the
+    CPU (:func:`cli_reference`).  Then the CLI is imported in a process
+    where yaml, matplotlib, jax and the JAX package cannot be imported."""
+    import argparse
+
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.cli._args import load_config
+    with Phase("cli setup") as f:
+        paths, step, voc, meta = cli_workspace(torch, np)
+        cfg = load_config(argparse.Namespace(
+            preprocess_config=paths[0], model_config=paths[1],
+            train_config=paths[2]))
+        if cfg.preprocess.stats is None:
+            raise AssertionError("stats.json was not found")
+        f.update(step=step, configs=paths, vocoder=voc)
+    base = ["-p", paths[0], "-m", paths[1], "-t", paths[2],
+            "--restore_step", str(step)]
+    hifigan = ["--vocoder_ckpt", voc]
+    runs, entry, flash_calls = {}, {}, []
+    plan = (
+        ("text", ["--text", CLI_TEXT, "--speaker_id", str(CLI_SPEAKER)]
+         + hifigan, (1.0, 1.0, 1.0), None),
+        ("long", ["--text", CLI_LONG, "--speaker_id", str(CLI_SPEAKER)]
+         + hifigan, (1.0, 1.0, 1.0), flash_calls),
+        ("source", ["--source", meta, "--batch_size", "8"] + hifigan,
+         (1.0, 1.0, 1.0), None),
+        ("controls", ["--text", CLI_TEXT, "--duration_control", "1.8",
+                      "--pitch_control", "1.2"] + hifigan,
+         (1.2, 1.0, 1.8), None),
+        ("griffin-lim", ["--text", CLI_TEXT], (1.0, 1.0, 1.0), None))
+    for name, argv, controls, calls in plan:
+        with Phase(f"cli {name}") as f:
+            utts, counts, wall, seconds = cli_run(
+                torch, np, kernels, synthesize, base + argv, calls)
+            caps = sorted({u.cap for u in utts})
+            f.update(utterances=len(utts), caps=caps, launches=counts,
+                     mel_lens=[u.mel_len for u in utts],
+                     audio_seconds=seconds, wall_seconds=wall,
+                     wall_seconds_per_utterance=wall / len(utts),
+                     rtf=wall / seconds, nvidia_smi=nvidia_smi())
+            if name == "long":
+                if caps != [T_CAP_LONG] or counts["flash_attention"] != 4 \
+                        or counts["gaussian_upsample_banded"] != 2:
+                    raise AssertionError(f"long run: caps {caps}, launches "
+                                         f"{counts}")
+                shares = []
+                for q, k, v, valid, out in flash_calls:
+                    ref = kernels.attention_bf16_reference(q, k, v, valid)
+                    tol = kernels.attention_bf16_tolerance(q, k, v, valid,
+                                                           ref)
+                    shares.append(((out - ref).abs() / tol).max().item())
+                if len(shares) != 4 or not max(shares) <= 1.0:
+                    raise AssertionError(f"long run: flash outputs beyond "
+                                         f"attention_bf16_tolerance {shares}")
+                f.update(flash_shapes=[list(c[0].shape) for c in flash_calls],
+                         flash_bf16_tolerance_share=shares)
+            elif counts["flash_attention"] or not counts[
+                    "gaussian_upsample_banded"]:
+                raise AssertionError(f"{name}: launches {counts}")
+            if name == "source" and len(utts) != len(CLI_SOURCE):
+                raise AssertionError(f"source run wrote {len(utts)}")
+            runs[name] = (utts, controls, calls)
+            entry[name] = dict(launches=counts, rtf=wall / seconds,
+                               wall_seconds=wall, audio_seconds=seconds,
+                               utterances=len(utts), caps=caps)
+    with Phase("cli reference") as f:
+        report = cli_reference(torch, np, kernels, synthesize, cfg, step,
+                               runs)
+        f.update(postnet_mel_max_err=report, mel_tol=MEL_TOL)
+    with Phase("cli imports") as f:
+        blocked = ("yaml", "matplotlib", "jax", "flax",
+                   "smart_nar_fast_tts_tpu")
+        code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
+                "None\nimport smart_nar_fast_tts_tpu_torch.cli.synthesize\n")
+        res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError(f"the CLI needs a blocked module:\n"
+                                 f"{res.stderr[-2000:]}")
+        f.update(blocked=list(blocked))
+    return entry, report
+
+
 def bench_inputs(np):
     """bench.py's serving inputs: the same generator, draws and order."""
     with open(os.path.join(REPO, "benchmarks", "results",
@@ -1390,6 +1928,7 @@ def main() -> int:
     }
     for name, err in kernel_backward(torch, np, kernels).items():
         entries[name]["grad_max_abs_err"] = err
+    general = kernel_general_paths(torch, np, kernels, compiled)
 
     texts, src_lens, inv = bench_inputs(np)
     synth, short, wav, mel_lens, serving, ups_cap1000 = e2e_phase(
@@ -1404,6 +1943,7 @@ def main() -> int:
         replaces="smart_nar_fast_tts_tpu/ops/pallas/stft.py:46",
         **kernel_fused_log_mel(torch, np, kernels, segments, compiled))
     reference_phase(torch, np, synth, inv)
+    cli_counts, cli_errs = cli_phase(torch, np, kernels)
 
     train_counts = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
@@ -1427,7 +1967,31 @@ def main() -> int:
             launches_per_serving_batch=serving[name],
             launches_per_serving_batch_cap4096=long_counts[name],
             launches_per_train_step=train_counts[name] // TRAIN_STEPS,
-            launches_per_gan_step=gan_counts[name] // VOC_STEPS)
+            launches_per_gan_step=gan_counts[name] // VOC_STEPS,
+            launches_cli={run: c["launches"][name]
+                          for run, c in cli_counts.items()})
+    # the second kernels: no driven path has a head dim past 128 or an
+    # n_fft that is not a power of two, so each counts 0 on every path
+    sources = {
+        "flash_attention_general": (
+            "smart_nar_fast_tts_tpu_torch/csrc/attention_general.cu",
+            "smart_nar_fast_tts_tpu/ops/pallas/attention.py:52"),
+        "alignment_attention_general": (
+            "smart_nar_fast_tts_tpu_torch/csrc/attention_general.cu",
+            "smart_nar_fast_tts_tpu/ops/pallas/alignment.py:67"),
+        "fused_log_mel_dft": (
+            "smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
+            "smart_nar_fast_tts_tpu/ops/pallas/stft.py:46")}
+    for name, entry in general.items():
+        source, replaces = sources[name]
+        launched = {run: c["launches"][name] for run, c in cli_counts.items()}
+        entries[name] = dict(
+            route="cuda", source=source, replaces=replaces,
+            launches=launched["long"], launches_cli=launched,
+            path="none: the driven paths have head dim 128 and n_fft 1024",
+            **entry)
+    entries["flash_attention"]["cli_long_path"] = (
+        "synthesize CLI, long passage: cap 4096")
 
     emit({"kernels": [{"name": name, **entry}
                       for name, entry in entries.items()]})

@@ -5,26 +5,36 @@ against its JAX counterpart by the ``tests/test_torch_*.py`` parity tests.
 This package imports ``torch`` and numpy only; it never imports JAX, flax or
 the JAX package.
 
-What is ported so far: serving synthesis (token ids → ``FastSpeech2Align``
-inference → HiFi-GAN V1 → waveform), the acoustic model's train step and
-the vocoder's GAN train step, through four CUDA kernels written by hand for
-``sm_90a`` (``csrc/``), one for each Pallas kernel of the JAX package:
+What is ported so far: text → waveform through the synthesize CLI
+(``python -m smart_nar_fast_tts_tpu_torch.cli.synthesize``), serving
+synthesis (token ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 →
+waveform), the acoustic model's train step and the vocoder's GAN train
+step, through CUDA kernels written by hand for ``sm_90a`` (``csrc/``), one
+for each Pallas kernel of the JAX package, with second kernels for the
+widths the first ones do not take:
 
-    config     — the configuration fields the ported paths read
+    config     — the configuration dataclasses and the YAML-triplet loaders
+    yaml_subset — the reader of the YAML the configuration files use
+    text       — the text frontend: symbols, cleaners, numbers, cmudict,
+                 G2P (a copy of the JAX package's, numpy only)
     ops        — masks, positional table, hard and dense Gaussian upsampling,
                  duration extraction
     kernels    — flash attention, banded Gaussian upsampling, alignment
                  attention and fused STFT → log-mel: CUDA kernels with their
                  plain PyTorch versions, and the nvcc build
-    audio      — the mel filterbank and the STFT → log-mel front end
+    audio      — the mel filterbank, the STFT → log-mel front end, the
+                 inverse STFT and Griffin-Lim
     models     — FFT blocks, encoders, variance adaptor, FastSpeech2Align,
                  losses
-    vocoder    — HiFi-GAN V1 generator, its discriminators and GAN losses
-    training   — the acoustic train and eval steps, the vocoder GAN step
-    data       — the training batch
+    vocoder    — HiFi-GAN V1 generator, its discriminators and GAN losses,
+                 the loader of upstream torch checkpoints
+    training   — the acoustic train and eval steps, the vocoder GAN step,
+                 the port's checkpoints, the mel PNG writer
+    data       — the training batch, synthesis metadata items, wav IO
     weights    — the committed ``.npz`` checkpoints and JAX trees → PyTorch
                  state dicts
     serving    — ``Synthesizer``: two-stage bucketed text → mel → waveform
+    cli        — ``synthesize``: the JAX package's CLI, on the card
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,5 @@
-"""STFT → log-mel feature extraction in PyTorch: the forward half of
-``smart_nar_fast_tts_tpu/audio/stft.py``.
+"""STFT → log-mel feature extraction in PyTorch, and the inverse STFT and
+Griffin-Lim, of ``smart_nar_fast_tts_tpu/audio/stft.py``.
 
 - reflect-pad the waveform by ``n_fft//2`` on both sides,
 - frame with hop ``hop_length`` and window length ``n_fft`` (the periodic
@@ -75,3 +75,78 @@ def mel_spectrogram(y: torch.Tensor, cfg: MelSpectrogramConfig
     mel = torch.log(torch.clamp(mel, min=cfg.compression_clip))
     energy = torch.linalg.vector_norm(mag, dim=1)
     return mel, energy
+
+
+# ---------------------------------------------------------------------------
+# Inverse STFT and Griffin-Lim (the debug vocoder of the synthesize CLI;
+# reference audio/stft.py:83-124, audio/audio_processing.py:66-81)
+# ---------------------------------------------------------------------------
+
+def _window_sumsquare(cfg: MelSpectrogramConfig, n_frames: int) -> np.ndarray:
+    """Sum-squared window envelope (reference audio/audio_processing.py:7-63):
+    the overlap-add of win² at every hop."""
+    n = cfg.n_fft + cfg.hop_length * (n_frames - 1)
+    win_sq = pad_center(hann_window(cfg.win_length) ** 2, cfg.n_fft)
+    out = np.zeros(n, dtype=np.float64)
+    for i in range(n_frames):
+        s = i * cfg.hop_length
+        out[s:min(n, s + cfg.n_fft)] += win_sq[:max(0, min(cfg.n_fft,
+                                                           n - s))]
+    return out.astype(np.float32)
+
+
+def _overlap_add(frames: torch.Tensor, cfg: MelSpectrogramConfig
+                 ) -> torch.Tensor:
+    """(B, F, n_fft) time frames → (B, hop·(F−1)) signal: synthesis window,
+    overlap-add at every hop (``F.fold``), window-sumsquare normalisation,
+    centre trim."""
+    window = torch.from_numpy(cfg.window).to(frames.device, frames.dtype)
+    frames = frames * window
+    b, f, n_fft = frames.shape
+    hop = cfg.hop_length
+    n = n_fft + hop * (f - 1)
+    sig = F.fold(frames.transpose(1, 2), output_size=(1, n),
+                 kernel_size=(1, n_fft), stride=(1, hop)).reshape(b, n)
+    wss = torch.from_numpy(_window_sumsquare(cfg, f)).to(frames.device,
+                                                         frames.dtype)
+    sig = torch.where(wss > 1e-11, sig / torch.clamp(wss, min=1e-11), sig)
+    pad = n_fft // 2
+    return sig[:, pad:n - pad]
+
+
+def istft(magnitude: torch.Tensor, phase: torch.Tensor,
+          cfg: MelSpectrogramConfig) -> torch.Tensor:
+    """(B, n_bins, F) magnitude and phase → (B, T) by windowed
+    overlap-add."""
+    spec = torch.polar(magnitude, phase)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=cfg.n_fft, dim=-1)
+    return _overlap_add(frames, cfg)
+
+
+def griffin_lim(magnitude: torch.Tensor, cfg: MelSpectrogramConfig,
+                n_iters: int = 30, generator: torch.Generator | None = None,
+                phase: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase reconstruction by alternating projections (reference
+    audio/audio_processing.py:66-81): (B, n_bins, F) magnitude → (B, T).
+
+    The starting phase is ``phase`` when given (the tests pass the JAX
+    package's draw), else uniform in [-π, π) from ``generator`` (a fresh
+    one seeded 0 when None), on the magnitude's device.  Needs ≥ 4 frames,
+    so that the reflect pad of the re-analysis framing is valid."""
+    if magnitude.shape[-1] < 4:
+        raise ValueError(
+            f"griffin_lim needs ≥4 frames, got {magnitude.shape[-1]}")
+    if phase is None:
+        if generator is None:
+            generator = torch.Generator(magnitude.device).manual_seed(0)
+        phase = (torch.rand(magnitude.shape, generator=generator,
+                            device=magnitude.device, dtype=magnitude.dtype)
+                 * 2.0 - 1.0) * np.pi
+    window = torch.from_numpy(cfg.window).to(magnitude.device,
+                                             magnitude.dtype)
+    for _ in range(n_iters):
+        sig = istft(magnitude, phase, cfg)
+        frames = frame_signal(sig, cfg.n_fft, cfg.hop_length)
+        spec = torch.fft.rfft(frames * window, dim=-1)
+        phase = torch.angle(spec).transpose(-1, -2)
+    return istft(magnitude, phase, cfg)

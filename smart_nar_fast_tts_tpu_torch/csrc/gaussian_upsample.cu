@@ -6,13 +6,18 @@
 //   w_l = exp(-inv_sigma2 * (t - c_l)^2) * valid_l,
 //   c = cumsum(d·valid) - d·valid/2,  total = sum(d·valid),
 // and out[t] = 0 for t >= total; mel_len = min(total, T) as int32.  A
-// phoneme whose center lies more than `band` (6 sigma) outside the tile's
-// frames is left out: its weight is below exp(-36) there.  Everything is f32
-// FMA: no TF32, as the TPU kernel's Precision.HIGHEST.
+// phoneme whose center lies more than `band` (sqrt(104) sigma ~ 10.2 sigma)
+// outside the tile's frames is left out: its weight there is below
+// exp(-104) ~ 6.8e-46, under half the least f32 subnormal, so expf gives
+// exactly 0 for it as in the dense function.  (A band of 6 sigma left out
+// weights of up to exp(-36), which the 1e-20 of the denominator does not
+// hide: a frame 60-70 frames from every center, of a phoneme longer than
+// ~12 sigma, came out 0 where the dense function gives ~x.)  Everything is
+// f32 FMA: no TF32, as the TPU kernel's Precision.HIGHEST.
 //
 // Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W): bytes.  It reads x
 // (B, L, D) once and writes out (B, T, D) once, while an output element
-// needs one FMA per phoneme in its band (~20): 0.0150 ms at the training
+// needs one FMA per phoneme in its band (~30): 0.0150 ms at the training
 // shape (48, 128, 256) → 896, 0.00276 ms at serving (8, 128, 256) → 1000,
 // 0.0103 ms at cap 4096 (1 MB in, 33.5 MB out, ~70 % of it zeros past the
 // utterances' ends).  Design for that:

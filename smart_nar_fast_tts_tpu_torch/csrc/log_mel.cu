@@ -45,6 +45,15 @@
 // and magnitude of every bin in parallel, so each mel sum is a short chain
 // of FMAs, not of square roots.  Energy and mel sums run in a fixed order:
 // the outputs are bit-equal from run to run.
+//
+// Every other n_fft (the TPU kernel takes any) goes to log_mel_dft_kernel: a
+// direct real DFT in f64 of each windowed frame, bin k = sum_j x_j W_N^(jk
+// mod N) in j order from the same f64 twiddle table, then the same power,
+// energy, sparse f64 mel sums and f32 log.  A frame costs (N/2 + 1)·N
+// complex multiply-adds (601 × 1200 at n_fft 1200: the GAN step's 528
+// frames are ~1.5 GFLOP of f64), cheap beside a train step.  One frame a
+// block again; the frame, power and magnitude sit in shared memory (16·N
+// bytes: n_fft up to 14,000), the twiddles are read through the L1 cache.
 #include <cuda_runtime.h>
 
 namespace {
@@ -172,6 +181,77 @@ log_mel_kernel(const float* __restrict__ y, const double* __restrict__ window,
   }
 }
 
+// bytes of dynamic shared memory of the DFT kernel: the windowed frame,
+// then power and magnitude of the N/2 + 1 bins
+__host__ __device__ constexpr size_t dft_smem_bytes(int n_fft) {
+  return sizeof(double) * ((size_t)n_fft + 2 * (size_t)(n_fft / 2 + 1));
+}
+
+// one block per frame g = b·F + f, any n_fft >= 2
+__global__ void __launch_bounds__(THREADS)
+log_mel_dft_kernel(const float* __restrict__ y,
+                   const double* __restrict__ window,
+                   const double2* __restrict__ tw,
+                   const int* __restrict__ mel_ranges,
+                   const float* __restrict__ mel_w, float* __restrict__ mel_out,
+                   float* __restrict__ energy_out, int S, int F, int n_fft,
+                   int hop, int n_mels, float clip) {
+  extern __shared__ double dsmem[];
+  const int N = n_fft;
+  const int nb = N / 2 + 1;
+  const int g = blockIdx.x;
+  const int b = g / F;
+  double* x = dsmem;                                   // N
+  double* power = x + N;                               // nb
+  double* mag = power + nb;                            // nb
+
+  const float* row = y + (size_t)b * S;
+  const int p_first = (g - b * F) * hop - N / 2;
+  for (int j = threadIdx.x; j < N; j += blockDim.x) {
+    int p = p_first + j;
+    if (p < 0) p = -p;
+    if (p >= S) p = 2 * (S - 1) - p;
+    x[j] = (double)row[p] * window[j];
+  }
+  __syncthreads();
+
+  for (int k = threadIdx.x; k < nb; k += blockDim.x) {
+    double re = 0.0, im = 0.0;
+    int e = 0;                                         // j·k mod N
+    for (int j = 0; j < N; ++j) {
+      const double2 w = __ldg(tw + e);
+      re = fma(x[j], w.x, re);
+      im = fma(x[j], w.y, im);
+      e += k;
+      if (e >= N) e -= N;
+    }
+    const double pw = re * re + im * im;
+    power[k] = pw;
+    mag[k] = sqrt(pw);
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 32) {
+    double acc = 0.0;
+    for (int k = threadIdx.x; k < nb; k += 32) acc += power[k];
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (threadIdx.x == 0) energy_out[g] = (float)sqrt(acc);
+  }
+  for (int m = threadIdx.x; m < n_mels; m += blockDim.x) {
+    const int start = mel_ranges[3 * m];
+    const int count = mel_ranges[3 * m + 1];
+    const float* w = mel_w + mel_ranges[3 * m + 2];
+    double acc = 0.0;
+    for (int k = 0; k < count; ++k)
+      acc = fma((double)w[k], mag[start + k], acc);
+    mel_out[((size_t)b * n_mels + m) * F + (g - b * F)] =
+        logf(fmaxf((float)acc, clip));
+  }
+}
+
+constexpr int MAX_SMEM = 232448;       // shared memory a block may use
+
 }  // namespace
 
 // y (B, S) f32; window (n_fft,) f64; twiddles (n_fft, 2) f64, W_N^k;
@@ -209,6 +289,42 @@ extern "C" int log_mel_forward(const void* y, const void* window,
 // bytes of dynamic shared memory a block takes at n_fft
 extern "C" int log_mel_smem_bytes(int n_fft) {
   return static_cast<int>(smem_bytes(n_fft));
+}
+
+// As log_mel_forward, by the direct DFT, for any n_fft from 2 while its
+// shared memory fits (log_mel_dft_max_n_fft) and S larger than n_fft/2.
+extern "C" int log_mel_dft_forward(const void* y, const void* window,
+                                   const void* twiddles,
+                                   const void* mel_ranges, const void* mel_w,
+                                   void* mel_out, void* energy_out, int B,
+                                   int S, int F, int n_fft, int hop,
+                                   int n_mels, float clip, void* stream) {
+  const int total = B * F;
+  if (total == 0) return 0;
+  const size_t smem = dft_smem_bytes(n_fft);
+  if (n_fft < 2 || smem > MAX_SMEM || S <= n_fft / 2 || hop <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        log_mel_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  log_mel_dft_kernel<<<total, THREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const double*>(window),
+      static_cast<const double2*>(twiddles),
+      static_cast<const int*>(mel_ranges), static_cast<const float*>(mel_w),
+      static_cast<float*>(mel_out), static_cast<float*>(energy_out), S, F,
+      n_fft, hop, n_mels, clip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the largest n_fft the DFT kernel's shared memory holds
+extern "C" int log_mel_dft_max_n_fft() {
+  int n = (int)(MAX_SMEM / (2 * sizeof(double))) ;
+  while (dft_smem_bytes(n) > MAX_SMEM) --n;
+  return n;
 }
 
 extern "C" const char* log_mel_error_string(int status) {

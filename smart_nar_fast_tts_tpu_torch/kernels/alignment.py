@@ -22,6 +22,15 @@ where the kernel does, within 8e-6 (the order of the f32 sums in the
 scores, not the rounding points, makes the rest of the gap).  Single-pass
 TF32 (~1e-3) would fail both.
 
+The TPU kernel takes any head dim D; the tensor-core kernel takes a
+multiple of 4 up to 128.  Below 128 the wrapper zero-pads q, k and v along
+D to the next multiple of 4 and slices the output (exact: zero columns add
+exact zeros, and the temperature stays 1/√D of the true D); past 128 it
+launches the general kernel of ``csrc/attention_general.cu``: f32 CUDA-core
+products (no split), the same argmax and guided numerator, held to the same
+tolerances.  ``alignment_attention.launches`` counts the tensor-core
+kernel's launches, ``.general_launches`` the general kernel's.
+
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes ``out`` and the
 numerator with the plain version and differentiates them; the argmax has no
 gradient.
@@ -33,8 +42,10 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
+from .attention import GENERAL_SIGNATURES
 
 # the masked score, as the TPU kernel's NEG_INF
 NEG_INF = -1e30
@@ -48,6 +59,7 @@ _SIGNATURES = {
     "alignment_attention_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "alignment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+MAX_TC_HEAD_DIM = 128       # the tensor-core kernel's widest head dim
 
 
 def guided_weight(T: int, L: int, src_lens: torch.Tensor,
@@ -118,7 +130,7 @@ def _product_tf32x3(equation: str, a: torch.Tensor, b: torch.Tensor
 def alignment_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, key_valid: torch.Tensor,
                                src_lens: torch.Tensor, mel_lens: torch.Tensor,
-                               sigma: float = 0.2
+                               sigma: float = 0.2, scale: float | None = None
                                ) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Plain version that rounds where the kernel does: scores =
@@ -127,8 +139,11 @@ def alignment_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
     (1/l)``; ``gnum = Σ_t (Σ_n W·e) · (1/l)`` over the valid pairs; ``idx``
     the first argmax of head 0's masked scores.  For tests and
     ``chip_smoke.py``: it pins the kernel's rounding points more tightly
-    than :func:`alignment_reference`.  Matmuls must run in f32 (TF32 off)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    than :func:`alignment_reference`.  Matmuls must run in f32 (TF32 off).
+    ``scale`` defaults to 1/√D of q's last axis (the tests pass the true
+    D's when they zero-pad D, as the wrapper does)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     scores = _product_tf32x3("bhqd,bhkd->bhqk", q, k) * scale
     valid = key_valid[:, None, None, :]
     masked = torch.where(valid, scores, NEG_INF)
@@ -168,12 +183,39 @@ class _AlignmentAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+def _launch_general(q, k, v, key_valid, src, mel, sigma):
+    B, H, T, D = q.shape
+    lib = _build.load("attention_general", GENERAL_SIGNATURES)
+    out = torch.empty_like(q)
+    idx = torch.empty((B, T), dtype=torch.int32, device=q.device)
+    row_gnum = torch.empty((B, T), dtype=torch.float32, device=q.device)
+    gnum = torch.empty((B,), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        status = lib.alignment_attention_general_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+            src.data_ptr(), mel.data_ptr(), out.data_ptr(), idx.data_ptr(),
+            row_gnum.data_ptr(), gnum.data_ptr(), B, H, T, k.shape[2], D,
+            1.0 / math.sqrt(D), 2.0 * float(sigma) ** 2,
+            torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            "alignment_attention: general kernel launch failed: "
+            + lib.attention_general_error_string(status).decode())
+    alignment_attention.general_launches += 1
+    return out, idx, gnum
+
+
 def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
     B, H, T, D = q.shape
     L = k.shape[2]
-    lib = _build.load("alignment_attention", _SIGNATURES)
     src = src_lens.to(torch.int32).contiguous()
     mel = mel_lens.to(torch.int32).contiguous()
+    if D > MAX_TC_HEAD_DIM:
+        return _launch_general(q, k, v, key_valid, src, mel, sigma)
+    width = -(-D // 4) * 4
+    if width != D:
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+    lib = _build.load("alignment_attention", _SIGNATURES)
     out = torch.empty_like(q)
     idx = torch.empty((B, T), dtype=torch.int32, device=q.device)
     partial = torch.empty((B, lib.alignment_attention_tiles(T)),
@@ -183,7 +225,7 @@ def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
         status = lib.alignment_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
             src.data_ptr(), mel.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            partial.data_ptr(), gnum.data_ptr(), B, H, T, L, D,
+            partial.data_ptr(), gnum.data_ptr(), B, H, T, L, width,
             1.0 / math.sqrt(D), 2.0 * float(sigma) ** 2,
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
@@ -191,7 +233,7 @@ def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
             "alignment_attention: launch failed: "
             + lib.alignment_attention_error_string(status).decode())
     alignment_attention.launches += 1
-    return out, idx, gnum
+    return (out if width == D else out[..., :D].contiguous()), idx, gnum
 
 
 def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -204,8 +246,9 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32, gnum (B,) f32), as :func:`alignment_reference`.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    kernel: q, k, v contiguous float32 (16-byte aligned), D a multiple of 4
-    up to 128, any L, with a backward through :class:`_AlignmentAttention`."""
+    tensor-core kernel for D ≤ 128 (zero-padded to a multiple of 4) and the
+    general kernel past it: q, k, v contiguous float32 (16-byte aligned),
+    any L, with a backward through :class:`_AlignmentAttention`."""
     if q.device.type == "cpu":
         return alignment_reference(q, k, v, key_valid, src_lens, mel_lens,
                                    sigma)
@@ -225,9 +268,8 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "be (B,)")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise ValueError("alignment_attention: q, k, v must be float32")
-    if D % 4 or D > 128:
-        raise ValueError(f"alignment_attention: head dim {D} is not a "
-                         "multiple of 4 up to 128")
+    if D < 1:
+        raise ValueError(f"alignment_attention: head dim {D}")
     tensors = (q, k, v, key_valid, src_lens, mel_lens)
     if any(t.device != q.device for t in tensors):
         raise ValueError("alignment_attention: inputs on different devices")
@@ -241,3 +283,4 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 alignment_attention.launches = 0
+alignment_attention.general_launches = 0

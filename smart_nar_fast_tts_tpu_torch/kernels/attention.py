@@ -10,6 +10,15 @@ the same points, to the difference between an online and a two-pass softmax
 (~1e-3).  Its products run on Hopper's tensor cores (``wgmma``); for f32
 inputs the wrapper allocates bf16 scratch for the rounded k and v.
 
+The TPU kernel takes any head dim D.  The tensor-core kernel takes D 64
+or 128; below 128 the wrapper zero-pads q, k and v along D to the next of
+the two and slices the output (exact: zero columns add exact zeros to every
+score, and the scale stays 1/√D of the true D), and past 128 it launches the
+general kernel of ``csrc/attention_general.cu``, which rounds at the same
+points with f32 CUDA-core sums and takes any D.  ``flash_attention.launches``
+counts the tensor-core kernel's launches, ``.general_launches`` the general
+kernel's.
+
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
 version and returns that function's vector-Jacobian product: the gradient of
 the f32 function, which differs from the bf16 forward by the same rounding.
@@ -21,6 +30,7 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -53,16 +63,19 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_bf16_reference(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, key_valid: torch.Tensor
-                             ) -> torch.Tensor:
+                             v: torch.Tensor, key_valid: torch.Tensor,
+                             scale: float | None = None) -> torch.Tensor:
     """Plain version that rounds where the TPU kernel does, with a two-pass
     softmax: bf16(q·scale) (the product in f32), bf16 k and v, f32 scores,
     an invalid key's score -1e30, ``p = exp(s − m)·mask`` in f32 and rounded
     to bf16 for the PV product, the sum l of the f32 ``p``, ``out = PV /
     max(l, 1e-37)``.  For tests and ``chip_smoke.py``: it pins the kernel's
-    rounding points more tightly than :func:`attention_reference`."""
+    rounding points more tightly than :func:`attention_reference`.
+    ``scale`` defaults to 1/√D of q's last axis (the tests pass the true
+    D's when they zero-pad D, as the wrapper does)."""
     bf16 = torch.bfloat16
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     qs = (q.float() * scale).to(bf16).float()
     scores = torch.einsum("bhqd,bhkd->bhqk", qs, k.to(bf16).float())
     valid = key_valid[:, None, None, :]
@@ -103,6 +116,24 @@ _SIGNATURES = {
     "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "flash_attention_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int),
 }
+# csrc/attention_general.cu, the general kernels of this wrapper and of
+# alignment_attention (one library: its signatures are set once)
+GENERAL_SIGNATURES = {
+    "flash_attention_general_forward": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "alignment_attention_general_forward": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "attention_general_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+TC_HEAD_DIMS = (64, 128)    # the head dims of the tensor-core kernel
+
+
+def padded_head_dim(d: int) -> int:
+    """The tensor-core kernel's head dim for a head dim d ≤ 128: the
+    smallest of 64 and 128 that holds it."""
+    return next(w for w in TC_HEAD_DIMS if d <= w)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -124,26 +155,48 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _launch_general(q, k, v, key_valid):
+    B, H, Lq, D = q.shape
+    lib = _build.load("attention_general", GENERAL_SIGNATURES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        status = lib.flash_attention_general_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
+            out.data_ptr(), B, H, Lq, k.shape[2], D, _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(
+            "flash_attention: general kernel launch failed: "
+            + lib.attention_general_error_string(status).decode())
+    flash_attention.general_launches += 1
+    return out
+
+
 def _launch(q, k, v, key_valid):
     B, H, Lq, D = q.shape
+    if D > TC_HEAD_DIMS[-1]:
+        return _launch_general(q, k, v, key_valid)
+    width = padded_head_dim(D)
+    if width != D:
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
     Lk = k.shape[2]
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
     # f32: the kernel rounds k and v to bf16 here first (TMA reads bf16)
-    scratch = (torch.empty((2, B, H, Lk, D), dtype=torch.bfloat16,
+    scratch = (torch.empty((2, B, H, Lk, width), dtype=torch.bfloat16,
                            device=q.device)
                if q.dtype == torch.float32 else None)
     with torch.cuda.device(q.device):
         status = lib.flash_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, H, Lq, Lk, D, _DTYPE_CODES[q.dtype],
+            B, H, Lq, Lk, width, _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError("flash_attention: launch failed: "
                            + lib.flash_attention_error_string(status).decode())
     flash_attention.launches += 1
-    return out
+    return out if width == D else out[..., :D].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,9 +204,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors.
 
     A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
-    the kernel: q, k, v contiguous and 16-byte aligned, all f32 or all
-    bf16, D 64 or 128;
-    key_valid (B, Lk) bool.  The output has q's dtype and, on CUDA, a
+    the tensor-core kernel for D ≤ 128 (zero-padded to 64 or 128) and the
+    general kernel past it: q, k, v contiguous and 16-byte aligned, all f32
+    or all bf16; key_valid (B, Lk) bool.  The output has q's dtype and, on CUDA, a
     backward through :class:`_FlashAttention`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_valid)
@@ -170,8 +223,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must all be float32 or "
                          f"all bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"flash_attention: head dim {D} is not 64 or 128")
+    if D < 1:
+        raise ValueError(f"flash_attention: head dim {D}")
     tensors = (q, k, v, key_valid)
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash_attention: inputs on different devices")
@@ -183,3 +236,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.general_launches = 0

@@ -19,6 +19,14 @@ table in float64 torch, vectorised over frames, then the same f32
 epilogue: the tests hold the kernel to it and to the float64 plain version.
 The port itself never calls it.
 
+The TPU kernel takes any n_fft; the FFT kernel takes powers of two from
+32 to 4096.  Every other n_fft goes to a second kernel of the same source,
+a direct real DFT in f64 from the same twiddle table (bin k = Σ_j x_j
+W^(jk mod n_fft), in j order), with the same power, energy, mel sums and
+f32 epilogue; :func:`log_mel_dft_reference` is its float64-torch twin.
+``fused_log_mel.launches`` counts the FFT kernel's launches,
+``.dft_launches`` the DFT kernel's.
+
 Forward only, as the TPU kernel (no ``custom_vjp``): both call sites of the
 GAN step take no gradient through it.
 """
@@ -35,7 +43,8 @@ import torch
 from ..audio.stft import MelSpectrogramConfig, frame_signal, mel_spectrogram
 from . import _build
 
-# the n_fft the kernel takes: powers of two in this range
+# the n_fft the FFT kernel takes: powers of two in this range (every other
+# n_fft from 2 up goes to the DFT kernel)
 MIN_N_FFT, MAX_N_FFT = 32, 4096
 
 # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
@@ -45,12 +54,22 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "log_mel_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "log_mel_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "log_mel_dft_forward": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "log_mel_dft_max_n_fft": ([], ctypes.c_int),
 }
 
 
+def uses_fft(n_fft: int) -> bool:
+    """Whether the FFT kernel takes n_fft (a power of two in [MIN_N_FFT,
+    MAX_N_FFT]); every other n_fft goes to the DFT kernel."""
+    return MIN_N_FFT <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0
+
+
 def check_n_fft(n_fft: int) -> None:
-    """Raise unless n_fft is a power of two in [MIN_N_FFT, MAX_N_FFT]."""
-    if not (MIN_N_FFT <= n_fft <= MAX_N_FFT and n_fft & (n_fft - 1) == 0):
+    """Raise unless the FFT kernel takes n_fft."""
+    if not uses_fft(n_fft):
         raise ValueError(f"fused_log_mel: n_fft {n_fft} must be a power of "
                          f"two from {MIN_N_FFT} to {MAX_N_FFT}")
 
@@ -160,9 +179,36 @@ def log_mel_fft_reference(y: torch.Tensor, cfg: MelSpectrogramConfig
     zc = z[..., (m - k) % m].conj()
     spec = 0.5 * (zk + zc) - 0.5j * (zk - zc) * w_n[k]
     power = spec.real ** 2 + spec.imag ** 2                  # (B, F, m + 1)
+    return _mel_epilogue(power, ranges, weights, cfg)
+
+
+def log_mel_dft_reference(y: torch.Tensor, cfg: MelSpectrogramConfig
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, S) float32 waveform → (log-mel (B, n_mels, F), energy (B, F)),
+    float32, by the DFT kernel's schedule, for any n_fft: the windowed
+    frame's direct DFT from the kernel's twiddle table (bin k takes row
+    jk mod n_fft for sample j), power, magnitude, energy and the sparse mel
+    sums in float64; the mel value rounded to float32, then
+    ``log(max(·, clip))`` in float32."""
+    window, twiddles, ranges, weights = _tables_on(cfg, y.device)
+    n = cfg.n_fft
+    j = torch.arange(n, device=y.device)
+    k = torch.arange(n // 2 + 1, device=y.device)
+    rows = twiddles[(j[:, None] * k[None, :]) % n]           # (n, bins, 2)
+    frames = frame_signal(y.double(), n, cfg.hop_length) * window
+    re, im = frames @ rows[..., 0], frames @ rows[..., 1]
+    return _mel_epilogue(re ** 2 + im ** 2, ranges, weights, cfg)
+
+
+def _mel_epilogue(power: torch.Tensor, ranges: torch.Tensor,
+                  weights: torch.Tensor, cfg: MelSpectrogramConfig
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """float64 power (B, F, bins) → the kernels' f32 outputs: the sparse
+    mel sums of the magnitudes in float64, rounded to float32, then
+    ``log(max(·, clip))``; the energy √Σ power."""
     # each filter's range as a padded gather; pads weigh 0
     start, count, offset = ranges.long().unbind(1)
-    j = torch.arange(max(int(count.max()), 1), device=y.device)
+    j = torch.arange(max(int(count.max()), 1), device=power.device)
     inside = j[None, :] < count[:, None]
     bins = torch.where(inside, start[:, None] + j, 0)
     wpad = torch.where(inside, weights.double()[
@@ -179,8 +225,9 @@ def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
     :func:`~..audio.stft.mel_spectrogram`.
 
     A CPU tensor takes that plain version.  A CUDA tensor launches the
-    kernel: y contiguous float32, n_fft a power of two from 32 to 4096,
-    S > n_fft/2.  No gradient flows through the kernel."""
+    FFT kernel for n_fft a power of two from 32 to 4096 and the DFT kernel
+    for any other n_fft: y contiguous float32, S > n_fft/2.  No gradient
+    flows through the kernels."""
     if y.device.type == "cpu":
         return mel_spectrogram(y, cfg)
     if y.device.type != "cuda":
@@ -188,8 +235,12 @@ def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
     if y.ndim != 2 or y.dtype != torch.float32 or not y.is_contiguous():
         raise ValueError("fused_log_mel: y must be contiguous (B, S) "
                          f"float32, got {tuple(y.shape)} {y.dtype}")
-    check_n_fft(cfg.n_fft)
     B, S = y.shape
+    fft = uses_fft(cfg.n_fft)
+    lib = _build.load("log_mel", _SIGNATURES)
+    if not fft and not 2 <= cfg.n_fft <= lib.log_mel_dft_max_n_fft():
+        raise ValueError(f"fused_log_mel: n_fft {cfg.n_fft} outside 2 to "
+                         f"{lib.log_mel_dft_max_n_fft()}")
     if S <= cfg.n_fft // 2:
         raise ValueError(f"fused_log_mel: n_fft/2 = {cfg.n_fft // 2} must "
                          f"be below S = {S} (reflect padding)")
@@ -198,9 +249,9 @@ def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
     mel = torch.empty((B, cfg.n_mels, F), dtype=torch.float32,
                       device=y.device)
     energy = torch.empty((B, F), dtype=torch.float32, device=y.device)
-    lib = _build.load("log_mel", _SIGNATURES)
+    launch = lib.log_mel_forward if fft else lib.log_mel_dft_forward
     with torch.cuda.device(y.device):
-        status = lib.log_mel_forward(
+        status = launch(
             y.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
             ranges.data_ptr(), weights.data_ptr(), mel.data_ptr(),
             energy.data_ptr(), B, S, F, cfg.n_fft, cfg.hop_length,
@@ -209,8 +260,12 @@ def fused_log_mel(y: torch.Tensor, cfg: MelSpectrogramConfig
     if status != 0:
         raise RuntimeError("fused_log_mel: launch failed: "
                            + lib.log_mel_error_string(status).decode())
-    fused_log_mel.launches += 1
+    if fft:
+        fused_log_mel.launches += 1
+    else:
+        fused_log_mel.dft_launches += 1
     return mel, energy
 
 
 fused_log_mel.launches = 0
+fused_log_mel.dft_launches = 0

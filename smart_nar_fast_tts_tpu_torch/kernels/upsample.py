@@ -3,9 +3,15 @@ and its plain version, the dense ``ops.upsample.gaussian_upsample``.
 
 The kernel replaces the TPU kernel ``gaussian_upsample_banded`` of
 ``smart_nar_fast_tts_tpu/ops/pallas/upsample.py``.  It computes in full f32;
-the only difference from the dense version is that a phoneme more than
-``BAND_SIGMAS``·σ from a frame tile is left out, a weight below exp(-36).
-One launch computes the centers, the total and ``mel_len`` besides ``out``.
+the only difference from the dense version is that, for each tile of
+``TILE`` frames, a phoneme whose center lies more than ``BAND_SIGMAS``·σ
+from the tile is left out.  Its weight there is below exp(-104), which f32
+``exp`` rounds to exactly 0, so the tile rule drops nothing that the dense
+version keeps, even where every weight of a frame is tiny and the
+denominator's 1e-20 does not hide them.  :func:`gaussian_upsample_tile_reference`
+applies the tile rule in plain PyTorch, so the rule is checked without a
+card.  One launch computes the centers, the total and ``mel_len`` besides
+``out``.
 
 Its backward, as the TPU kernel's ``custom_vjp``, is the vector-Jacobian
 product of the dense version, recomputed, for each input that needs one.
@@ -14,14 +20,17 @@ product of the dense version, recomputed, for each input that needs one.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from ..ops.upsample import gaussian_upsample
 from . import _build
 
-# the TPU kernel's band: exp(-36) ≈ 2e-16, below f32 resolution
-BAND_SIGMAS = 6.0
+# past √104·σ a weight exp(-(t - c)²/σ²) < exp(-104) ≈ 6.8e-46, below half
+# the least f32 subnormal: f32 exp gives exactly 0 there
+BAND_SIGMAS = math.sqrt(104.0)
+TILE = 32           # frames per tile (csrc/gaussian_upsample.cu TT)
 
 # pointers and the stream as c_void_p: ctypes would pass a bare int as 32 bits
 _SIGNATURES = {
@@ -33,6 +42,34 @@ _SIGNATURES = {
     "gaussian_upsample_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "gaussian_upsample_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+
+
+def gaussian_upsample_tile_reference(x: torch.Tensor, durations: torch.Tensor,
+                                     max_len: int, phon_valid: torch.Tensor,
+                                     sigma: float = 10.0,
+                                     band_sigmas: float = BAND_SIGMAS
+                                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dense function with the kernel's tile rule: frame t of tile
+    [t0, t0 + TILE) takes phoneme l only if its center c_l satisfies
+    ``c_l + band >= t0`` and ``c_l - band <= t0 + TILE - 1``, band =
+    ``band_sigmas``·σ in f32 as the kernel's.  Returns (out (B, T, D),
+    mel_len (B,) int32), in f32.  For tests: it equals the dense version
+    at ``BAND_SIGMAS`` and shows what a narrower band loses."""
+    d = durations.float() * phon_valid
+    e = torch.cumsum(d, dim=1)
+    c = e - 0.5 * d                                                # (B, L)
+    t = torch.arange(max_len, dtype=torch.float32, device=x.device)
+    t_lo = torch.div(t, TILE, rounding_mode="floor") * TILE
+    band = torch.tensor(band_sigmas * sigma, dtype=torch.float32)
+    keep = ((c[:, :, None] + band >= t_lo[None, None, :])
+            & (c[:, :, None] - band <= t_lo[None, None, :] + TILE - 1))
+    dist2 = (t[None, None, :] - c[:, :, None]) ** 2                # (B, L, T)
+    w = torch.exp(-(sigma ** -2) * dist2) * phon_valid[:, :, None] * keep
+    w = w / (w.sum(dim=1, keepdim=True) + 1e-20)
+    total = e[:, -1]
+    w = w * (t[None, :] < total[:, None])[:, None, :]
+    out = torch.einsum("blt,bld->btd", w, x.float())
+    return out, torch.clamp(total, max=max_len).to(torch.int32)
 
 
 class _GaussianUpsample(torch.autograd.Function):

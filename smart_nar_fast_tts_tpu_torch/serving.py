@@ -18,7 +18,7 @@ from .config import FeatureStats, ModelConfig, PreprocessConfig
 from .device import resolve_device
 from .models import FastSpeech2Align, ModelOutput
 from .vocoder import HiFiGANConfig, HiFiGANGenerator
-from .weights import (FLAGSHIP_INDEX, HIFIGAN_INDEX, jax_to_torch_acoustic,
+from .weights import (ASSETS, HIFIGAN_INDEX, jax_to_torch_acoustic,
                       jax_to_torch_hifigan, load_committed)
 
 RESULTS_DIR = Path(__file__).resolve().parent.parent / "benchmarks" / "results"
@@ -33,17 +33,20 @@ def bucket(n: int) -> int:
 
 
 def committed_flagship(cfg: ModelConfig = ModelConfig(),
-                       results_dir: str | Path = RESULTS_DIR
-                       ) -> FastSpeech2Align:
-    """The committed flagship acoustic model (``flagship_params.npz``, with
-    the feature stats of ``flagship_meta.json``) on the CPU, built with
-    ``cfg``: the flagship's widths with any duration extraction."""
+                       results_dir: str | Path = RESULTS_DIR,
+                       name: str = "flagship") -> FastSpeech2Align:
+    """A committed acoustic model (``<name>_params.npz``, with the feature
+    stats of ``<name>_meta.json`` and the leaf index
+    ``assets/<name>_leaves.json``) on the CPU, built with ``cfg``: the
+    model's widths with any duration extraction.  ``name`` is
+    ``"flagship"`` or ``"scaled_flagship"`` (8 speakers: ``cfg`` of
+    ``configs/scaled/model.yaml``)."""
     results = Path(results_dir)
-    meta = json.loads((results / "flagship_meta.json").read_text())
+    meta = json.loads((results / f"{name}_meta.json").read_text())
     model = FastSpeech2Align(
         cfg, PreprocessConfig(stats=FeatureStats(**meta["stats"])))
     model.load_state_dict(jax_to_torch_acoustic(load_committed(
-        results / "flagship_params.npz", FLAGSHIP_INDEX), cfg))
+        results / f"{name}_params.npz", ASSETS / f"{name}_leaves.json"), cfg))
     return model
 
 

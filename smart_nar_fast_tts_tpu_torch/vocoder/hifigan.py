@@ -55,12 +55,16 @@ class HiFiGANConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "HiFiGANConfig":
-        """From the ``config`` dict of ``vocoder_meta.json``; the keys that
-        choose the JAX package's TPU lowerings are ignored."""
-        return cls(**{k: d[k] for k in (
+        """From the ``config`` dict of ``vocoder_meta.json`` or an upstream
+        ``config.json`` (``num_mels`` for ``n_mels``); the keys that choose
+        the JAX package's TPU lowerings are ignored."""
+        keep = {k: d[k] for k in (
             "resblock", "upsample_rates", "upsample_kernel_sizes",
             "upsample_initial_channel", "resblock_kernel_sizes",
-            "resblock_dilation_sizes", "n_mels", "sampling_rate") if k in d})
+            "resblock_dilation_sizes", "n_mels", "sampling_rate") if k in d}
+        if "num_mels" in d:
+            keep["n_mels"] = d["num_mels"]
+        return cls(**keep)
 
 
 class ResBlock1(nn.Module):

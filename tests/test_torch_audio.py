@@ -28,7 +28,8 @@ from smart_nar_fast_tts_tpu_torch.audio import stft as port_stft
 from smart_nar_fast_tts_tpu_torch.kernels import (fused_log_mel,
                                                   log_mel_fft_reference)
 from smart_nar_fast_tts_tpu_torch.kernels.stft import (
-    _stockham_fft, fft_radices, log_mel_tables, num_frames)
+    _stockham_fft, fft_radices, log_mel_dft_reference, log_mel_tables,
+    num_frames, uses_fft)
 
 MEL_ATOL, ENERGY_ATOL, KERNEL_RTOL = 2e-4, 2e-3, 1e-4
 F32_ATOL = 1e-5
@@ -293,8 +294,75 @@ def test_log_mel_fft_reference_near_float64(name, kind):
 
 @pytest.mark.parametrize("n_fft", [16, 1000, 8192])
 def test_log_mel_fft_reference_rejects_n_fft(n_fft):
-    """The kernel takes n_fft a power of two from 32 to 4096."""
+    """The FFT kernel takes n_fft a power of two from 32 to 4096, and its
+    twin refuses the rest; those go to the DFT kernel, whose float64-torch
+    twin ``log_mel_dft_reference`` is within 5e-6 of the float64 plain
+    version there (log-mel; energy 1e-6 relative)."""
     cfg = port_stft.MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
                                          hop_length=max(n_fft // 4, 1))
+    assert not uses_fft(n_fft)
     with pytest.raises(ValueError, match="power of two from 32 to 4096"):
         log_mel_fft_reference(torch.zeros(1, 10000), cfg)
+    y = torch.from_numpy(_tones_with_pause(2, 10000, seed=n_fft))
+    mel, energy = log_mel_dft_reference(y, cfg)
+    e_mel, e_energy = port_stft.mel_spectrogram(y.double(), cfg)
+    assert mel.dtype == energy.dtype == torch.float32
+    np.testing.assert_allclose(mel.double().numpy(), e_mel.numpy(), rtol=0,
+                               atol=FFT_MEL_ATOL)
+    np.testing.assert_allclose(energy.double().numpy(), e_energy.numpy(),
+                               rtol=FFT_ENERGY_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n_fft", [800, 1200])
+def test_log_mel_dft_reference_near_float64(n_fft):
+    """The DFT kernel's twin at the ``filter_length`` of a user's
+    preprocess.yaml: within 5e-6 of the float64 plain version on tones with
+    a pause and on noise."""
+    cfg = port_stft.MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
+                                         hop_length=n_fft // 4)
+    for y in (_tones_with_pause(2, 8192, seed=n_fft),
+              _signal("noise", 2, 8192, seed=n_fft)):
+        y = torch.from_numpy(y)
+        mel, energy = log_mel_dft_reference(y, cfg)
+        e_mel, e_energy = port_stft.mel_spectrogram(y.double(), cfg)
+        np.testing.assert_allclose(mel.double().numpy(), e_mel.numpy(),
+                                   rtol=0, atol=FFT_MEL_ATOL)
+        np.testing.assert_allclose(energy.double().numpy(), e_energy.numpy(),
+                                   rtol=FFT_ENERGY_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n_fft", [1000, 1024])
+def test_log_mel_dft_reference_matches_fft_and_pallas_kernel(n_fft):
+    """Its DFT against ``torch.fft`` in float64 (1e-9 of the magnitude's
+    peak), and its outputs against the JAX Pallas kernel in interpret mode
+    at that kernel's tolerances; at n_fft 1024 also against the FFT
+    kernel's twin (2e-6)."""
+    kw = dict(n_fft=n_fft, win_length=n_fft, hop_length=256)
+    cfg = jax_stft.MelSpectrogramConfig(**kw)
+    tcfg = port_stft.MelSpectrogramConfig(**kw)
+    y = _signal("speech", 2, 6000, seed=n_fft)
+    yt = torch.from_numpy(y)
+    tables = log_mel_tables(tcfg)
+    frames = port_stft.frame_signal(yt.double(), n_fft, 256) \
+        * torch.from_numpy(tables.window)
+    j, k = torch.arange(n_fft), torch.arange(n_fft // 2 + 1)
+    rows = torch.from_numpy(tables.twiddles)[(j[:, None] * k) % n_fft]
+    spec = torch.fft.rfft(frames, dim=-1)
+    tol = 1e-9 * spec.abs().max().item()
+    np.testing.assert_allclose((frames @ rows[..., 0]).numpy(),
+                               spec.real.numpy(), rtol=0, atol=tol)
+    np.testing.assert_allclose((frames @ rows[..., 1]).numpy(),
+                               spec.imag.numpy(), rtol=0, atol=tol)
+    mel, energy = log_mel_dft_reference(yt, tcfg)
+    e_mel, e_energy = jax_fused_log_mel(jnp.asarray(y), cfg, block_f=16,
+                                        interpret=True)
+    np.testing.assert_allclose(mel.numpy(), np.asarray(e_mel),
+                               atol=MEL_ATOL, rtol=KERNEL_RTOL)
+    np.testing.assert_allclose(energy.numpy(), np.asarray(e_energy),
+                               atol=ENERGY_ATOL, rtol=KERNEL_RTOL)
+    if uses_fft(n_fft):
+        f_mel, f_energy = log_mel_fft_reference(yt, tcfg)
+        np.testing.assert_allclose(mel.numpy(), f_mel.numpy(), rtol=0,
+                                   atol=2e-6)
+        np.testing.assert_allclose(energy.numpy(), f_energy.numpy(),
+                                   rtol=FFT_ENERGY_RTOL, atol=0)

@@ -17,7 +17,7 @@ online softmax is the two-pass one (a moved rounding point costs ≥ 1.6e-4
 there); the upsampling kernel is
 f32 throughout and agrees with the dense plain version to 1e-5 (f32
 rounding of sums of at most L terms; the phonemes it leaves out weigh below
-exp(-36)); the alignment kernel runs both products in 3xTF32 (tf32 hi
+exp(-104), which f32 exp rounds to 0); the alignment kernel runs both products in 3xTF32 (tf32 hi
 and lo parts of each operand, rounded to nearest, lo·lo dropped: about f32
 accuracy), and is held to the f32 plain version at the f32 tolerances:
 ``out`` 1e-5, ``idx`` exact, ``gnum`` rtol 1e-5 / atol 1e-4 (the JAX
@@ -59,7 +59,8 @@ from smart_nar_fast_tts_tpu_torch.kernels import (
     alignment_attention, alignment_reference, alignment_tf32x3_reference,
     attention_bf16_reference,
     attention_bf16_tolerance, attention_reference, flash_attention,
-    fused_log_mel, gaussian_upsample_banded, log_mel_fft_reference)
+    fused_log_mel, gaussian_upsample_banded, log_mel_dft_reference,
+    log_mel_fft_reference)
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
 BF16_TOL = 2e-2
@@ -109,16 +110,26 @@ def _key_valid(rng, B, Lk, kind):
     ((3, 2, 1000, 1000, 128), "holes"),
     ((3, 2, 300, 1000, 128), "last tile"),
     ((2, 2, 333, 700, 128), "holes"),
-    ((3, 2, 200, 300, 64), "holes")])
+    ((3, 2, 200, 300, 64), "holes"),
+    ((3, 2, 300, 300, 32), "prefix"),
+    ((3, 2, 300, 300, 80), "holes"),
+    ((3, 2, 300, 300, 96), "prefix"),
+    ((3, 2, 333, 300, 192), "prefix"),
+    ((3, 2, 300, 333, 256), "holes")])
 def test_flash_attention(card, shape, kind, dtype):
+    """Head dims 64 and 128 run the tensor-core kernel, 32, 80 and 96 the
+    same kernel on D zero-padded to 64 or 128, 192 and 256 the general
+    kernel (``flash_attention.general_launches``); all are held alike."""
     B, H, Lq, Lk, D = shape
     rng = np.random.default_rng(8)
     q, k, v = (_randn(rng, B, H, L, D).to(card, dtype)
                for L in (Lq, Lk, Lk))
     valid = _key_valid(rng, B, Lk, kind).to(card)
+    general = flash_attention.general_launches
     got = flash_attention(q, k, v, valid)
+    assert flash_attention.general_launches - general == (D > 128)
     expect = attention_reference(q, k, v, valid)
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), expect.float(), atol=BF16_TOL,
                                rtol=BF16_TOL)
     expect = attention_bf16_reference(q, k, v, valid)
@@ -145,12 +156,27 @@ def test_gaussian_upsample(card, max_len):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["D 70", "L 300", "all zero", "T 4096"])
+@pytest.mark.parametrize("case", ["D 70", "L 300", "all zero", "T 4096",
+                                  "d 132", "d_last 120-190"])
 def test_gaussian_upsample_cases(card, case):
     """A channel tail (D not a multiple of 4: scalar staging and stores);
     300 phonemes of 0 or 1 frames, ~180 of them in one tile's band (the
     32-phoneme chunks run many rounds); all durations 0 (zeros, mel_len 0);
-    T 4096 with Σd about 1200 (most tiles past Σd)."""
+    T 4096 with Σd about 1200 (most tiles past Σd); phonemes longer than
+    12σ, whose frames far from every center a band of 6σ lost: one of 132
+    frames at T 140, and [7, 9, 4, 11, 6, d_last] for d_last 120-190."""
+    if case in ("d 132", "d_last 120-190"):
+        rows = [[132]] if case == "d 132" else [
+            [7, 9, 4, 11, 6, n] for n in range(120, 191)]
+        d = torch.tensor(rows, dtype=torch.float32, device=card)
+        T = 140 if case == "d 132" else 37 + 190 + 8
+        x = _randn(np.random.default_rng(16), *d.shape, 256).to(card)
+        valid = torch.ones_like(d)
+        out, mel_len = gaussian_upsample_banded(x, d, T, valid)
+        e_out, e_len, _ = gaussian_upsample(x, d, T, valid)
+        torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
+        assert torch.equal(mel_len, e_len)
+        return
     B, L, D, T, durations = {
         "D 70": (4, 128, 70, 1000, (0, 15)),
         "L 300": (2, 300, 256, 400, (0, 2)),
@@ -197,10 +223,20 @@ def _check_tf32x3(args, out, gnum):
 @pytest.mark.parametrize("shape", [(48, 2, 896, 128, 128),
                                    (3, 2, 45, 13, 128),
                                    (2, 3, 100, 70, 32),
-                                   (2, 2, 1500, 1000, 128)])
+                                   (2, 2, 1500, 1000, 128),
+                                   (3, 2, 200, 70, 30),
+                                   (3, 2, 200, 70, 96),
+                                   (3, 2, 200, 70, 192)])
 def test_alignment_attention(card, shape):
+    """Head dims up to 128 run the tensor-core kernel (30 zero-padded to
+    32), 192 the general kernel (f32 CUDA-core products): held to the f32
+    plain version alike, and the tensor-core kernel also to the 3xTF32
+    one."""
     args = _alignment_inputs(card, *shape, seed=10)
+    general = alignment_attention.general_launches
     out, idx, gnum = alignment_attention(*args)
+    D = shape[-1]
+    assert alignment_attention.general_launches - general == (D > 128)
     _, idx2, gnum2 = alignment_attention(*args)
     e_out, e_idx, e_gnum = alignment_reference(*args)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
@@ -208,7 +244,8 @@ def test_alignment_attention(card, shape):
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
     assert torch.equal(idx2, idx)
     assert torch.equal(gnum2, gnum)                   # bit-equal
-    _check_tf32x3(args, out, gnum)
+    if D <= 128:
+        _check_tf32x3(args, out, gnum)
 
 
 @pytest.mark.cuda
@@ -403,8 +440,26 @@ def test_fused_log_mel_fft(card, case):
 
 
 @pytest.mark.cuda
-def test_fused_log_mel_rejects_n_fft(card):
-    """The kernel takes n_fft a power of two from 32 to 4096."""
-    cfg = MelSpectrogramConfig(n_fft=1000, win_length=1000)
-    with pytest.raises(ValueError, match="power of two from 32 to 4096"):
-        fused_log_mel(torch.zeros(2, 5000, device=card), cfg)
+@pytest.mark.parametrize("n_fft", [16, 800, 1000, 1200, 8192])
+def test_fused_log_mel_rejects_n_fft(card, n_fft):
+    """An n_fft that the FFT kernel does not take (a power of two from 32
+    to 4096) goes to the DFT kernel: within 5e-6 of the float64 plain
+    version (energy 1e-6 relative) on the tones with a pause, within 2e-6
+    of its twin ``log_mel_dft_reference``, bit-equal across launches."""
+    cfg = MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
+                               hop_length=max(n_fft // 4, 1))
+    y = _tones_with_pause(np.random.default_rng(n_fft), 3, 16384).to(card)
+    dft = fused_log_mel.dft_launches
+    mel, energy = fused_log_mel(y, cfg)
+    assert fused_log_mel.dft_launches == dft + 1
+    mel2, energy2 = fused_log_mel(y, cfg)
+    exact_mel, exact_energy = mel_spectrogram(y.double(), cfg)
+    torch.testing.assert_close(mel.double(), exact_mel, atol=FFT_MEL_ATOL,
+                               rtol=0)
+    torch.testing.assert_close(energy.double(), exact_energy, atol=0,
+                               rtol=FFT_ENERGY_RTOL)
+    ref_mel, ref_energy = log_mel_dft_reference(y, cfg)
+    torch.testing.assert_close(mel, ref_mel, atol=FFT_REF_ATOL, rtol=0)
+    torch.testing.assert_close(energy, ref_energy, atol=0,
+                               rtol=FFT_ENERGY_RTOL)
+    assert torch.equal(mel, mel2) and torch.equal(energy, energy2)

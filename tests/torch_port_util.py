@@ -76,10 +76,25 @@ def zeros(shapes):
                                   shapes)
 
 
+def scaled_model_config():
+    """The JAX ``ModelConfig`` of the committed 8-speaker flagship
+    (``configs/scaled/model.yaml``)."""
+    from smart_nar_fast_tts_tpu.config import Config
+    scaled = os.path.join(REPO, "configs", "scaled")
+    return Config.from_yaml_triplet(
+        *(os.path.join(scaled, f"{n}.yaml")
+          for n in ("preprocess", "model", "train"))).model
+
+
 def jax_leaf_index(kind: str) -> list[list]:
     """[[flax path, shape], ...] in JAX flatten order for the committed
-    flagship (``"flagship"``) or HiFi-GAN (``"hifigan"``) tree."""
-    _, shapes = init_acoustic() if kind == "flagship" else init_hifigan()
+    flagship (``"flagship"``), 8-speaker flagship (``"scaled_flagship"``)
+    or HiFi-GAN (``"hifigan"``) tree."""
+    if kind == "hifigan":
+        _, shapes = init_hifigan()
+    else:
+        _, shapes = init_acoustic(
+            scaled_model_config() if kind == "scaled_flagship" else None)
     leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
     return [[path_str(p), list(s.shape)] for p, s in leaves]
 
@@ -89,6 +104,8 @@ def write_leaf_indexes() -> None:
     assets = os.path.join(REPO, "smart_nar_fast_tts_tpu_torch", "assets")
     for kind, source in (("flagship", "benchmarks/results/flagship_params"
                           ".npz"),
+                         ("scaled_flagship", "benchmarks/results/"
+                          "scaled_flagship_params.npz"),
                          ("hifigan", "benchmarks/results/vocoder_params.npz")):
         doc = {"source": source,
                "order": "jax.tree_util.tree_flatten_with_path of the "
@@ -98,3 +115,45 @@ def write_leaf_indexes() -> None:
             json.dump(doc, f, separators=(",", ":"))
             f.write("\n")
 
+
+
+TINY_HIFIGAN = {"resblock": "1", "upsample_rates": [8, 8, 2, 2],
+                "upsample_kernel_sizes": [16, 16, 4, 4],
+                "upsample_initial_channel": 32,
+                "resblock_kernel_sizes": [3, 7, 11],
+                "resblock_dilation_sizes": [[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+                "num_mels": 80, "sampling_rate": 22050}
+
+
+def write_upstream_hifigan(directory, config: dict = TINY_HIFIGAN,
+                           seed: int = 0) -> str:
+    """A HiFi-GAN generator checkpoint in the upstream torch layout:
+    ``{"generator": state_dict}`` with every conv weight-normed
+    (``weight_g``, ``weight_v``), seeded, and its ``config.json`` beside
+    it.  Returns the checkpoint's path."""
+    import torch
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
+                                                      HiFiGANGenerator)
+    rng = np.random.RandomState(seed)
+    gen = HiFiGANGenerator(HiFiGANConfig.from_dict(config))
+    sd = {}
+    for key, value in gen.state_dict().items():
+        shape = tuple(value.shape)
+        if key.endswith(".weight"):
+            # each output slice's norm g in [0.5, ~2): weights of about
+            # 1/sqrt(fan-in), as an init would give
+            base = key[:-len(".weight")]
+            sd[base + ".weight_v"] = torch.from_numpy(
+                rng.randn(*shape).astype(np.float32))
+            sd[base + ".weight_g"] = torch.from_numpy(
+                (0.5 + 0.5 * np.abs(rng.randn(shape[0], 1, 1))).astype(
+                    np.float32))
+        else:
+            sd[key] = torch.from_numpy(
+                0.05 * rng.randn(*shape).astype(np.float32))
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(str(directory), "generator.pth.tar")
+    torch.save({"generator": sd}, path)
+    with open(os.path.join(str(directory), "config.json"), "w") as f:
+        json.dump(config, f)
+    return path
