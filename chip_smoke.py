@@ -23,22 +23,28 @@ any failure raises (exit code 1):
             f32 and bf16 operands beside SDPA on both, and with one valid
             key tile per item (its cost beside the products); ptxas
             registers, shared memory and spills of each of its kernels.
-            The alignment kernel (3xTF32 products) is also held to
-            ``alignment_tf32x3_reference`` at the training shape, a ragged
-            one and L 1000, and on q = 0 and v = identity (each product
-            apart); it is timed beside its plain version and f32 SDPA on
-            ``out`` alone, against its 3xTF32 tensor-core bound and the f32
-            CUDA-core one, with its ptxas figures.  The upsampling kernel is
+            At head dims 192 and 256 (64-key tiles) it is checked and timed
+            the same way at (8, 2, 4096, D), at D 192 also on holes and
+            last-tile masks, bit-equal across launches, the general kernel
+            not launched.  The alignment kernel (3xTF32 products) is also
+            held to ``alignment_tf32x3_reference`` at the training shape, a
+            ragged one and L 1000, and on q = 0 and v = identity (each
+            product apart), and so at D 192 and 256 (training shape, q = 0,
+            v = identity); it is timed at the training shape at D 128, 192
+            and 256 beside its plain version and f32 SDPA on ``out`` alone,
+            against its 3xTF32 tensor-core bound and the f32 CUDA-core one,
+            with its ptxas figures.  The upsampling kernel is
             also checked on a channel tail (D 70), 300 phonemes of 0 or 1
             frames, all durations 0, T 4096 (frames past Σd exactly 0,
             mel_len exact) and phonemes longer than 12σ (one of 132 frames;
             [7, 9, 4, 11, 6, d_last] for d_last 120-190), with its ptxas
             figures
-  kernel ... general  the widths the first kernels do not take: flash
-            attention at head dims 32, 80, 96 (zero-padded to 64 or 128)
-            and 192, 256 (the general kernel), alignment attention at D 30,
-            96 (padded) and 192 (general), the log-mel DFT kernel at n_fft
-            16, 800, 1000, 1200 and 8192; each general kernel timed
+  kernel ... general  the widths the first kernels do not take as they
+            are: flash attention at head dims 32, 80, 96, 160, 200
+            (zero-padded to 64, 128, 192 or 256), 192, 256 and 320 (the
+            general kernel, past 256), alignment attention at D 30, 96, 150
+            (padded), 192, 256 and 320 (general), the log-mel DFT kernel at
+            n_fft 16, 800, 1000, 1200 and 8192; each general kernel timed
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings,
@@ -81,6 +87,14 @@ any failure raises (exit code 1):
             step of the default ``soft``/``mean`` configuration
   train_reference  one step on the card against the same step through the
             port's plain versions on the CPU, seeded weights and batch
+  fastspeech serving / train  FastSpeech's widths (384 hidden, 2 heads:
+            head dim 192, filter 1536, 6 + 6 layers) with seeded weights:
+            stage A of bench.py's inputs at cap 4096 (6 flash launches at
+            D 192, each held to ``attention_bf16_tolerance`` of its own
+            inputs; durations equal to cap 1000), then 3 train steps at the
+            flagship training shape (6 alignment launches a step at D 192,
+            each held as the alignment kernel phase holds it), each with
+            the launch counts set to 0 just before and read just after
   vocoder train  the vocoder slice's main path: ``make_vocoder_train_step``
             on the committed HiFi-GAN V1 and a seeded full-width
             discriminator, B 16 × 8192-sample segments of the e2e phase's
@@ -129,6 +143,19 @@ PER_TRAIN_STEP = {"flash_attention": 0, "alignment_attention": 4,
 PER_SERVING_BATCH = {"flash_attention": 0, "alignment_attention": 0,
                      "gaussian_upsample_banded": 1, "fused_log_mel": 0}
 PER_SERVING_BATCH_LONG = dict(PER_SERVING_BATCH, flash_attention=4)
+# FastSpeech's published widths (Ren et al. 2019, "FastSpeech: Fast, Robust
+# and Controllable Text to Speech", "Model Configuration"): 384 hidden, 2
+# heads (head dim 192), conv filter 1536, 6 + 6 FFT blocks; the conv kernel
+# sizes stay the repo's (9, 1).  No such weights are committed: seeded, with
+# the duration head's bias raised by log FS_FRAMES (the committed flagship
+# predicts 8-11 frames a phoneme on bench.py's inputs)
+FS_WIDTHS = dict(encoder_layer=6, encoder_head=2, encoder_hidden=384,
+                 decoder_layer=6, decoder_head=2, decoder_hidden=384,
+                 conv_filter_size=1536)
+FS_SEED, FS_FRAMES, FS_TRAIN_STEPS = 0, 10.0, 3
+# its six decoder self-attentions at cap 4096, its six MelEncoder layers
+PER_SERVING_BATCH_FS = dict(PER_SERVING_BATCH, flash_attention=6)
+PER_TRAIN_STEP_FS = dict(PER_TRAIN_STEP, alignment_attention=6)
 # the vocoder GAN step (smart_nar_fast_tts_tpu/cli/train_vocoder.py:30-31
 # defaults): B 16 segments of 8192 samples; 2 log-mel launches per step
 VOC_B, VOC_SEG, VOC_STEPS = 16, 8192, 5
@@ -140,11 +167,24 @@ BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
                     # same points, it is held per element to
                     # kernels.attention_bf16_tolerance (1e-3 + 2^-8·Σp|v|/l,
                     # + 2^-7·|ref| for a bf16 output) and, where each item's
-                    # valid keys sit in one 128-key tile (the online softmax
+                    # valid keys sit in one key tile (the online softmax
                     # is then the two-pass one), on average to ONE_TILE_MEAN:
                     # a moved rounding point costs ≥ 1.6e-4 there
 ONE_TILE_MEAN = 1e-5
-FLASH_TILE = 128    # the kernel's key tile (csrc/flash_attention.cu BN)
+
+
+# head dims past 128 that the tensor-core kernels take, timed: FastSpeech's
+# 192 (384 hidden, 2 heads) and the widest, 256; the general kernels' (past
+# 256), checked and timed at GENERAL_D
+WIDE_DS = (192, 256)
+GENERAL_D = 320
+
+
+def flash_tile(d):
+    """The flash kernel's key tile at head dim d (csrc/flash_attention.cu
+    Tiling<D>::BN of the padded width): 128 keys up to 128, 64 past it."""
+    return 128 if d <= 128 else 64
+
 F32_TOL = 1e-5      # the upsampling kernel is f32 throughout: sums of at
                     # most L terms; what the band leaves out weighs below
                     # exp(-104), which f32 exp rounds to 0
@@ -168,6 +208,15 @@ TF32X3_ATOL, TF32X3_MEAN = 8e-6, 1e-6   # the alignment kernel's out against
                     # kernel rounds them), at most and on average: the gap is
                     # the order of the f32 sums in the scores
                     # (tests/test_torch_kernels_cuda.py)
+ARGMAX_EXACT_MAX_D = 128   # the alignment kernel's head-0 argmax equals
+                    # the f32 plain version's up to this head dim; past it
+                    # (the 3xTF32 kernel at DP 192/256) a differing index
+                    # passes only at a float64 near-tie (argmax_ties)
+TF32X3_PRODUCT_EPS = 3 * 2.0 ** -22   # a 3xTF32 product q_i k_i is off by
+                    # at most this share of |q_i k_i|: the dropped lo·lo
+                    # term and the rounding of each lo part (2^-22 each)
+F32_U = 2.0 ** -24  # f32 unit roundoff: a D-term sum in any order is off by
+                    # at most D·u of the sum of its terms' magnitudes
 GRAD_TOL = 1e-4     # a backward recomputes the plain version: f32 rounding
 TRAIN_RTOL = 1e-4   # a train step on the card vs the CPU, f32 both (its
                     # self-attention takes the einsum branch): 1.2e-5 on
@@ -256,11 +305,12 @@ def check_close(name, got, expect, tol, torch, rtol=0.0):
     return err
 
 
-def flash_valid(torch, np, rng, b, Lx, kind):
+def flash_valid(torch, np, rng, b, Lx, kind, tile=128):
     """key_valid (b, Lx) on the card, item 0 fully masked: ``prefix`` keys
     below lengths in [Lx/2, Lx]; ``holes`` each key valid with probability
-    0.3 (no prefix); ``last tile`` valid keys only in the kernel's last
-    128-key tile, a ragged one when Lx is not a multiple of 128."""
+    0.3 (no prefix); ``last tile`` valid keys only in the last 128 keys
+    (the last 64 where ``tile`` is 64), a ragged tile when Lx is not a
+    multiple of it."""
     if kind == "prefix":
         lens = rng.integers(Lx // 2, Lx + 1, size=b)
         lens[0] = 0
@@ -270,7 +320,7 @@ def flash_valid(torch, np, rng, b, Lx, kind):
         valid[0] = False
     else:
         valid = np.zeros((b, Lx), bool)
-        last = (Lx - 1) // 128 * 128
+        last = (Lx - 1) // tile * tile
         valid[1:, last:] = rng.random((b - 1, Lx - last)) < 0.5
         valid[1:, Lx - 1] = True
     return torch.from_numpy(valid).cuda()
@@ -297,8 +347,9 @@ def flash_errors(torch, kernels, name, out, q, k, v, valid):
                              f"{gap.max().item()})")
     mean = gap.mean().item()
     keys = torch.arange(valid.shape[1], device=valid.device)
-    first = torch.where(valid, keys, valid.shape[1]).amin(1) // FLASH_TILE
-    last = torch.where(valid, keys, -1).amax(1) // FLASH_TILE
+    tile = flash_tile(q.shape[-1])
+    first = torch.where(valid, keys, valid.shape[1]).amin(1) // tile
+    last = torch.where(valid, keys, -1).amax(1) // tile
     if bool((first == last)[valid.any(1)].all()) and not mean <= ONE_TILE_MEAN:
         raise AssertionError(f"flash_attention {name} {q.dtype}: mean abs "
                              f"err {mean} against the bf16 plain version "
@@ -318,26 +369,54 @@ def flash_ptxas(compiled, lib):
     import re
     out = {"dynamic_smem_bytes": {
         f"D {d}, Lk {T_CAP_LONG}": lib.flash_attention_smem_bytes(
-            d, T_CAP_LONG) for d in (64, 128)}}
+            d, T_CAP_LONG) for d in (64, 128, 192, 256)}}
     if "flash_attention" not in compiled:
         out["kernels"] = "not compiled in this run: the build directory had it"
         return out
     for name, info in compiled["flash_attention"]["kernels"].items():
         label = re.search(r"(flash_attention|kv_to_bf16)_kernel",
                           name).group(0)
-        d = re.search(r"ILi(\d+)E", name)
+        d = re.search(r"ILi(\d+)E(?:Li(\d+)ELi(\d+)E)?", name)
         if d:
             label += f"<D {d.group(1)}"
             if label.startswith("flash_attention_kernel"):
+                label += f", BN {d.group(2)}, {d.group(3)} stages"
                 label += ", bf16" if "nv_bfloat16" in name else ", f32"
             label += ">"
         out[label] = info
     return out
 
 
-def kernel_flash_attention(torch, np, kernels, compiled):
+def flash_timing(torch, kernels, q, k, v, valid, reps=25):
+    """The flash wrapper on f32 q, k, v and on their bf16 roundings, beside
+    its plain version and SDPA on both; the bound counts the products over
+    the valid keys (QKᵀ and PV) at the bf16 tensor-core rate, and q, k, v,
+    the mask and out moved once."""
     import torch.nn.functional as F
+    mask = valid[:, None, None, :]
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    ms = device_ms(lambda: kernels.flash_attention(q, k, v, valid), torch,
+                   reps=reps)
+    bf16_ms = device_ms(lambda: kernels.flash_attention(qb, kb, vb, valid),
+                        torch, reps=reps)
+    plain_ms = device_ms(lambda: kernels.attention_reference(
+        q, k, v, valid), torch, reps=reps)
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), torch)
+    library_bf16_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask), torch)
+    _, H, Lq, D = q.shape
+    nbytes = 4 * (q.numel() * 2 + k.numel() + v.numel()) + valid.numel()
+    flops = 4 * H * Lq * D * int(valid.sum())
+    bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, tflops=flops / ms / 1e9,
+                bf16_ms=bf16_ms, library_bf16_ms=library_bf16_ms,
+                vs_library_bf16=ms / library_bf16_ms)
 
+
+def kernel_flash_attention(torch, np, kernels, compiled):
     from smart_nar_fast_tts_tpu_torch.kernels import _build
     from smart_nar_fast_tts_tpu_torch.kernels.attention import _SIGNATURES
     rng = np.random.default_rng(1)
@@ -378,42 +457,58 @@ def kernel_flash_attention(torch, np, kernels, compiled):
                 if dtype != torch.float32 or not name.startswith("decoder") \
                         or kind != "prefix":
                     continue
-                mask = valid[:, None, None, :]
-                qb, kb, vb = (t.to(torch.bfloat16) for t in base)
-                ms = device_ms(lambda: kernels.flash_attention(
-                    q, k, v, valid), torch)
-                bf16_ms = device_ms(lambda: kernels.flash_attention(
-                    qb, kb, vb, valid), torch)
-                plain_ms = device_ms(lambda: kernels.attention_reference(
-                    q, k, v, valid), torch)
-                library_ms = device_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=mask), torch)
-                library_bf16_ms = device_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        qb, kb, vb, attn_mask=mask), torch)
-                nbytes = 4 * (q.numel() * 2 + k.numel() + v.numel()) \
-                    + valid.numel()
-                # the products over the valid keys: QKᵀ and PV
-                flops = 4 * 2 * Lx * 128 * int(valid.sum())
-                bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-                timing = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              bound_share=bound_ms / ms,
-                              tflops=flops / ms / 1e9, bf16_ms=bf16_ms,
-                              library_bf16_ms=library_bf16_ms,
-                              vs_library_bf16=ms / library_bf16_ms)
+                timing = flash_timing(torch, kernels, q, k, v, valid)
                 f.update(timing)
                 crossover.append(dict(T=Lx, **timing))
                 if Lx == T_CAP_LONG:
                     # what a launch costs beside its products: one valid
                     # key tile per item (q load, output store, set-up)
                     one = torch.zeros_like(valid)
-                    one[:, :FLASH_TILE] = True
+                    one[:, :flash_tile(128)] = True
                     timing["one_tile_ms"] = device_ms(
                         lambda: kernels.flash_attention(q, k, v, one), torch)
                     f.update(one_tile_ms=timing["one_tile_ms"])
                     entry.update(timing, shape=list(q.shape))
+    # the head dims past 128 on the tensor cores (WIDE_DS: FastSpeech's 192
+    # and 256; 64-key tiles): the serving decoder at T_CAP_LONG, timed, and
+    # at D 192 a mask with holes and one whose valid keys sit in the last
+    # (ragged) 64-key tile; f32 and bf16 operands; the general kernel must
+    # not run
+    wide = [(d, T_CAP_LONG, "prefix") for d in WIDE_DS] + [
+        (WIDE_DS[0], T_CAP_LONG, "holes"), (WIDE_DS[0], 4000, "last tile")]
+    for d, Lx, kind in wide:
+        valid = flash_valid(torch, np, rng, B, Lx, kind, flash_tile(d))
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (B, 2, Lx, d)).astype(np.float32)).cuda() for _ in range(3))
+        with Phase("kernel flash_attention") as f:
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (*(t.to(dtype) for t in (q, k, v)), valid)
+                out, general = routed(
+                    kernels, "flash_attention_general",
+                    lambda: kernels.flash_attention(*args))
+                again = kernels.flash_attention(*args)
+                torch.cuda.synchronize()
+                if general or not torch.equal(out, again):
+                    raise AssertionError(f"flash_attention D {d}: general "
+                                         f"kernel {general}, or two "
+                                         "launches differ")
+                err, err_emu, share, mean = flash_errors(
+                    torch, kernels, f"D {d} {kind}", out, *args)
+                err_max, emu_max = max(err_max, err), max(emu_max, err_emu)
+                share_max = max(share_max, share)
+                errs[str(dtype)] = dict(
+                    max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
+                    bf16_tolerance_share=share,
+                    mean_abs_err_vs_bf16_plain=mean)
+            f.update(case=f"decoder {Lx} D {d} {kind}", shape=list(q.shape),
+                     mask=kind, valid_keys=int(valid.sum()),
+                     route="tensor cores", bit_equal=True, errors=errs)
+            if kind == "prefix":
+                timing = flash_timing(torch, kernels, q, k, v, valid)
+                f.update(timing)
+                entry[f"d{d}"] = dict(timing, shape=list(q.shape),
+                                      errors=errs)
     lib = _build.load("flash_attention", _SIGNATURES)
     entry.update(max_abs_err=err_max, max_abs_err_vs_bf16_plain=emu_max,
                  bf16_tolerance_share=share_max, crossover=crossover,
@@ -569,7 +664,7 @@ def alignment_ptxas(compiled, lib):
     dynamic shared memory of each instantiation."""
     import re
     out = {"dynamic_smem_bytes": {f"D {d}": lib.alignment_attention_smem_bytes(
-        d) for d in (32, 64, 128)}}
+        d) for d in (32, 64, 128, 192, 256)}}
     if "alignment_attention" not in compiled:
         out["kernels"] = "not compiled in this run: the build directory had it"
         return out
@@ -580,25 +675,67 @@ def alignment_ptxas(compiled, lib):
     return out
 
 
-def alignment_check(torch, kernels, name, args):
-    """The kernel against the f32 plain version (out F32_TOL, idx exact,
-    gnum GNUM_ATOL/GNUM_RTOL), twice (idx and gnum bit-equal) and against
-    alignment_tf32x3_reference (out TF32X3_ATOL at most and TF32X3_MEAN on
-    average, gnum as above); returns the figures."""
-    out, idx, gnum = kernels.alignment_attention(*args)
-    _, idx2, gnum2 = kernels.alignment_attention(*args)
+def argmax_ties(torch, args, idx, r_idx):
+    """The frames where the kernel's head-0 argmax ``idx`` differs from the
+    f32 plain version's ``r_idx``: the float64 argmax (first index among
+    equal maxima), and for each pick how far its float64 score lies below
+    the maximum beside its version's error bound.  At head dim D a score
+    scale·Σ q_i k_i is off by at most eps·scale·Σ|q_i k_i|, eps = D·F32_U
+    for the f32 sum and TF32X3_PRODUCT_EPS more for the kernel's 3xTF32
+    products; so a version may rank a key over the maximum where their gap
+    is below the sum of the two keys' bounds.  A difference is a near-tie
+    when both picks lie within that of the maximum."""
+    q, k, _, valid = args[:4]
+    d = q.shape[-1]
+    scale = 1 / math.sqrt(d)
+    eps = {"kernel": TF32X3_PRODUCT_EPS + d * F32_U, "plain": d * F32_U}
+    out = []
+    for b, t in (idx != r_idx).nonzero().tolist():
+        qt, kb = q[b, 0, t].double(), k[b, 0].double()
+        s64 = torch.where(valid[b], (kb @ qt) * scale, -1e30)
+        mag = (kb.abs() @ qt.abs()) * scale
+        top = s64.max()
+        first = int(torch.nonzero(s64 == top)[0, 0])
+        tie = dict(frame=(b, t), float64_argmax=first,
+                   float64_max=top.item(),
+                   float64_top2_gap=(top - s64[s64 < top].max()).item(),
+                   near_tie=True)
+        for who, pick in (("kernel", int(idx[b, t])),
+                          ("plain", int(r_idx[b, t]))):
+            below = (top - s64[pick]).item()
+            limit = eps[who] * (mag[pick] + mag[first]).item()
+            tie.update({who: pick, f"{who}_below_max": below,
+                        f"{who}_bound": limit})
+            tie["near_tie"] &= below <= limit
+        out.append(tie)
+    return out
+
+
+def alignment_check(torch, kernels, name, args, got=None):
+    """The kernel against the f32 plain version (out F32_TOL; idx exact up
+    to head dim ARGMAX_EXACT_MAX_D, past it exact but at float64 near-ties:
+    :func:`argmax_ties`; gnum GNUM_ATOL/GNUM_RTOL), twice (out, idx and
+    gnum bit-equal) and against alignment_tf32x3_reference (out
+    TF32X3_ATOL at most and TF32X3_MEAN on average, gnum as above); returns
+    the figures.  ``got``: a launch's outputs recorded on a path, which take
+    the first launch's place."""
+    out, idx, gnum = got or kernels.alignment_attention(*args)
+    out2, idx2, gnum2 = kernels.alignment_attention(*args)
     torch.cuda.synchronize()
     r_out, r_idx, r_gnum = kernels.alignment_reference(*args)
     err = check_close(f"alignment_attention {name} out", out, r_out,
                       F32_TOL, torch)
-    n_idx = int((idx != r_idx).sum())
-    if n_idx:
-        raise AssertionError(f"alignment_attention {name}: {n_idx} argmax "
-                             "indices differ")
+    ties = argmax_ties(torch, args, idx, r_idx)
+    if ties and (args[0].shape[-1] <= ARGMAX_EXACT_MAX_D
+                 or not all(t["near_tie"] for t in ties)):
+        raise AssertionError(f"alignment_attention {name}: {len(ties)} "
+                             f"argmax indices differ: {ties[:4]}")
     gnum_err = check_close(f"alignment_attention {name} gnum", gnum, r_gnum,
                            GNUM_ATOL, torch, rtol=GNUM_RTOL)
-    if not (torch.equal(gnum, gnum2) and torch.equal(idx, idx2)):
-        raise AssertionError("alignment_attention: two launches differ")
+    if not (torch.equal(out, out2) and torch.equal(gnum, gnum2)
+            and torch.equal(idx, idx2)):
+        raise AssertionError(f"alignment_attention {name}: two launches "
+                             "differ")
     t_out, t_idx, t_gnum = kernels.alignment_tf32x3_reference(*args)
     gap = (out - t_out).abs()
     if not (gap.max() <= TF32X3_ATOL and gap.mean() <= TF32X3_MEAN):
@@ -615,63 +752,87 @@ def alignment_check(torch, kernels, name, args):
                 mean_abs_err_vs_tf32x3_plain=gap.mean().item(),
                 gnum_max_abs_err=gnum_err,
                 gnum_max_abs_err_vs_tf32x3_plain=t_gnum_err,
-                idx_differ=n_idx, idx_differ_vs_tf32x3_plain=n_t_idx,
+                idx_differ=len(ties), idx_near_ties=ties,
+                idx_differ_vs_tf32x3_plain=n_t_idx,
                 gnum_bit_equal_across_launches=True)
 
 
-def kernel_alignment_attention(torch, np, kernels, compiled):
+def alignment_timing(torch, kernels, args, reps=25):
+    """The alignment wrapper beside its plain version and f32 SDPA on
+    ``out`` alone.  Its bound counts QKᵀ and PV over the valid keys, every
+    frame, as three TF32 passes each at the tensor cores' TF32 rate (the
+    kernel's 3xTF32), with the bound at the f32 CUDA-core rate (one pass)
+    beside it; q, k, v, the mask, the lengths and the outputs move once."""
     import torch.nn.functional as F
+    q, k, v, valid = args[:4]
+    ms = device_ms(lambda: kernels.alignment_attention(*args), torch,
+                   reps=reps)
+    plain_ms = device_ms(lambda: kernels.alignment_reference(*args), torch,
+                         reps=reps)
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=valid[:, None, None, :]), torch)
+    b_, h_, t_, d_ = q.shape
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + b_ * t_ + b_
+                  + 2 * args[4].numel()) + valid.numel()
+    flops = 4 * h_ * t_ * d_ * int(valid.sum())
+    bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+    f32_bound_ms, f32_bound_by = bound(nbytes, flops, F32_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bound_share=bound_ms / ms,
+                f32_bound_ms=f32_bound_ms, f32_bound_by=f32_bound_by,
+                f32_bound_share=f32_bound_ms / ms,
+                tflops_3xtf32=3 * flops / ms / 1e9, flops=flops,
+                bytes=nbytes)
 
+
+def kernel_alignment_attention(torch, np, kernels, compiled):
     from smart_nar_fast_tts_tpu_torch.kernels import _build
     from smart_nar_fast_tts_tpu_torch.kernels.alignment import _SIGNATURES
     rng = np.random.default_rng(3)
-    entry, err_max = None, 0.0
+    entry, err_max = {}, 0.0
     # the flagship training shape, a ragged one (T not a multiple of 16,
     # L 13) and L 1000 (max_seq_len; 16 key chunks); then each product
     # apart: q = 0 (uniform p: PV alone) and v = identity (out = P: QKᵀ
-    # through the softmax alone)
-    for name, shape in (("train", (TRAIN_B, 2, TRAIN_T, TRAIN_L, 128)),
-                        ("ragged", (3, 2, 45, 13, 128)),
-                        ("L 1000", (2, 2, 1500, 1000, 128)),
-                        ("q zero", (4, 2, 300, 128, 128)),
-                        ("v identity", (4, 2, 300, 128, 128))):
+    # through the softmax alone); then the head dims past 128 on the
+    # tensor cores (WIDE_DS: FastSpeech's 192 and 256) at the training
+    # shape and each product apart, the general kernel not launched
+    cases = [("train", 128), ("ragged", 128), ("L 1000", 128),
+             ("q zero", 128), ("v identity", 128)]
+    cases += [(name, d) for d in WIDE_DS
+              for name in ("train", "q zero", "v identity")]
+    for name, d in cases:
+        shape = {"train": (TRAIN_B, 2, TRAIN_T, TRAIN_L, d),
+                 "ragged": (3, 2, 45, 13, d), "L 1000": (2, 2, 1500, 1000, d),
+                 "q zero": (4, 2, 300, d, d),
+                 "v identity": (4, 2, 300, d, d)}[name]
         with Phase("kernel alignment_attention") as f:
             args = alignment_inputs(torch, np, rng, *shape)
             if name == "q zero":
                 args = (torch.zeros_like(args[0]), *args[1:])
             elif name == "v identity":
-                eye = torch.eye(128, device="cuda").expand(4, 2, 128, 128)
+                eye = torch.eye(d, device="cuda").expand(4, 2, d, d)
                 args = (*args[:2], eye.contiguous(), *args[3:])
-            checks = alignment_check(torch, kernels, name, args)
+            checks, general = routed(kernels, "alignment_attention_general",
+                                     lambda: alignment_check(
+                                         torch, kernels, f"{name} D {d}",
+                                         args))
+            if general:
+                raise AssertionError(f"alignment_attention D {d}: the "
+                                     "general kernel ran")
             err_max = max(err_max, checks["max_abs_err"])
             f.update(case=name, shape=list(shape), **checks,
                      src_lens=args[4].tolist()[:4])
             if name != "train":
                 continue
-            q, k, v, valid = args[:4]
-            ms = device_ms(lambda: kernels.alignment_attention(*args), torch)
-            plain_ms = device_ms(lambda: kernels.alignment_reference(*args),
-                                 torch)
-            sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=valid[:, None, None, :]), torch)
-            nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
-                          + TRAIN_B * TRAIN_T + TRAIN_B
-                          + 2 * args[4].numel()) + valid.numel()
-            # QKᵀ and PV over the valid keys, every frame: three TF32
-            # passes each on the tensor cores, or once at the f32 rate
-            b_, h_, t_, _, d_ = shape
-            flops = 4 * h_ * t_ * d_ * int(valid.sum())
-            bound_ms, bound_by = bound(nbytes, 3 * flops, TF32_FLOPS)
-            f32_bound_ms, f32_bound_by = bound(nbytes, flops, F32_FLOPS)
-            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                          sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, bound_share=bound_ms / ms,
-                          f32_bound_ms=f32_bound_ms,
-                          f32_bound_by=f32_bound_by,
-                          f32_bound_share=f32_bound_ms / ms,
-                          tflops_3xtf32=3 * flops / ms / 1e9)
-            f.update(timing, flops=flops, bytes=nbytes)
-            entry = dict(timing, shape=list(shape))
+            timing = dict(alignment_timing(torch, kernels, args),
+                          shape=list(shape), max_abs_err=checks[
+                              "max_abs_err"])
+            f.update(timing)
+            if d == 128:
+                entry.update(timing)
+            else:
+                entry[f"d{d}"] = timing
     lib = _build.load("alignment_attention", _SIGNATURES)
     entry.update(max_abs_err=err_max, ptxas=alignment_ptxas(compiled, lib))
     return entry
@@ -867,6 +1028,196 @@ def train_phase(torch, np, kernels, synth, inv):
                  losses={k: float(v) for k, v in losses._asdict().items()})
         del state
     return counts
+
+
+def fastspeech_model(torch):
+    """FastSpeech's widths (FS_WIDTHS) in the port's ``FastSpeech2Align``
+    with ``intended``/``first`` duration extraction and the committed
+    flagship's feature stats, weights from the port's initialisers after
+    ``torch.manual_seed(FS_SEED)``; the duration head's bias raised by
+    log FS_FRAMES, so that the seeded model predicts speech-like lengths."""
+    from smart_nar_fast_tts_tpu_torch.config import (FeatureStats,
+                                                     ModelConfig,
+                                                     PreprocessConfig,
+                                                     TransformerConfig)
+    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Align
+    with open(os.path.join(REPO, "benchmarks", "results",
+                           "flagship_meta.json")) as f:
+        stats = json.load(f)["stats"]
+    cfg = ModelConfig(transformer=TransformerConfig(**FS_WIDTHS),
+                      duration_extraction="intended",
+                      duration_head_reduce="first")
+    torch.manual_seed(FS_SEED)
+    model = FastSpeech2Align(cfg, PreprocessConfig(
+        stats=FeatureStats(**stats)))
+    with torch.no_grad():
+        model.variance_adaptor.duration_predictor.linear_layer.bias += \
+            math.log(FS_FRAMES)
+    return model
+
+
+def fastspeech_phase(torch, np, kernels, synth, inv, texts, src_lens):
+    """The FastSpeech-width path, whose attention has head dim 192: (a)
+    stage A of bench.py's inputs at cap 4096 through ``Synthesizer(...,
+    t_cap=4096)``, with the launch counts set to 0 just before and read
+    just after: the decoder's six self-attentions run the tensor-core flash
+    kernel at (8, 2, 4096, 192), the general kernel none; each launch's
+    output held to ``attention_bf16_tolerance`` of its own inputs;
+    durations equal to a cap-1000 card run of the same model; finite
+    outputs.  (b) FS_TRAIN_STEPS train steps (``intended``/``first``) at the
+    flagship training shape on the flagship phase's batch, with the counts
+    set to 0 just before and read just after: the six MelEncoder layers run
+    the alignment kernel at D 192 each step, each launch's out, idx and gnum
+    held as :func:`alignment_check` holds them (its outputs recorded on the
+    path, then a second launch bit-equal); finite losses; step time, peak
+    memory, and one step's alignment launches timed on their recorded
+    inputs.  Returns the two runs' counts."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss, layers
+    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
+    from smart_nar_fast_tts_tpu_torch.training import (create_train_state,
+                                                       make_train_step)
+    with Phase("fastspeech serving") as f:
+        t0 = time.perf_counter()
+        model = fastspeech_model(torch)
+        f["build_seconds"] = time.perf_counter() - t0
+        long_synth = Synthesizer(model, synth.vocoder, t_cap=T_CAP_LONG)
+        flash, calls = layers.flash_attention, []
+
+        def spy(q, k, v, key_valid):          # the model's call, recorded
+            out = flash(q, k, v, key_valid)
+            calls.append((q, k, v, key_valid, out))
+            return out
+
+        tokens, lens = torch.from_numpy(texts), torch.from_numpy(src_lens)
+        kernels.reset_launches()
+        with mock.patch.object(layers, "flash_attention", spy):
+            out = long_synth.stage_a(tokens, lens)
+        torch.cuda.synchronize()
+        serving = {**kernels.launches(), **kernels.general_launches()}
+        shapes = [list(c[0].shape) for c in calls]
+        want = dict(PER_SERVING_BATCH_FS, **{
+            n: 0 for n in kernels.general_launches()})
+        if serving != want or shapes != [[B, 2, T_CAP_LONG, 192]] * 6:
+            raise AssertionError(f"FastSpeech cap-4096 launches {serving} "
+                                 f"at {shapes}, expected {want}")
+        shares = []
+        for q, k, v, valid, o in calls:
+            ref = kernels.attention_bf16_reference(q, k, v, valid)
+            tol = kernels.attention_bf16_tolerance(q, k, v, valid, ref)
+            shares.append(((o - ref).abs() / tol).max().item())
+        if not max(shares) <= 1.0:
+            raise AssertionError("FastSpeech flash outputs beyond "
+                                 f"attention_bf16_tolerance: {shares}")
+        if out.postnet_mel.shape != (B, T_CAP_LONG, 80) or not all(
+                torch.isfinite(t).all() for t in (
+                    out.postnet_mel, out.mel, out.log_duration_prediction,
+                    out.pitch_prediction, out.energy_prediction)):
+            raise AssertionError("FastSpeech cap-4096 output: bad shape or "
+                                 "non-finite")
+        short = Synthesizer(model, synth.vocoder, t_cap=T_CAP).stage_a(
+            tokens, lens)
+        if not torch.equal(out.duration_rounded, short.duration_rounded):
+            raise AssertionError("FastSpeech durations at cap 4096 differ "
+                                 "from cap 1000")
+        if not int(out.mel_lens.min()) > 0:
+            raise AssertionError("FastSpeech: an empty utterance")
+        stage_a_ms = wall_ms(lambda: long_synth.stage_a(tokens, lens), torch)
+        with torch.inference_mode():
+            flash_ms = [device_ms(lambda c=c: kernels.flash_attention(*c[:4]),
+                                  torch) for c in calls]
+        valid_keys = int(calls[0][3].sum())
+        flops = 4 * 2 * T_CAP_LONG * 192 * valid_keys
+        nbytes = 4 * 4 * calls[0][0].numel() + calls[0][3].numel()
+        path_bound_ms, path_bound_by = bound(nbytes, flops, BF16_FLOPS)
+        f.update(widths=FS_WIDTHS, frames_per_phoneme_bias=FS_FRAMES,
+                 params=sum(p.numel() for p in model.parameters()),
+                 launches=serving, flash_shapes=shapes,
+                 flash_bf16_tolerance_share=shares,
+                 mel_lens=out.mel_lens.tolist(), stage_a_ms=stage_a_ms,
+                 stage_a_cap1000_durations_equal=True,
+                 flash_valid_keys=valid_keys, flash_ms_on_path=flash_ms,
+                 flash_ms_on_path_sum=sum(flash_ms),
+                 flash_bound_ms_on_path=path_bound_ms,
+                 flash_bound_by_on_path=path_bound_by,
+                 nvidia_smi=nvidia_smi())
+        del calls, out, short, long_synth
+
+    with Phase("fastspeech train") as f:
+        batch = train_batch(torch, np, synth, inv)
+        state = create_train_state(model)
+        step = make_train_step(FastSpeech2Loss(), keep_outputs=True)
+        generator = torch.Generator(device="cuda").manual_seed(0)
+        align, records = layers.alignment_attention, []
+
+        def align_spy(*args):                 # the model's call, recorded
+            got = align(*args)
+            records.append((tuple(a.detach() if torch.is_tensor(a) else a
+                                  for a in args),
+                            tuple(t.detach() for t in got)))
+            return got
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, totals = [], []
+        kernels.reset_launches()
+        with mock.patch.object(layers, "alignment_attention", align_spy):
+            for i in range(FS_TRAIN_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses, outs = step(state, batch, generator)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+                check_finite_losses(torch, losses,
+                                    f"FastSpeech train step {i + 1}")
+                totals.append(float(losses.total))
+                durations = outs[0].duration_targets
+                if not torch.equal(durations.sum(1), batch.mel_lens.to(
+                        durations.dtype)):
+                    raise AssertionError("FastSpeech duration targets do "
+                                         "not sum to mel_lens")
+        train = {**kernels.launches(), **kernels.general_launches()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {n: c * FS_TRAIN_STEPS for n, c in PER_TRAIN_STEP_FS.items()}
+        want.update({n: 0 for n in kernels.general_launches()})
+        if train != want:
+            raise AssertionError(f"FastSpeech train launches {train}, "
+                                 f"expected {want}")
+        worst, ties = {}, []
+        for i, (args, got) in enumerate(records):
+            if list(args[0].shape) != [TRAIN_B, 2, TRAIN_T, 192]:
+                raise AssertionError(f"alignment launch {i}: q "
+                                     f"{list(args[0].shape)}")
+            name = (f"FastSpeech step {i // 6 + 1} layer {i % 6 + 1}")
+            checks = alignment_check(torch, kernels, name, args, got=got)
+            ties += [dict(t, launch=i) for t in checks.pop("idx_near_ties")]
+            for key, value in checks.items():
+                if not isinstance(value, bool):
+                    worst[key] = max(worst.get(key, 0), value)
+        per_step = PER_TRAIN_STEP_FS["alignment_attention"]
+        with torch.no_grad():            # one step's launches, each timed
+            align_ms = [device_ms(         # on its recorded inputs
+                lambda a=a: kernels.alignment_attention(*a), torch)
+                for a, _ in records[:per_step]]
+        f.update(launches=train, step_ms=times,
+                 step_ms_median=statistics.median(times),
+                 alignment_ms_on_path=align_ms,
+                 alignment_ms_on_path_per_step=sum(align_ms),
+                 peak_mem_gib=peak, total_loss_per_step=totals,
+                 alignment_launches_held=len(records),
+                 alignment_worst=worst, idx_near_ties=ties,
+                 alignment_tolerances=dict(
+                     out=F32_TOL, gnum_atol=GNUM_ATOL, gnum_rtol=GNUM_RTOL,
+                     tf32x3_max=TF32X3_ATOL, tf32x3_mean=TF32X3_MEAN,
+                     idx=f"exact but at float64 near-ties past head dim "
+                         f"{ARGMAX_EXACT_MAX_D} (argmax_ties)"),
+                 frames_per_phoneme_max=int(durations.max()),
+                 nvidia_smi=nvidia_smi())
+        del state, step, outs, records, model
+    return serving, train
 
 
 def train_reference_phase(torch, np, inv):
@@ -1394,27 +1745,27 @@ def routed(kernels, name, fn):
 
 
 def kernel_general_paths(torch, np, kernels, compiled):
-    """The widths the first kernels do not take (ROADMAP §C.2).  Flash
-    attention at head dims 32, 80 and 96 (zero-padded to the tensor-core
-    kernel's 64 or 128) and 192 and 256 (the general kernel), f32 and bf16
-    operands, held as the tensor-core kernel is (:func:`flash_errors`);
-    alignment attention at D 30 and 96 (zero-padded to a multiple of 4:
-    :func:`alignment_check`) and 192 (the general kernel:
-    :func:`alignment_general_check`); the log-mel DFT kernel at n_fft 16,
-    800, 1000, 1200 and 8192 against the float64 plain version
-    (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and ``log_mel_dft_reference``
-    (FFT_REF_ATOL), bit-equal across launches.  Then each general kernel
-    timed: flash at (8, 2, 4096, 192) beside its plain version and SDPA,
-    alignment at the training shape with D 192, log-mel at (16, 8192) with
-    n_fft 1200.  Returns the three kernels' entries."""
-    import torch.nn.functional as F
-
+    """The widths the first kernels do not take as they are (ROADMAP
+    §C.2).  Flash attention at head dims 32, 80, 96, 160 and 200
+    (zero-padded to the tensor-core kernel's 64, 128, 192 or 256), 192 and
+    256 (the tensor-core kernel) and GENERAL_D (the general kernel, past
+    256), f32 and bf16 operands, held as the tensor-core kernel is
+    (:func:`flash_errors`); alignment attention at D 30, 96 and 150
+    (zero-padded to a multiple of 4), 192 and 256 (:func:`alignment_check`)
+    and GENERAL_D (the general kernel: :func:`alignment_general_check`);
+    the log-mel DFT kernel at n_fft 16, 800, 1000, 1200 and 8192 against
+    the float64 plain version (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and
+    ``log_mel_dft_reference`` (FFT_REF_ATOL), bit-equal across launches.
+    Then each general kernel timed: flash at (8, 2, 4096, GENERAL_D)
+    beside its plain version and SDPA, alignment at the training shape with
+    D GENERAL_D, log-mel at (16, 8192) with n_fft 1200.  Returns the three
+    kernels' entries."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
     rng = np.random.default_rng(6)
     flash, align, dft = {}, {}, {}
     flash_err = align_err = dft_err = 0.0
-    for D in (32, 80, 96, 192, 256):
+    for D in (32, 80, 96, 160, 192, 200, 256, GENERAL_D):
         valid = flash_valid(torch, np, rng, 4, 700, "prefix")
         base = [torch.from_numpy(rng.standard_normal(
             (4, 2, 700, D)).astype(np.float32)).cuda() for _ in range(3)]
@@ -1425,7 +1776,7 @@ def kernel_general_paths(torch, np, kernels, compiled):
                     kernels, "flash_attention_general",
                     lambda: kernels.flash_attention(q, k, v, valid))
                 torch.cuda.synchronize()
-                if general != (D > 128):
+                if general != (D > 256):
                     raise AssertionError(f"flash_attention D {D}: general "
                                          f"kernel launched: {general}")
                 err, err_emu, share, mean = flash_errors(
@@ -1434,72 +1785,59 @@ def kernel_general_paths(torch, np, kernels, compiled):
                     flash_err = max(flash_err, err_emu)
                 f.update(D=D, dtype=str(dtype), shape=list(q.shape),
                          route="general" if general else
-                         "tensor cores, D zero-padded",
+                         "tensor cores" + (", D zero-padded" if D not in (
+                             64, 128, 192, 256) else ""),
                          max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
                          bf16_tolerance_share=share,
                          mean_abs_err_vs_bf16_plain=mean)
     with Phase("kernel flash_attention general") as f:
         valid = flash_valid(torch, np, rng, B, T_CAP_LONG, "prefix")
         q, k, v = (torch.from_numpy(rng.standard_normal(
-            (B, 2, T_CAP_LONG, 192)).astype(np.float32)).cuda()
+            (B, 2, T_CAP_LONG, GENERAL_D)).astype(np.float32)).cuda()
             for _ in range(3))
-        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        mask = valid[:, None, None, :]
-        out = kernels.flash_attention(q, k, v, valid)
-        err, err_emu, share, _ = flash_errors(torch, kernels, "D 192 timed",
-                                              out, q, k, v, valid)
-        ms = device_ms(lambda: kernels.flash_attention(q, k, v, valid),
-                       torch, reps=5, warmup=1)
-        plain_ms = device_ms(lambda: kernels.attention_reference(
-            q, k, v, valid), torch, reps=5, warmup=1)
-        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, attn_mask=mask), torch)
-        library_f32_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), torch)
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + valid.numel()
-        flops = 4 * 2 * T_CAP_LONG * 192 * int(valid.sum())
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOPS)
-        flash = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        out, general = routed(kernels, "flash_attention_general",
+                              lambda: kernels.flash_attention(q, k, v, valid))
+        if not general:
+            raise AssertionError(f"flash_attention D {GENERAL_D}: the "
+                                 "general kernel did not run")
+        err, err_emu, share, _ = flash_errors(
+            torch, kernels, f"D {GENERAL_D} timed", out, q, k, v, valid)
+        timing = flash_timing(torch, kernels, q, k, v, valid, reps=5)
+        flash = dict(timing, library_ms=timing["library_bf16_ms"],
                      library="SDPA on bf16 operands",
-                     library_f32_ms=library_f32_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, bound_share=bound_ms / ms,
+                     library_f32_ms=timing["library_ms"],
                      shape=list(q.shape), max_abs_err=max(flash_err, err_emu),
                      max_abs_err_vs_f32_plain=err,
                      bf16_tolerance_share=share)
         f.update(flash)
-    for D in (30, 96, 192):
+    for D in (30, 96, 150, 192, 256, GENERAL_D):
         with Phase("kernel alignment_attention general widths") as f:
             args = alignment_inputs(torch, np, rng, 4, 2, 300, 70, D)
-            check = (alignment_general_check if D > 128 else
+            check = (alignment_general_check if D > 256 else
                      alignment_check)
             checks, general = routed(
                 kernels, "alignment_attention_general",
                 lambda: check(torch, kernels, f"D {D}", args))
-            if general != (D > 128):
+            if general != (D > 256):
                 raise AssertionError(f"alignment_attention D {D}: general "
                                      f"kernel launched: {general}")
             if general:
                 align_err = max(align_err, checks["max_abs_err"])
             f.update(D=D, route="general" if general else
-                     "tensor cores, D zero-padded", **checks)
+                     "tensor cores" + (", D zero-padded" if D not in (
+                         32, 64, 128, 192, 256) else ""),
+                     **checks)
     with Phase("kernel alignment_attention general") as f:
-        shape = (TRAIN_B, 2, TRAIN_T, TRAIN_L, 192)
+        shape = (TRAIN_B, 2, TRAIN_T, TRAIN_L, GENERAL_D)
         args = alignment_inputs(torch, np, rng, *shape)
-        checks = alignment_general_check(torch, kernels, "D 192 timed", args)
-        q, k, v, valid = args[:4]
-        ms = device_ms(lambda: kernels.alignment_attention(*args), torch)
-        plain_ms = device_ms(lambda: kernels.alignment_reference(*args),
-                             torch)
-        sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=valid[:, None, None, :]), torch)
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()
-                      + TRAIN_B * TRAIN_T + TRAIN_B
-                      + 2 * args[4].numel()) + valid.numel()
-        flops = 4 * 2 * TRAIN_T * 192 * int(valid.sum())
-        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-        align = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                     sdpa_f32_out_only_ms=sdpa_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, bound_share=bound_ms / ms,
+        checks, general = routed(
+            kernels, "alignment_attention_general",
+            lambda: alignment_general_check(
+                torch, kernels, f"D {GENERAL_D} timed", args))
+        if not general:
+            raise AssertionError(f"alignment_attention D {GENERAL_D}: the "
+                                 "general kernel did not run")
+        align = dict(alignment_timing(torch, kernels, args),
                      shape=list(shape),
                      max_abs_err=max(align_err, checks["max_abs_err"]))
         f.update(align, gnum_max_abs_err=checks["gnum_max_abs_err"])
@@ -1947,6 +2285,8 @@ def main() -> int:
 
     train_counts = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
+    fs_serving, fs_train = fastspeech_phase(torch, np, kernels, synth, inv,
+                                            texts, src_lens)
     gan_counts = vocoder_train_phase(torch, kernels, synth, segments)
     vocoder_train_reference_phase(torch, np)
 
@@ -1969,8 +2309,16 @@ def main() -> int:
             launches_per_train_step=train_counts[name] // TRAIN_STEPS,
             launches_per_gan_step=gan_counts[name] // VOC_STEPS,
             launches_cli={run: c["launches"][name]
-                          for run, c in cli_counts.items()})
-    # the second kernels: no driven path has a head dim past 128 or an
+                          for run, c in cli_counts.items()},
+            launches_fastspeech_width=fs_serving[name] + fs_train[name],
+            launches_fastspeech_width_runs={
+                "serving stage A at cap 4096": fs_serving[name],
+                f"{FS_TRAIN_STEPS} train steps": fs_train[name]})
+    entries["flash_attention"]["fastspeech_width_path"] = (
+        "FastSpeech widths (head dim 192), serving stage A at cap 4096")
+    entries["alignment_attention"]["fastspeech_width_path"] = (
+        f"FastSpeech widths (head dim 192), {FS_TRAIN_STEPS} train steps")
+    # the second kernels: no driven path has a head dim past 256 or an
     # n_fft that is not a power of two, so each counts 0 on every path
     sources = {
         "flash_attention_general": (
@@ -1988,8 +2336,9 @@ def main() -> int:
         entries[name] = dict(
             route="cuda", source=source, replaces=replaces,
             launches=launched["long"], launches_cli=launched,
-            path="none: the driven paths have head dim 128 and n_fft 1024",
-            **entry)
+            launches_fastspeech_width=fs_serving[name] + fs_train[name],
+            path="none: the driven paths have head dims 128 and 192 and "
+                 "n_fft 1024", **entry)
     entries["flash_attention"]["cli_long_path"] = (
         "synthesize CLI, long passage: cap 4096")
 

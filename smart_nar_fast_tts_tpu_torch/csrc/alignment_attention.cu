@@ -38,15 +38,24 @@
 //   reduced across each quad of lanes by shuffles; no score tile is written
 //   anywhere.  The three passes of a product go across 4 independent
 //   accumulators, so that no tensor-core instruction waits on the last.
-// - A persistent block (8 warps, one per SM: 215 KB of shared memory) walks
-//   a contiguous range of 16-frame units, in rounds of one unit per warp
-//   within each (batch, head).  Keys go through shared memory in chunks of
-//   64, split into hi and lo once for the block (splitting in every warp
-//   cost 8x the ALU work), with an online softmax across chunks; rounds take
-//   the chunks in alternating order, so that each round starts on the chunk
-//   the last one ended with (L <= 64 stages K and V once per (b, h)).  Each
-//   warp loads its next unit's q by cp.async while it finishes the current
-//   one, and its output stores drain during the next round.
+// - A persistent block (8 warps, one per SM: 215 KB of shared memory at D
+//   128) walks a contiguous range of 16-frame units, in rounds of one unit
+//   per warp within each (batch, head).  Keys go through shared memory in
+//   chunks of KC (64 at D up to 128), split into hi and lo once for the
+//   block (splitting in every warp cost 8x the ALU work), with an online
+//   softmax across chunks; rounds take the chunks in alternating order, so
+//   that each round starts on the chunk the last one ended with (L <= KC
+//   stages K and V once per (b, h)).  Each warp loads its next unit's q by
+//   cp.async while it finishes the current one, and its output stores
+//   drain during the next round.
+// - The block's shape follows the padded depth DP (struct Shape): each warp
+//   keeps its 16 q rows in shared memory, and with KC 64 that is 314 KB at
+//   DP 192, over a block's 227 KB.  So DP 192 takes chunks of KC 32 (210
+//   KB) and DP 256 chunks of 16 (207 KB), both with 8 warps: more chunks a
+//   round, but the warps that hide the tensor pipe's latency stay (4 warps
+//   with chunks of 32 took 0.46 ms at DP 256 and the training shape, 8
+//   warps with chunks of 16 0.39 on an H100).  The output fragment takes
+//   16·DP/32 registers a lane (96 or 128).
 // - Keys from an item's last valid one on are masked and change no output:
 //   no chunk or key tile past it is staged or multiplied.
 // - The exponentials and sums of key tile nt issue beside the PV product's
@@ -70,29 +79,38 @@
 
 namespace {
 
-constexpr int WARPS = 8;               // 16 frames each
-constexpr int THREADS = 32 * WARPS;
-constexpr int KC = 64;                 // keys per shared-memory chunk
-constexpr int NT = KC / 8;             // 8-key tiles per chunk
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_SMEM = 232448;
+
+// A block's shape at padded depth DP: KC keys per shared-memory chunk (NT
+// 8-key tiles), WARPS warps of 16 frames each.
+template <int DP> struct Shape {
+  static constexpr int KC = 64, WARPS = 8;
+};
+template <> struct Shape<192> { static constexpr int KC = 32, WARPS = 8; };
+template <> struct Shape<256> { static constexpr int KC = 16, WARPS = 8; };
 
 // 16-frame units per (batch, head): the unit of work of a warp, and of the
 // guided numerator's partial sums
 __host__ __device__ inline int units_of(int T) { return (T + 15) / 16; }
 
-// Row strides in floats for a depth padded to DP (32, 64 or 128): q and K
-// rows ≡ 16 (mod 32) banks apart, V rows 4 apart, so that the 16-byte
-// fragment reads below hit no bank twice.  Shared memory: 16 q rows per
-// warp, a chunk of K and of V split into tf32 hi and lo (keys of V
+// Row strides in floats for a depth padded to DP (32, 64, 128, 192 or
+// 256): q and K rows ≡ 16 (mod 32) banks apart, V rows 4 apart, so that the
+// 16-byte fragment reads below hit no bank twice.  Shared memory: 16 q rows
+// per warp, a chunk of K and of V split into tf32 hi and lo (keys of V
 // permuted), the chunk's key mask, two words per warp.
 template <int DP> struct Layout {
+  static constexpr int KC = Shape<DP>::KC, WARPS = Shape<DP>::WARPS;
+  static constexpr int NT = KC / 8;
+  static constexpr int THREADS = 32 * WARPS;
   static constexpr int QS = DP + 16;
   static constexpr int KS = DP + 16;
   static constexpr int VS = DP + 4;
   static constexpr size_t SMEM =
       sizeof(float) * ((size_t)16 * WARPS * QS + 2 * (size_t)KC * KS +
                        2 * (size_t)KC * VS + KC + 2 * WARPS);
+  static_assert(SMEM <= MAX_SMEM, "shared memory");
+  static_assert(NT % 2 == 0, "key tiles go to the tensor cores in pairs");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -145,20 +163,37 @@ __device__ __forceinline__ uint32_t word(const float4& v, int i) {
   return __float_as_uint(i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w);
 }
 
-// c[i] += a b[i] for 4 independent accumulators in 3xTF32: the three passes
-// (lo·hi, hi·lo, hi·hi: the small terms first) go across the accumulators,
-// so that no tensor-core instruction waits on the one before it
+// c[i] += a b[i] for N (2 or 4) independent accumulators in 3xTF32: the
+// three passes (lo·hi, hi·lo, hi·hi: the small terms first) go across the
+// accumulators, so that no tensor-core instruction waits on the one before
+// it
+template <int N>
 __device__ __forceinline__ void mma_3xtf32(float (*c)[4],
                                            const uint32_t (&ahi)[4],
                                            const uint32_t (&alo)[4],
-                                           const uint32_t (&bhi)[4][2],
-                                           const uint32_t (&blo)[4][2]) {
+                                           const uint32_t (&bhi)[N][2],
+                                           const uint32_t (&blo)[N][2]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) mma_tf32(c[i], alo, bhi[i][0], bhi[i][1]);
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], alo, bhi[i][0], bhi[i][1]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) mma_tf32(c[i], ahi, blo[i][0], blo[i][1]);
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], ahi, blo[i][0], blo[i][1]);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) mma_tf32(c[i], ahi, bhi[i][0], bhi[i][1]);
+  for (int i = 0; i < N; ++i) mma_tf32(c[i], ahi, bhi[i][0], bhi[i][1]);
+}
+
+// mma_3xtf32 with the two small passes summed apart from hi·hi: big[i] +=
+// ahi bhi[i], small[i] += alo bhi[i] + ahi blo[i]
+template <int N>
+__device__ __forceinline__ void mma_3xtf32_apart(
+    float (*big)[4], float (*small)[4], const uint32_t (&ahi)[4],
+    const uint32_t (&alo)[4], const uint32_t (&bhi)[N][2],
+    const uint32_t (&blo)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(small[i], alo, bhi[i][0], bhi[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(small[i], ahi, blo[i][0], blo[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(big[i], ahi, bhi[i][0], bhi[i][1]);
 }
 
 // cp.async rows [r0, r0 + nrows) of a (rows_total, D) matrix into dst with
@@ -189,9 +224,11 @@ __device__ __forceinline__ void stage_chunk(float* klo, float* vlo,
                                             const float* vb,
                                             const uint8_t* validb, int c0,
                                             int L, int D) {
-  stage_rows<DP>(klo, kb, c0, KC, L, D, Layout<DP>::KS, false, threadIdx.x,
+  using Lay = Layout<DP>;
+  constexpr int KC = Lay::KC, THREADS = Lay::THREADS;
+  stage_rows<DP>(klo, kb, c0, KC, L, D, Lay::KS, false, threadIdx.x,
                  THREADS);
-  stage_rows<DP>(vlo, vb, c0, KC, L, D, Layout<DP>::VS, true, threadIdx.x,
+  stage_rows<DP>(vlo, vb, c0, KC, L, D, Lay::VS, true, threadIdx.x,
                  THREADS);
   cp_async_commit();
   for (int r = threadIdx.x; r < KC; r += THREADS) {
@@ -204,8 +241,8 @@ __device__ __forceinline__ void stage_chunk(float* klo, float* vlo,
 // lo gets tf32(x - hi)
 template <int DP>
 __device__ __forceinline__ void split_rows(float* hi, float* lo, int stride) {
-  constexpr int C4 = DP / 4;
-  for (int i = threadIdx.x; i < KC * C4; i += THREADS) {
+  constexpr int C4 = DP / 4, KC = Layout<DP>::KC;
+  for (int i = threadIdx.x; i < KC * C4; i += Layout<DP>::THREADS) {
     const int off = (i / C4) * stride + 4 * (i % C4);
     const float4 x = *reinterpret_cast<const float4*>(lo + off);
     uint4 h, l;
@@ -240,17 +277,31 @@ __device__ __forceinline__ void init_rows(Rows& r, int t0, int g, int T,
   }
 }
 
-// S = Q K^T over the chunk's first `ntiles` key tiles (in steps of 4),
-// 3xTF32.  k-step 2c takes depths d0, d0 + 1 as
+// S = Q K^T over the chunk's first `ntiles` key tiles (in steps of G, 4
+// or all of a chunk's 2), 3xTF32.  k-step 2c takes depths d0, d0 + 1 as
 // k slots t, t + 4, k-step 2c + 1 depths d0 + 2, d0 + 3 (d0 = 16 c + 4 t):
-// one float4 of q, of K hi and of K lo per lane and key tile.
+// one float4 of q, of K hi and of K lo per lane and key tile.  Past DP 128
+// the small passes (lo·hi, hi·lo) are summed apart and added to hi·hi at
+// the end, as the 3xTF32 plain version groups them: a chain of 3·DP/8
+// tensor-core sums into one score drifts from either plain version by more
+// than the f32 tolerances allow at DP 192 and 256 (up to 8.9e-6 against the
+// 3xTF32 one at DP 192, L 1000, where DP 128 stays within 5e-6).  Up to DP
+// 128 the one chain stays: summed apart there, the kernel at the training
+// shape took 0.1712 and 0.1722 ms against 0.1694 and 0.1688 (one call on an
+// H100, chip_smoke.py's timing).
 template <int DP>
-__device__ __forceinline__ void qk_product(float (&s)[NT][4],
+__device__ __forceinline__ void qk_product(float (&s)[Layout<DP>::NT][4],
                                            const float* q0, const float* q1,
                                            const float* khi, const float* klo,
                                            int g, int tq, int ntiles) {
+  constexpr int NT = Layout<DP>::NT, G = NT < 4 ? NT : 4;
+  constexpr bool APART = DP > 128;
+  float small[APART ? NT : 1][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < (APART ? NT : 1); ++nt)
+    small[nt][0] = small[nt][1] = small[nt][2] = small[nt][3] = 0.f;
 #pragma unroll
   for (int c = 0; c < DP / 16; ++c) {
     const int d0 = 16 * c + 4 * tq;
@@ -264,11 +315,11 @@ __device__ __forceinline__ void qk_product(float (&s)[NT][4],
       split4(a1, ah[1], al[1]);
     }
 #pragma unroll
-    for (int n0 = 0; n0 < NT; n0 += 4) {
+    for (int n0 = 0; n0 < NT; n0 += G) {
       if (n0 >= ntiles) break;
-      uint32_t bh[2][4][2], bl[2][4][2];
+      uint32_t bh[2][G][2], bl[2][G][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < G; ++i) {
         const int off = (8 * (n0 + i) + g) * Layout<DP>::KS + d0;
         const float4 h4 = *reinterpret_cast<const float4*>(khi + off);
         const float4 l4 = *reinterpret_cast<const float4*>(klo + off);
@@ -278,15 +329,27 @@ __device__ __forceinline__ void qk_product(float (&s)[NT][4],
           bl[j >> 1][i][j & 1] = word(l4, j);
         }
       }
-      mma_3xtf32(s + n0, ah[0], al[0], bh[0], bl[0]);
-      mma_3xtf32(s + n0, ah[1], al[1], bh[1], bl[1]);
+      if constexpr (APART) {
+        mma_3xtf32_apart<G>(s + n0, small + n0, ah[0], al[0], bh[0], bl[0]);
+        mma_3xtf32_apart<G>(s + n0, small + n0, ah[1], al[1], bh[1], bl[1]);
+      } else {
+        mma_3xtf32<G>(s + n0, ah[0], al[0], bh[0], bl[0]);
+        mma_3xtf32<G>(s + n0, ah[1], al[1], bh[1], bl[1]);
+      }
     }
+  }
+  if constexpr (APART) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] += small[nt][e];
   }
 }
 
 // Scale and mask the chunk's scores and fold them into the running max and
 // argmax (first index among equal maxima, whatever the order of chunks);
 // returns the factor exp(m_old - m) for the sums and the output.
+template <int NT>
 __device__ __forceinline__ void chunk_max(float (&s)[NT][4], Rows& r,
                                           float (&alpha)[2],
                                           const float* kval, int c0, int tq,
@@ -336,11 +399,11 @@ __device__ __forceinline__ void chunk_max(float (&s)[NT][4], Rows& r,
 // a row store 64 contiguous bytes.
 template <int DP>
 __device__ __forceinline__ void exp_pv_product(
-    float (&o)[DP / 8][4], const float (&s)[NT][4], Rows& r,
+    float (&o)[DP / 8][4], const float (&s)[Layout<DP>::NT][4], Rows& r,
     const float* kval, const float* vhi, const float* vlo, int c0, int g,
     int tq, int ntiles, bool guided, float ilen, float inv_ilen,
     float inv_2s2) {
-  constexpr int NJ = DP / 8, VS = Layout<DP>::VS;
+  constexpr int NJ = DP / 8, VS = Layout<DP>::VS, NT = Layout<DP>::NT;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     if (nt >= ntiles) break;
@@ -376,7 +439,7 @@ __device__ __forceinline__ void exp_pv_product(
         bl[i][0] = word(l0, i);
         bl[i][1] = word(l1, i);
       }
-      mma_3xtf32(o + 4 * f, ph, pl, bh, bl);
+      mma_3xtf32<4>(o + 4 * f, ph, pl, bh, bl);
     }
   }
 }
@@ -459,9 +522,11 @@ struct Args {
 // all where L <= KC).  Each warp loads its next unit's q while it finishes
 // the current one, and its stores drain during the next round.
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(Layout<DP>::THREADS, 1)
 alignment_kernel(const Args a, int total_units) {
   using Lay = Layout<DP>;
+  constexpr int KC = Lay::KC, NT = Lay::NT, WARPS = Lay::WARPS;
+  constexpr int THREADS = Lay::THREADS;
   extern __shared__ __align__(16) float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -583,7 +648,6 @@ __global__ void gnum_reduce_kernel(const float* __restrict__ partial,
 template <int DP>
 cudaError_t launch(const Args& a, int B, cudaStream_t s) {
   constexpr size_t smem = Layout<DP>::SMEM;
-  static_assert(smem <= MAX_SMEM, "shared memory");
   const int units = B * a.H * units_of(a.T);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -594,7 +658,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  alignment_kernel<DP><<<min(sms, units), THREADS, smem, s>>>(a, units);
+  alignment_kernel<DP><<<min(sms, units), Layout<DP>::THREADS, smem, s>>>(
+      a, units);
   return cudaGetLastError();
 }
 
@@ -604,15 +669,17 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
 // (B, units).
 extern "C" int alignment_attention_tiles(int T) { return units_of(T); }
 
-// Dynamic shared memory of the kernels that a head dim D runs.
+// Dynamic shared memory of the kernel that a head dim D runs.
 extern "C" int alignment_attention_smem_bytes(int D) {
-  return static_cast<int>(D <= 32   ? Layout<32>::SMEM
-                          : D <= 64 ? Layout<64>::SMEM
-                                    : Layout<128>::SMEM);
+  return static_cast<int>(D <= 32    ? Layout<32>::SMEM
+                          : D <= 64  ? Layout<64>::SMEM
+                          : D <= 128 ? Layout<128>::SMEM
+                          : D <= 192 ? Layout<192>::SMEM
+                                     : Layout<256>::SMEM);
 }
 
 // q, out (B, H, T, D), k, v (B, H, L, D): contiguous f32, 16-byte aligned,
-// D a multiple of 4 up to 128, any L >= 1; key_valid (B, L) one byte per
+// D a multiple of 4 up to 256, any L >= 1; key_valid (B, L) one byte per
 // key; src_lens, mel_lens (B,) int32; idx (B, T) int32, partial
 // (B, units_of(T)) f32 scratch, gnum (B,) f32.  Returns the cudaError_t of
 // the launches.
@@ -622,7 +689,7 @@ extern "C" int alignment_attention_forward(
     void* partial, void* gnum, int B, int H, int T, int L, int D,
     float inv_sqrt_d, float two_sigma2, void* stream) {
   if (B == 0) return 0;
-  if (H < 1 || T < 1 || L < 1 || D < 4 || D > 128 || D % 4 != 0 ||
+  if (H < 1 || T < 1 || L < 1 || D < 4 || D > 256 || D % 4 != 0 ||
       H > 65535 || B > 65535 ||
       (long long)B * H * units_of(T) > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -634,9 +701,11 @@ extern "C" int alignment_attention_forward(
                static_cast<const int*>(mel_lens), static_cast<float*>(out),
                static_cast<int*>(idx), static_cast<float*>(partial), H, T, L,
                D, inv_sqrt_d, 1.f / two_sigma2};
-  cudaError_t err = D <= 32   ? launch<32>(a, B, s)
-                    : D <= 64 ? launch<64>(a, B, s)
-                              : launch<128>(a, B, s);
+  cudaError_t err = D <= 32    ? launch<32>(a, B, s)
+                    : D <= 64  ? launch<64>(a, B, s)
+                    : D <= 128 ? launch<128>(a, B, s)
+                    : D <= 192 ? launch<192>(a, B, s)
+                               : launch<256>(a, B, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   gnum_reduce_kernel<<<(B + 127) / 128, 128, 0, s>>>(
       static_cast<const float*>(partial), static_cast<float*>(gnum), B,

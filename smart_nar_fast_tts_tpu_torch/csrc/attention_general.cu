@@ -1,6 +1,7 @@
 // Attention at any head dim: the general paths of the flash and alignment
-// kernels, for the head dims their tensor-core kernels do not take (D > 128;
-// below 128 the wrappers zero-pad D instead, which is exact).
+// kernels, for the head dims their tensor-core kernels do not take (D > 256;
+// up to 256 the wrappers zero-pad D to a tensor-core width instead, which is
+// exact).  No shipped configuration has a head dim past 256.
 //
 // Replaces, at those widths, the TPU kernels `_flash_kernel` /
 // `_flash_forward` of smart_nar_fast_tts_tpu/ops/pallas/attention.py and
@@ -22,7 +23,7 @@
 // softmax; a row with no valid key writes 0 and, for the argmax, index 0.
 //
 // Bound on the H100: operations, 4·B·H·Lq·Lk·D multiply-adds counted twice
-// (at (8, 2, 4096, 192) 206 GFLOP, 0.21 ms at the bf16 tensor-core rate).
+// (at (8, 2, 4096, 320) ~340 GFLOP, ~0.35 ms at the bf16 tensor-core rate).
 // This kernel is the simple first version: CUDA-core f32 FMAs on operands
 // already rounded (a product of two bf16 values is exact in f32, so only
 // the order of the sums differs from a tensor-core product).  Design:

@@ -31,22 +31,34 @@
 //    the first tile is peeled off the loop, so that both products are
 //    issued on every pass;
 //  * a producer warpgroup gives its registers to the consumers (setmaxnreg
-//    24 / 240); one of its warps keeps a 3-stage ring of bf16 K and V tiles
-//    (128 keys) in shared memory filled by TMA (`cp.async.bulk.tensor`,
-//    128-byte swizzle, completion on an mbarrier); a stage is released
-//    through a second mbarrier once its P V product is done;
+//    24 / 240); one of its warps keeps a ring of bf16 K and V tiles in
+//    shared memory filled by TMA (`cp.async.bulk.tensor`, 128-byte swizzle,
+//    completion on an mbarrier); a stage is released through a second
+//    mbarrier once its P V product is done;
+//  * the key tile and the ring's depth follow the head dim (struct Tiling):
+//    128 keys and 3 stages at D 64 and 128; at D 192 and 256 the q tiles
+//    (48 or 64 KB) and a ring of 128-key tiles would not fit in a block's
+//    227 KB, so the tile is 64 keys, with 3 stages at D 192 (192 KB) and 2
+//    at D 256 (192 KB).  The accumulators then take 64·D/128 registers a
+//    consumer thread for O (96 or 128) and 32 for S, P V is one m64n192k16
+//    or m64n256k16 instruction per 16 keys, and Q K^T takes 12 or 16
+//    k-steps over 3 or 4 swizzled slabs;
 //  * a key tile with no valid key for the block's item is skipped by every
 //    warp alike: such a tile would give alpha = 1 and p = 0, so skipping it
 //    changes no bit.  The block first writes each tile's valid-key words to
-//    shared memory (warp ballots, all loads in flight at once, while the
-//    consumers' q loads are in flight too); every warp reads them there.
-//    They take 16 bytes a tile beside the q tiles and the ring (225 KB),
-//    which bounds Lk at 16,000 keys at D 128 (the model's longest: 8192);
+//    shared memory (warp ballots, all loads in flight at once, while up to
+//    D 128 the consumers' q loads are in flight too; past it q is stored
+//    first, since 64·D/128 values a thread held across the build spilled);
+//    every warp reads them there.
+//    They take one bit a key (16 bytes a 128-key tile) beside the q tiles
+//    and the ring, which bounds Lk at 16,000 keys at D 128 (225 KB before
+//    the masks) and at 278,000 at D 192 and 256 (the model's longest: 8192);
 //  * f32 inputs (the model's case) first pass through `kv_to_bf16_kernel`,
 //    which rounds k and v to bf16 into scratch the caller allocates (only
-//    the tiles that hold a valid key: 12 bytes per element read and
-//    written), so TMA reads bf16 tiles; q is scaled, rounded and stored
-//    swizzled by the consumers themselves, once per block;
+//    the 128-key tiles that hold a valid key, so every attention tile that
+//    is read: 12 bytes per element read and written), so TMA reads bf16
+//    tiles; q is scaled, rounded and stored swizzled by the consumers
+//    themselves, once per block;
 //  * the ragged edges of Lq and Lk are masked in the kernel (TMA fills keys
 //    past Lk with zeros, rows past Lq are computed and not stored): no
 //    padding copies.
@@ -68,8 +80,7 @@
 namespace {
 
 constexpr int BM = 128;                  // query rows per block
-constexpr int BN = 128;                  // keys per tile
-constexpr int STAGES = 3;                // K/V tiles in flight
+constexpr int CONVERT_TILE = 128;        // keys per block of kv_to_bf16
 constexpr int CONSUMERS = 256;           // two warpgroups of 64 rows
 constexpr int THREADS = CONSUMERS + 128; // and a producer warpgroup
 constexpr int ROW_BYTES = 128;           // a swizzled row: 64 bf16
@@ -79,12 +90,24 @@ constexpr int ENCODE_FAILED = -1;        // status: no tensor map
 constexpr int TOO_MANY_KEYS = -2;        // status: masks exceed shared memory
 constexpr int MAX_SMEM = 232448;         // a block's shared memory on sm_90
 
+// The key tile (BN keys) and the ring's depth (STAGES tiles) of head dim D:
+// as many stages of the widest tile as fit beside the q tiles.
+template <int D> struct Tiling { static constexpr int BN = 128, STAGES = 3; };
+template <> struct Tiling<192> { static constexpr int BN = 64, STAGES = 3; };
+template <> struct Tiling<256> { static constexpr int BN = 64, STAGES = 2; };
+
+// A key tile's valid-key words: bit j of w[c] is key 32 c + j of the tile.
+template <int BN>
+struct alignas(BN / 8) KeyWords {
+  uint32_t w[BN / 32];
+};
+
 // Shared memory, from a 1024-byte aligned base: each warpgroup's q tile,
 // then the K ring, the V ring, the mbarriers and each key tile's valid-key
-// words (16 bytes a tile, sized at launch).  Every tile is stored as
+// words (BN / 8 bytes a tile, sized at launch).  Every tile is stored as
 // D / 64 slabs of 64 columns, one 128-byte row per key (or query row), with
 // the 16-byte chunks of row r XOR-ed by r % 8 (TMA's 128-byte swizzle).
-template <int D>
+template <int D, int BN, int STAGES>
 struct Smem {
   static constexpr int SLABS = D / 64;
   static constexpr int Q_WG = 64 * D * 2;            // one warpgroup's q
@@ -96,6 +119,9 @@ struct Smem {
   static constexpr int BARS = V + STAGES * TILE;
   static constexpr int MASKS = BARS + 2 * STAGES * 8;
   static constexpr int BYTES = MASKS + 1024;  // + alignment; + the masks
+  static constexpr int MASK_BYTES = BN / 8;   // a key tile's words
+  static_assert(MASKS % 16 == 0, "the masks' alignment");
+  static_assert(BYTES + MASK_BYTES <= MAX_SMEM, "shared memory");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -182,69 +208,98 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define ACC32 ACC8(0), ACC8(8), ACC8(16), ACC8(24)
 #define ACC64 ACC32, ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-#define REGS32                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+#define ACC96 ACC64, ACC8(64), ACC8(72), ACC8(80), ACC8(88)
+#define ACC128 ACC96, ACC8(96), ACC8(104), ACC8(112), ACC8(120)
+#define LIST32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31}"
-#define REGS64                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%30, %31"
+#define LIST64                                                            \
+  LIST32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
-  "%58, %59, %60, %61, %62, %63}"
+  "%58, %59, %60, %61, %62, %63"
+#define LIST96                                                            \
+  LIST64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95"
+#define LIST128                                                           \
+  LIST96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "     \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, "    \
+  "%117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 
-// d (64 x 128, f32) = or += A (64 x 16) B (16 x 128): A and B^T K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
+// d (64 x N, f32) = or += A (64 x 16) B (16 x N): A and B^T K-major in
+// shared memory; N = 128 or 64 keys.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int accumulate) {
   asm volatile(
       "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", %64, %65, p, 1, 1, 0, 0;\n\t}"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LIST64
+      "}, %64, %65, p, 1, 1, 0, 0;\n\t}"
       : ACC64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LIST32
+      "}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : ACC32
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d (64 x N, f32) += A (64 x 16, bf16 pairs in registers) B (16 x N): B
-// N-major in shared memory (transposed by the instruction).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t b) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %69, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n\t}"
-      : ACC64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// N-major in shared memory (transposed by the instruction); N = D.
+// A_REGS: the operand numbers of A's four registers, B's descriptor and
+// the scale-d flag, which follow the accumulators.
+#define WGMMA_RS(N, ACC, LIST, A_REGS, B_REG, P_REG)                      \
+  asm volatile(                                                           \
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, " P_REG ", 0;\n\t"             \
+      "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" LIST   \
+      "}, {" A_REGS "}, " B_REG ", p, 1, 1, 1;\n\t}"                       \
+      : ACC                                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t b) {
-  asm volatile(
-      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
-      : ACC32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  WGMMA_RS(64, ACC32, LIST32, "%32, %33, %34, %35", "%36", "%37");
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
+                                         uint64_t b) {
+  WGMMA_RS(128, ACC64, LIST64, "%64, %65, %66, %67", "%68", "%69");
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[96], const uint32_t* a,
+                                         uint64_t b) {
+  WGMMA_RS(192, ACC96, LIST96, "%96, %97, %98, %99", "%100", "%101");
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t* a,
+                                         uint64_t b) {
+  WGMMA_RS(256, ACC128, LIST128, "%128, %129, %130, %131", "%132", "%133");
 }
 
+#undef WGMMA_RS
 #undef ACC8
 #undef ACC32
 #undef ACC64
-#undef REGS32
-#undef REGS64
+#undef ACC96
+#undef ACC128
+#undef LIST32
+#undef LIST64
+#undef LIST96
+#undef LIST128
 
-// O += P V over a tile's 128 keys in steps of 16 (issued and committed, not
+// O += P V over a tile's BN keys in steps of 16 (issued and committed, not
 // waited for): V is the N-major B operand, 8-key groups 1024 bytes apart,
 // 64-column slabs TILE_SLAB apart.
-template <int D>
+template <int D, int BN, int STAGES>
 __device__ __forceinline__ void pv_product(float (&o)[D / 2],
-                                           const uint32_t (&pa)[32],
+                                           const uint32_t (&pa)[BN / 4],
                                            uint32_t v_smem) {
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk)
     wgmma_rs(o, pa + 4 * kk,
-             wgmma_desc(v_smem + kk * 16 * ROW_BYTES, Smem<D>::TILE_SLAB,
-                        1024));
+             wgmma_desc(v_smem + kk * 16 * ROW_BYTES,
+                        Smem<D, BN, STAGES>::TILE_SLAB, 1024));
   wgmma_commit();
 }
 
@@ -274,27 +329,28 @@ __device__ __forceinline__ void tile_mask(const uint8_t* valid_b, int Lk,
 
 // Every key tile's words into masks[t]: warp w takes tiles w, w + WARPS, ...,
 // four at a time with all their loads in flight before the ballots.
+template <int BN>
 __device__ __forceinline__ void build_masks(const uint8_t* valid_b, int Lk,
                                             int n_tiles, int warp, int lane,
-                                            uint4* masks) {
-  constexpr int WARPS = THREADS / 32;
+                                            KeyWords<BN>* masks) {
+  constexpr int WARPS = THREADS / 32, W = BN / 32;
   for (int t0 = warp; t0 < n_tiles; t0 += 4 * WARPS) {
-    bool ok[4][4];
+    bool ok[4][W];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < W; ++c) {
         const int key = (t0 + u * WARPS) * BN + 32 * c + lane;
         ok[u][c] = key < Lk && valid_b[key] != 0;
       }
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      uint32_t w[4];
+      KeyWords<BN> words;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) w[c] = __ballot_sync(0xffffffffu, ok[u][c]);
-      if (lane == 0 && t0 + u * WARPS < n_tiles)
-        masks[t0 + u * WARPS] = make_uint4(w[0], w[1], w[2], w[3]);
+      for (int c = 0; c < W; ++c)
+        words.w[c] = __ballot_sync(0xffffffffu, ok[u][c]);
+      if (lane == 0 && t0 + u * WARPS < n_tiles) masks[t0 + u * WARPS] = words;
     }
   }
 }
@@ -324,17 +380,21 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // One warpgroup's 64 query rows from row0 in two steps, so that other work
-// overlaps the loads: load_q reads them (rows past Lq are zeros), store_q
-// writes bf16(q * scale) swizzled at dst.
+// can overlap the loads: load_q reads chunks g .. g + G - 1 of a thread's
+// (rows past Lq are zeros), store_q writes them as bf16(q * scale) swizzled
+// at dst.  Up to D 192 a thread's chunks are loaded at once; at D 256 in
+// two halves (128 values in flight would spill).
 template <int D>
 constexpr int Q_CHUNKS = 64 * (D / 8) / 128;   // 8-column chunks a thread
+template <int D>
+constexpr int Q_GROUP = D > 192 ? Q_CHUNKS<D> / 2 : Q_CHUNKS<D>;
 
-template <int D, typename T>
+template <int D, int G, typename T>
 __device__ __forceinline__ void load_q(const T* q_bh, int Lq, int row0,
-                                       int wl, float (&x)[Q_CHUNKS<D>][8]) {
+                                       int wl, int g, float (&x)[G][8]) {
 #pragma unroll
-  for (int i = 0; i < Q_CHUNKS<D>; ++i) {
-    const int c = wl + 128 * i, r = c / (D / 8), j = c % (D / 8);
+  for (int i = 0; i < G; ++i) {
+    const int c = wl + 128 * (g + i), r = c / (D / 8), j = c % (D / 8);
     if (row0 + r < Lq) {
       load8(q_bh + (size_t)(row0 + r) * D + 8 * j, x[i]);
     } else {
@@ -344,42 +404,44 @@ __device__ __forceinline__ void load_q(const T* q_bh, int Lq, int row0,
   }
 }
 
-template <int D>
-__device__ __forceinline__ void store_q(const float (&x)[Q_CHUNKS<D>][8],
-                                        uint8_t* dst, int wl, float scale) {
+template <int D, int G>
+__device__ __forceinline__ void store_q(const float (&x)[G][8], uint8_t* dst,
+                                        int wl, int g, float scale) {
 #pragma unroll
-  for (int i = 0; i < Q_CHUNKS<D>; ++i) {
-    const int c = wl + 128 * i, r = c / (D / 8), j = c % (D / 8);
+  for (int i = 0; i < G; ++i) {
+    const int c = wl + 128 * (g + i), r = c / (D / 8), j = c % (D / 8);
     uint4 u;
     u.x = bf16x2(x[i][0] * scale, x[i][1] * scale);
     u.y = bf16x2(x[i][2] * scale, x[i][3] * scale);
     u.z = bf16x2(x[i][4] * scale, x[i][5] * scale);
     u.w = bf16x2(x[i][6] * scale, x[i][7] * scale);
-    *reinterpret_cast<uint4*>(dst + (j / 8) * Smem<D>::Q_SLAB
+    *reinterpret_cast<uint4*>(dst + (j / 8) * 64 * ROW_BYTES
                               + r * ROW_BYTES + ((j % 8) ^ (r % 8)) * 16) = u;
   }
 }
 
-// One tile's online softmax for a thread's two rows (a row's 128 scores
+// One tile's online softmax for a thread's two rows (a row's BN scores
 // sit in the four lanes of a quad): an invalid key's score is -1e30 (if
 // MASKED), m and l move on, alpha = exp(m_old - m_new), and p = exp(s - m)
 // in f32 is summed into l and rounded to bf16 pairs in the A layout of
 // m64n*k16: keys 16 kk .. 16 kk + 15 in pn[4 kk .. 4 kk + 3].
-template <bool MASKED>
-__device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
-                                             int quad, float& m0, float& m1,
+template <bool MASKED, int BN>
+__device__ __forceinline__ void tile_softmax(const float (&sc)[BN / 2],
+                                             const KeyWords<BN>& w, int quad,
+                                             float& m0, float& m1,
                                              float& l0, float& l1,
                                              float& alpha0, float& alpha1,
-                                             uint32_t (&pn)[32]) {
-  const uint32_t wq[4] = {w.x >> (2 * quad), w.y >> (2 * quad),
-                          w.z >> (2 * quad), w.w >> (2 * quad)};
+                                             uint32_t (&pn)[BN / 4]) {
+  uint32_t wq[BN / 32];
+#pragma unroll
+  for (int c = 0; c < BN / 32; ++c) wq[c] = w.w[c] >> (2 * quad);
   auto score = [&](int i) {
     return !MASKED || ((wq[i / 16] >> (8 * (i / 4 % 4) + i % 2)) & 1u)
                ? sc[i] : NEG_INF;
   };
   float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < BN / 8; ++i) {
     mx0 = fmaxf(mx0, fmaxf(score(4 * i), score(4 * i + 1)));
     mx1 = fmaxf(mx1, fmaxf(score(4 * i + 2), score(4 * i + 3)));
   }
@@ -395,7 +457,7 @@ __device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
   const float ms0 = mn0 * LOG2E, ms1 = mn1 * LOG2E;
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {   // an invalid key's -1e30 gives p = 0
+  for (int i = 0; i < BN / 8; ++i) {   // an invalid key's -1e30 gives p = 0
     const float p0 = exp2_approx(fmaf(score(4 * i), LOG2E, -ms0));
     const float p1 = exp2_approx(fmaf(score(4 * i + 1), LOG2E, -ms0));
     const float p2 = exp2_approx(fmaf(score(4 * i + 2), LOG2E, -ms1));
@@ -410,44 +472,53 @@ __device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
 }
 
 // tile_softmax for a tile with any keys masked, or with none
-__device__ __forceinline__ void tile_softmax(const float (&sc)[64], uint4 w,
-                                             int quad, float& m0, float& m1,
+template <int BN>
+__device__ __forceinline__ void tile_softmax(const float (&sc)[BN / 2],
+                                             const KeyWords<BN>& w, int quad,
+                                             float& m0, float& m1,
                                              float& l0, float& l1,
                                              float& alpha0, float& alpha1,
-                                             uint32_t (&pn)[32]) {
-  if ((w.x & w.y & w.z & w.w) == 0xffffffffu)
-    tile_softmax<false>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+                                             uint32_t (&pn)[BN / 4]) {
+  uint32_t all = 0xffffffffu;
+#pragma unroll
+  for (int c = 0; c < BN / 32; ++c) all &= w.w[c];
+  if (all == 0xffffffffu)
+    tile_softmax<false, BN>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
   else
-    tile_softmax<true>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+    tile_softmax<true, BN>(sc, w, quad, m0, m1, l0, l1, alpha0, alpha1, pn);
 }
 
-__device__ __forceinline__ bool any_key(uint4 w) {
-  return (w.x | w.y | w.z | w.w) != 0;
+template <int BN>
+__device__ __forceinline__ bool any_key(const KeyWords<BN>& w) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int c = 0; c < BN / 32; ++c) any |= w.w[c];
+  return any != 0;
 }
 
 // S = (q scale) K^T for the tile in ring stage n % STAGES, once it has
 // arrived (issued and committed, not waited for): over D in steps of 16;
 // within a 64-column slab the start address moves 32 bytes a step, and
 // 8-row groups are 1024 bytes apart.
-template <int D>
-__device__ __forceinline__ void s_product(float (&sc)[64], uint32_t q_smem,
-                                          uint32_t k_smem, uint32_t full,
-                                          int n) {
+template <int D, int BN, int STAGES>
+__device__ __forceinline__ void s_product(float (&sc)[BN / 2],
+                                          uint32_t q_smem, uint32_t k_smem,
+                                          uint32_t full, int n) {
+  using S = Smem<D, BN, STAGES>;
   mbar_wait(full + 8 * (n % STAGES), (n / STAGES) & 1);
   __syncwarp();                                // wgmma needs whole warps
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
-    wgmma_ss_n128(
-        sc, wgmma_desc(q_smem + (kk / 4) * Smem<D>::Q_SLAB + off, 16, 1024),
-        wgmma_desc(k_smem + (kk / 4) * Smem<D>::TILE_SLAB + off, 16, 1024),
-        kk > 0);
+    wgmma_ss(sc, wgmma_desc(q_smem + (kk / 4) * S::Q_SLAB + off, 16, 1024),
+             wgmma_desc(k_smem + (kk / 4) * S::TILE_SLAB + off, 16, 1024),
+             kk > 0);
   }
   wgmma_commit();
 }
 
-template <int D, typename T>
+template <int D, int BN, int STAGES, typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
@@ -455,7 +526,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
                        const uint8_t* __restrict__ key_valid,
                        T* __restrict__ out, int H, int Lq, int Lk,
                        float scale) {
-  using S = Smem<D>;
+  using S = Smem<D, BN, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -468,15 +539,29 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
   const int bh = blockIdx.y;
   const uint8_t* valid_b = key_valid + (size_t)(bh / H) * Lk;
   const int n_tiles = (Lk + BN - 1) / BN;
-  uint4* masks = reinterpret_cast<uint4*>(base_ptr + S::MASKS);
+  KeyWords<BN>* masks = reinterpret_cast<KeyWords<BN>*>(base_ptr + S::MASKS);
 
-  // the consumers: warpgroup wg owns query rows q0 .. q0 + 63; their q
-  // loads are in flight while every warp builds the key tiles' masks
+  // the consumers: warpgroup wg owns query rows q0 .. q0 + 63.  Up to D
+  // 128 their q loads are in flight while every warp builds the key tiles'
+  // masks; past it q is stored first, since its registers would spill
+  // across the mask build (before setmaxnreg a thread has 168)
   const int wg = warp / 4, wl = tid % 128;
   const int q0 = blockIdx.x * BM + 64 * wg;
-  float x[Q_CHUNKS<D>][8];
-  if (warp < CONSUMERS / 32) load_q<D>(q + (size_t)bh * Lq * D, Lq, q0, wl, x);
-  build_masks(valid_b, Lk, n_tiles, warp, lane, masks);
+  const T* q_bh = q + (size_t)bh * Lq * D;
+  constexpr int QG = Q_GROUP<D>;
+  float x[QG][8];
+  if (warp < CONSUMERS / 32) {
+    load_q<D, QG>(q_bh, Lq, q0, wl, 0, x);
+    if constexpr (D > 128) {
+      store_q<D, QG>(x, base_ptr + wg * S::Q_WG, wl, 0, scale);
+#pragma unroll
+      for (int g = QG; g < Q_CHUNKS<D>; g += QG) {
+        load_q<D, QG>(q_bh, Lq, q0, wl, g, x);
+        store_q<D, QG>(x, base_ptr + wg * S::Q_WG, wl, g, scale);
+      }
+    }
+  }
+  build_masks<BN>(valid_b, Lk, n_tiles, warp, lane, masks);
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
@@ -515,7 +600,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
   asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
   const int quad = lane % 4;
   const uint32_t q_smem = base + wg * S::Q_WG;
-  store_q<D>(x, base_ptr + wg * S::Q_WG, wl, scale);
+  if constexpr (D <= 128)
+    store_q<D, QG>(x, base_ptr + wg * S::Q_WG, wl, 0, scale);
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   named_sync(1 + wg, 128);
 
@@ -532,12 +618,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
   // next P put in place.  The first tile is peeled off, so that the loop
   // issues both products every time (a product issued on one branch only
   // would make the compiler copy accumulators while it runs).
-  uint32_t pa[32];
+  uint32_t pa[BN / 4];
   int n = 0, t = 0;
   while (t < n_tiles && !any_key(masks[t])) ++t;
   if (t < n_tiles) {
-    float sc[64];
-    s_product<D>(sc, q_smem, base + S::K, full, 0);
+    float sc[BN / 2];
+    s_product<D, BN, STAGES>(sc, q_smem, base + S::K, full, 0);
     wgmma_wait<0>();
     pin(sc);
     float alpha0, alpha1;
@@ -546,11 +632,12 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
     for (n = 1, ++t; t < n_tiles; ++t) {
       if (!any_key(masks[t])) continue;
       const int s = n % STAGES;
-      s_product<D>(sc, q_smem, base + S::K + s * S::TILE, full, n);
-      pv_product<D>(o, pa, v_prev);
+      s_product<D, BN, STAGES>(sc, q_smem, base + S::K + s * S::TILE, full,
+                               n);
+      pv_product<D, BN, STAGES>(o, pa, v_prev);
       wgmma_wait<1>();                         // S is done, P V runs on
       pin(sc);
-      uint32_t pn[32];
+      uint32_t pn[BN / 4];
       tile_softmax(sc, masks[t], quad, m0, m1, l0, l1, alpha0, alpha1, pn);
       wgmma_wait<0>();                         // tile n - 1's P V is done
       pin(o);
@@ -564,11 +651,11 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
         o[4 * i + 3] *= alpha1;
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) pa[i] = pn[i];
+      for (int i = 0; i < BN / 4; ++i) pa[i] = pn[i];
       v_prev = base + S::V + s * S::TILE;
       ++n;
     }
-    pv_product<D>(o, pa, v_prev);              // the last tile's P V
+    pv_product<D, BN, STAGES>(o, pa, v_prev);  // the last tile's P V
     wgmma_wait<0>();
     pin(o);
     pin(pa);
@@ -597,21 +684,22 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
-// k and v (B H, Lk, D) f32 -> bf16 scratch, for the key tiles that hold a
-// valid key of their item (the only tiles the attention kernel reads).
+// k and v (B H, Lk, D) f32 -> bf16 scratch, for the 128-key tiles that
+// hold a valid key of their item (an attention tile of 128 or 64 keys that
+// the attention kernel reads lies in one of them).
 template <int D>
 __global__ void __launch_bounds__(256)
 kv_to_bf16_kernel(const float* __restrict__ k, const float* __restrict__ v,
                   const uint8_t* __restrict__ key_valid,
                   __nv_bfloat16* __restrict__ k16,
                   __nv_bfloat16* __restrict__ v16, int H, int Lk) {
-  const int key0 = blockIdx.x * BN, bh = blockIdx.y;
+  const int key0 = blockIdx.x * CONVERT_TILE, bh = blockIdx.y;
   uint32_t w[4];
   tile_mask(key_valid + (size_t)(bh / H) * Lk, Lk, key0, threadIdx.x % 32,
             w);
   if ((w[0] | w[1] | w[2] | w[3]) == 0) return;
   const size_t off = ((size_t)bh * Lk + key0) * D;
-  const int chunks = min(BN, Lk - key0) * D / 8;
+  const int chunks = min(CONVERT_TILE, Lk - key0) * D / 8;
   for (int c = threadIdx.x; c < chunks; c += 256) {
     float x[8];
     uint4 u;
@@ -652,14 +740,15 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A TMA map of a (BH, Lk, D) bf16 tensor in boxes of 128 keys x 64 columns
+// A TMA map of a (BH, Lk, D) bf16 tensor in boxes of BN keys x 64 columns
 // with the 128-byte swizzle; keys past Lk read as zeros.
-bool encode(CUtensorMap* map, const void* base, int D, int Lk, int BH) {
+bool encode(CUtensorMap* map, const void* base, int D, int Lk, int BH,
+            int BN) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Lk, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Lk * D * 2};
-  const cuuint32_t box[3] = {64, BN, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)BN, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, unit,
@@ -668,37 +757,47 @@ bool encode(CUtensorMap* map, const void* base, int D, int Lk, int BH) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The attention kernel's dynamic shared memory at head dim D and Lk keys.
+template <int D>
+int smem_bytes(int Lk) {
+  constexpr int BN = Tiling<D>::BN;
+  using S = Smem<D, BN, Tiling<D>::STAGES>;
+  return S::BYTES + S::MASK_BYTES * ((Lk + BN - 1) / BN);
+}
+
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v,
            const uint8_t* key_valid, void* out, void* kv_scratch, int B,
            int H, int Lq, int Lk, float scale, cudaStream_t stream) {
+  constexpr int BN = Tiling<D>::BN, STAGES = Tiling<D>::STAGES;
   const void* k16 = k;
   const void* v16 = v;
   if (std::is_same<T, float>::value) {
     __nv_bfloat16* s = static_cast<__nv_bfloat16*>(kv_scratch);
     k16 = s;
     v16 = s + (size_t)B * H * Lk * D;
-    kv_to_bf16_kernel<D><<<dim3((Lk + BN - 1) / BN, B * H), 256, 0,
-                           stream>>>(
+    kv_to_bf16_kernel<D><<<dim3((Lk + CONVERT_TILE - 1) / CONVERT_TILE,
+                                B * H), 256, 0, stream>>>(
         static_cast<const float*>(k), static_cast<const float*>(v),
         key_valid, s, s + (size_t)B * H * Lk * D, H, Lk);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   CUtensorMap k_map, v_map;
-  if (!encode(&k_map, k16, D, Lk, B * H) || !encode(&v_map, v16, D, Lk, B * H))
+  if (!encode(&k_map, k16, D, Lk, B * H, BN) ||
+      !encode(&v_map, v16, D, Lk, B * H, BN))
     return ENCODE_FAILED;
-  const int smem = Smem<D>::BYTES + 16 * ((Lk + BN - 1) / BN);
+  const int smem = smem_bytes<D>(Lk);
   if (smem > MAX_SMEM) return TOO_MANY_KEYS;
   static int allowed = 0;               // the largest size granted so far
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<D, T>,
+        flash_attention_kernel<D, BN, STAGES, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     allowed = smem;
   }
-  flash_attention_kernel<D, T>
+  flash_attention_kernel<D, BN, STAGES, T>
       <<<dim3((Lq + BM - 1) / BM, B * H), THREADS, smem, stream>>>(
           k_map, v_map, static_cast<const T*>(q), key_valid,
           static_cast<T*>(out), H, Lq, Lk, scale);
@@ -709,9 +808,10 @@ int launch(const void* q, const void* k, const void* v,
 
 // q (B, H, Lq, D), k and v (B, H, Lk, D), out (B, H, Lq, D): contiguous and
 // 16-byte aligned, all f32 (dtype 0) or all bf16 (dtype 1); key_valid
-// (B, Lk) one byte per key.  D is 64 or 128.  For f32, kv_scratch holds
-// 2 B H Lk D bf16 (the rounded k, then v); for bf16 it is unused.  Returns
-// the cudaError_t of the launches, or -1 if no TMA map could be made.
+// (B, Lk) one byte per key.  D is 64, 128, 192 or 256.  For f32,
+// kv_scratch holds 2 B H Lk D bf16 (the rounded k, then v); for bf16 it is
+// unused.  Returns the cudaError_t of the launches, -1 if no TMA map could
+// be made, or -2 if Lk's key-tile masks do not fit in shared memory.
 extern "C" int flash_attention_forward(const void* q, const void* k,
                                        const void* v, const void* key_valid,
                                        void* out, void* kv_scratch, int B,
@@ -723,26 +823,30 @@ extern "C" int flash_attention_forward(const void* q, const void* k,
     return static_cast<int>(cudaMemsetAsync(
         out, 0, (size_t)B * H * Lq * D * (dtype == 0 ? 4 : 2), s));
   const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
-  if (D == 128 && dtype == 0)
-    return launch<128, float>(q, k, v, valid, out, kv_scratch, B, H, Lq, Lk,
-                              scale, s);
-  if (D == 128 && dtype == 1)
-    return launch<128, __nv_bfloat16>(q, k, v, valid, out, kv_scratch, B, H,
-                                      Lq, Lk, scale, s);
-  if (D == 64 && dtype == 0)
-    return launch<64, float>(q, k, v, valid, out, kv_scratch, B, H, Lq, Lk,
-                             scale, s);
-  if (D == 64 && dtype == 1)
-    return launch<64, __nv_bfloat16>(q, k, v, valid, out, kv_scratch, B, H,
-                                     Lq, Lk, scale, s);
+#define LAUNCH(DIM)                                                         \
+  if (D == DIM)                                                             \
+    return dtype == 0                                                       \
+               ? launch<DIM, float>(q, k, v, valid, out, kv_scratch, B, H,  \
+                                    Lq, Lk, scale, s)                       \
+               : launch<DIM, __nv_bfloat16>(q, k, v, valid, out,            \
+                                            kv_scratch, B, H, Lq, Lk,       \
+                                            scale, s);
+  LAUNCH(64)
+  LAUNCH(128)
+  LAUNCH(192)
+  LAUNCH(256)
+#undef LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The attention kernel's dynamic shared memory at head dim D and Lk keys,
-// in bytes.
+// The attention kernel's dynamic shared memory at head dim D (64, 128, 192
+// or 256) and Lk keys, in bytes; 0 for another D.
 extern "C" int flash_attention_smem_bytes(int D, int Lk) {
-  const int masks = 16 * ((Lk + BN - 1) / BN);
-  return masks + (D == 128 ? Smem<128>::BYTES : Smem<64>::BYTES);
+  return D == 64    ? smem_bytes<64>(Lk)
+         : D == 128 ? smem_bytes<128>(Lk)
+         : D == 192 ? smem_bytes<192>(Lk)
+         : D == 256 ? smem_bytes<256>(Lk)
+                    : 0;
 }
 
 extern "C" const char* flash_attention_error_string(int status) {
@@ -750,6 +854,6 @@ extern "C" const char* flash_attention_error_string(int status) {
     return "cuTensorMapEncodeTiled is unavailable or refused the tensor map";
   if (status == TOO_MANY_KEYS)
     return "Lk too large: the key tiles' masks do not fit in shared memory "
-           "(at most 16,000 keys at D 128)";
+           "(at most 16,000 keys at D 128, 278,000 at D 192 and 256)";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -4,7 +4,7 @@ Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor (or raises); there is no fallback.  Each
 wrapper counts its launches in ``<wrapper>.launches``, so a run can show that
 it went through the kernels.  Three wrappers have a second kernel for the
-widths their first does not take (head dims past 128, an n_fft that is not
+widths their first does not take (head dims past 256, an n_fft that is not
 a power of two from 32 to 4096), counted apart: :func:`general_launches`.
 """
 

@@ -23,11 +23,13 @@ scores, not the rounding points, makes the rest of the gap).  Single-pass
 TF32 (~1e-3) would fail both.
 
 The TPU kernel takes any head dim D; the tensor-core kernel takes a
-multiple of 4 up to 128.  Below 128 the wrapper zero-pads q, k and v along
-D to the next multiple of 4 and slices the output (exact: zero columns add
-exact zeros, and the temperature stays 1/√D of the true D); past 128 it
-launches the general kernel of ``csrc/attention_general.cu``: f32 CUDA-core
-products (no split), the same argmax and guided numerator, held to the same
+multiple of 4 up to 256 (192 is FastSpeech's 384 hidden over 2 heads).  Up
+to 256 the wrapper zero-pads q, k and v along D to the next multiple of 4
+and slices the output (exact: zero columns add exact zeros, and the
+temperature stays 1/√D of the true D); the kernel pads it further to 32,
+64, 128, 192 or 256 as it stages rows.  Past 256 the wrapper launches the
+general kernel of ``csrc/attention_general.cu``: f32 CUDA-core products (no
+split), the same argmax and guided numerator, held to the same
 tolerances.  ``alignment_attention.launches`` counts the tensor-core
 kernel's launches, ``.general_launches`` the general kernel's.
 
@@ -59,7 +61,7 @@ _SIGNATURES = {
     "alignment_attention_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "alignment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
-MAX_TC_HEAD_DIM = 128       # the tensor-core kernel's widest head dim
+MAX_TC_HEAD_DIM = 256       # the tensor-core kernel's widest head dim
 
 
 def guided_weight(T: int, L: int, src_lens: torch.Tensor,
@@ -246,7 +248,7 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32, gnum (B,) f32), as :func:`alignment_reference`.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    tensor-core kernel for D ≤ 128 (zero-padded to a multiple of 4) and the
+    tensor-core kernel for D ≤ 256 (zero-padded to a multiple of 4) and the
     general kernel past it: q, k, v contiguous float32 (16-byte aligned),
     any L, with a backward through :class:`_AlignmentAttention`."""
     if q.device.type == "cpu":

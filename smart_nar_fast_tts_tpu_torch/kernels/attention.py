@@ -10,13 +10,14 @@ the same points, to the difference between an online and a two-pass softmax
 (~1e-3).  Its products run on Hopper's tensor cores (``wgmma``); for f32
 inputs the wrapper allocates bf16 scratch for the rounded k and v.
 
-The TPU kernel takes any head dim D.  The tensor-core kernel takes D 64
-or 128; below 128 the wrapper zero-pads q, k and v along D to the next of
-the two and slices the output (exact: zero columns add exact zeros to every
-score, and the scale stays 1/√D of the true D), and past 128 it launches the
-general kernel of ``csrc/attention_general.cu``, which rounds at the same
-points with f32 CUDA-core sums and takes any D.  ``flash_attention.launches``
-counts the tensor-core kernel's launches, ``.general_launches`` the general
+The TPU kernel takes any head dim D.  The tensor-core kernel takes D 64,
+128, 192 or 256 (192 is FastSpeech's 384 hidden over 2 heads); up to 256 the
+wrapper zero-pads q, k and v along D to the next of the four and slices the
+output (exact: zero columns add exact zeros to every score, and the scale
+stays 1/√D of the true D), and past 256 it launches the general kernel of
+``csrc/attention_general.cu``, which rounds at the same points with f32
+CUDA-core sums and takes any D.  ``flash_attention.launches`` counts the
+tensor-core kernel's launches, ``.general_launches`` the general
 kernel's.
 
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
@@ -127,12 +128,12 @@ GENERAL_SIGNATURES = {
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "attention_general_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
-TC_HEAD_DIMS = (64, 128)    # the head dims of the tensor-core kernel
+TC_HEAD_DIMS = (64, 128, 192, 256)    # the tensor-core kernel's head dims
 
 
 def padded_head_dim(d: int) -> int:
-    """The tensor-core kernel's head dim for a head dim d ≤ 128: the
-    smallest of 64 and 128 that holds it."""
+    """The tensor-core kernel's head dim for a head dim d ≤ 256: the
+    smallest of :data:`TC_HEAD_DIMS` that holds it."""
     return next(w for w in TC_HEAD_DIMS if d <= w)
 
 
@@ -204,10 +205,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors.
 
     A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
-    the tensor-core kernel for D ≤ 128 (zero-padded to 64 or 128) and the
-    general kernel past it: q, k, v contiguous and 16-byte aligned, all f32
-    or all bf16; key_valid (B, Lk) bool.  The output has q's dtype and, on CUDA, a
-    backward through :class:`_FlashAttention`."""
+    the tensor-core kernel for D ≤ 256 (zero-padded to 64, 128, 192 or 256)
+    and the general kernel past it: q, k, v contiguous and 16-byte aligned,
+    all f32 or all bf16; key_valid (B, Lk) bool.  The output has q's dtype
+    and, on CUDA, a backward through :class:`_FlashAttention`."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_valid)
     if q.device.type != "cuda":

@@ -11,10 +11,12 @@ dim that the attention wrappers apply on the card.
   denominator's 1e-20 does not hide it.  The test asserts that the 6σ band
   misses there, so it is shown to see the fault.
 - The flash and alignment wrappers zero-pad D to the tensor-core kernels'
-  widths with the scale of the true D.  The plain versions that round where
+  widths (flash: 64, 128, 192 or 256; alignment: a multiple of 4 up to
+  256) with the scale of the true D.  The plain versions that round where
   the kernels do are held, on padded inputs with that scale, to themselves
   on the unpadded ones: zero columns add exact zeros, so what is left is the
-  order of the CPU's f32 sums (1e-6).
+  order of the CPU's f32 sums (1e-6).  Past 256 both wrappers route to the
+  general kernel, checked here with the launchers stubbed.
 """
 
 import numpy as np
@@ -24,6 +26,9 @@ import torch.nn.functional as F
 
 from smart_nar_fast_tts_tpu_torch.kernels import (alignment_tf32x3_reference,
                                                   attention_bf16_reference)
+from smart_nar_fast_tts_tpu_torch.kernels import _build
+from smart_nar_fast_tts_tpu_torch.kernels import alignment as align_mod
+from smart_nar_fast_tts_tpu_torch.kernels import attention as flash_mod
 from smart_nar_fast_tts_tpu_torch.kernels.attention import padded_head_dim
 from smart_nar_fast_tts_tpu_torch.kernels.upsample import (
     BAND_SIGMAS, gaussian_upsample_tile_reference)
@@ -85,16 +90,63 @@ def test_tile_rule_flagship_durations():
 
 
 @pytest.mark.parametrize("d, width", [(1, 64), (32, 64), (64, 64),
-                                      (80, 128), (96, 128), (128, 128)])
+                                      (80, 128), (96, 128), (128, 128),
+                                      (160, 192), (192, 192), (200, 256),
+                                      (256, 256)])
 def test_padded_head_dim(d, width):
     assert padded_head_dim(d) == width
+
+
+class _Routed(Exception):
+    """Raised by the stubbed launchers with the route taken."""
+
+
+def _stub_routes(monkeypatch, module):
+    """The wrapper module's launchers stubbed: the general kernel's raises
+    ``_Routed("general")``, loading the tensor-core kernel's library raises
+    ``_Routed("tensor cores", D)`` with the head dim it would launch."""
+    def general(q, *args):
+        raise _Routed("general", q.shape[-1])
+
+    def load(stem, signatures):
+        raise _Routed("tensor cores", stem)
+    monkeypatch.setattr(module, "_launch_general", general)
+    monkeypatch.setattr(_build, "load", load)
+
+
+@pytest.mark.parametrize("D", [129, 160, 192, 200, 255, 256, 257, 320, 512])
+def test_flash_route_by_head_dim(monkeypatch, D):
+    """Up to 256 the flash wrapper launches the tensor-core kernel, past it
+    the general one (its ``_launch`` called directly: on the CPU the wrapper
+    takes the plain version)."""
+    _stub_routes(monkeypatch, flash_mod)
+    q = torch.zeros(1, 2, 5, D)
+    valid = torch.ones(1, 5, dtype=torch.bool)
+    with pytest.raises(_Routed) as routed:
+        flash_mod._launch(q, q, q, valid)
+    assert routed.value.args == (("general", D) if D > 256
+                                 else ("tensor cores", "flash_attention"))
+
+
+@pytest.mark.parametrize("D", [128, 150, 192, 256, 257, 320])
+def test_alignment_route_by_head_dim(monkeypatch, D):
+    """The same for the alignment wrapper: the tensor-core kernel up to 256,
+    the general one past it."""
+    _stub_routes(monkeypatch, align_mod)
+    q = torch.zeros(1, 2, 5, D)
+    lens = torch.tensor([5])
+    valid = torch.ones(1, 5, dtype=torch.bool)
+    with pytest.raises(_Routed) as routed:
+        align_mod._launch(q, q, q, valid, lens, lens, 0.2)
+    assert routed.value.args == (("general", D) if D > 256
+                                 else ("tensor cores", "alignment_attention"))
 
 
 def _pad(t, width):
     return F.pad(t, (0, width - t.shape[-1]))
 
 
-@pytest.mark.parametrize("D", [32, 80, 96])
+@pytest.mark.parametrize("D", [32, 80, 96, 160, 200])
 def test_flash_padding_is_exact(D):
     """``attention_bf16_reference`` on q, k, v zero-padded to the kernel's
     width with the true D's scale equals it on the unpadded inputs."""
@@ -111,7 +163,7 @@ def test_flash_padding_is_exact(D):
                                atol=PAD_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("D", [30, 66])
+@pytest.mark.parametrize("D", [30, 66, 150])
 def test_alignment_padding_is_exact(D):
     """``alignment_tf32x3_reference`` on inputs zero-padded to a multiple of
     4 with the true D's scale equals it on the unpadded inputs: ``out``,

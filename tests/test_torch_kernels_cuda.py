@@ -34,8 +34,16 @@ would miss both by ~100×.  ``idx`` is held to the f32 plain version only:
 the 3xTF32 plain version, which sums its three products apart, settles
 near-ties its own way (at seed 10 of the training shape it takes key 16
 where the f32 plain version, the kernel and float64 take key 45: a top-two
-gap of 5.9e-6).  The
-backward passes recompute the plain versions, so a gradient through a
+gap of 5.9e-6).  Head dims 129-256 run on the same tensor-core kernels
+(flash: 64-key tiles, D zero-padded to 192 or 256; alignment: 32- or
+16-key chunks, the small 3xTF32 passes summed apart) and are held to the
+same tolerances; the general kernels take D past 256.  Where the
+alignment kernel's argmax differs from the f32 plain version's in the new
+wide cases, both picks must lie within 1e-6 (relative) of the float64
+maximum: 3xTF32 resolves a score to ~2^-21 of each product, f32 to
+2^-24, and a near-tie of 7.9e-7 at a score of 2.649 (D 256, v =
+identity) went the other way on an H100.
+The backward passes recompute the plain versions, so a gradient through a
 kernel's ``autograd.Function`` equals autograd through its plain version to
 f32 rounding: 1e-4.  The log-mel kernel is f32 FMA against cuFFT in the
 plain version: mel atol 2e-4 / rtol 1e-4, energy atol 2e-3 / rtol 1e-4 (the
@@ -69,6 +77,8 @@ F32_ATOL = 1e-5
 GNUM_ATOL, GNUM_RTOL = 1e-4, 1e-5
 TF32X3_ATOL, TF32X3_MEAN = 8e-6, 1e-6
 GRAD_TOL = 1e-4
+ARGMAX_EXACT_MAX_D = 128
+TF32X3_PRODUCT_EPS, F32_U = 3 * 2.0 ** -22, 2.0 ** -24
 MEL_ATOL, ENERGY_ATOL, MEL_RTOL = 2e-4, 2e-3, 1e-4
 FFT_MEL_ATOL, FFT_REF_ATOL, FFT_ENERGY_RTOL = 5e-6, 2e-6, 1e-6
 
@@ -85,10 +95,11 @@ def _randn(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
-def _key_valid(rng, B, Lk, kind):
+def _key_valid(rng, B, Lk, kind, tile=128):
     """Item 0 fully masked; ``prefix`` lengths spread over [0, Lk];
     ``holes`` each key valid with probability 0.3; ``last tile`` valid keys
-    only in the kernel's last 128-key tile."""
+    only in the kernel's last key tile (``tile`` keys: 128 up to head dim
+    128, 64 past it)."""
     if kind == "prefix":
         lens = np.linspace(0, Lk, B).astype(int)
         valid = np.arange(Lk)[None, :] < lens[:, None]
@@ -96,7 +107,7 @@ def _key_valid(rng, B, Lk, kind):
         valid = rng.random((B, Lk)) < 0.3
     else:
         valid = np.zeros((B, Lk), bool)
-        valid[:, (Lk - 1) // 128 * 128:] = True
+        valid[:, (Lk - 1) // tile * tile:] = True
     valid[0] = False
     return torch.from_numpy(valid)
 
@@ -115,19 +126,33 @@ def _key_valid(rng, B, Lk, kind):
     ((3, 2, 300, 300, 80), "holes"),
     ((3, 2, 300, 300, 96), "prefix"),
     ((3, 2, 333, 300, 192), "prefix"),
-    ((3, 2, 300, 333, 256), "holes")])
+    ((3, 2, 300, 333, 256), "holes"),
+    ((3, 2, 300, 333, 160), "prefix"),
+    ((3, 2, 1000, 1000, 160), "holes"),
+    ((3, 2, 1000, 1000, 192), "holes"),
+    ((2, 2, 200, 1000, 192), "last tile"),
+    ((8, 2, 128, 128, 192), "prefix"),
+    ((3, 2, 333, 300, 256), "prefix"),
+    ((2, 2, 333, 700, 256), "last tile"),
+    ((3, 2, 200, 300, 320), "prefix")])
 def test_flash_attention(card, shape, kind, dtype):
-    """Head dims 64 and 128 run the tensor-core kernel, 32, 80 and 96 the
-    same kernel on D zero-padded to 64 or 128, 192 and 256 the general
-    kernel (``flash_attention.general_launches``); all are held alike."""
+    """Head dims 64, 128, 192 and 256 run the tensor-core kernel (128-key
+    tiles up to 128, 64-key tiles past it), 32, 80, 96 and 160 the same
+    kernel on D zero-padded to the next of them, 320 the general kernel
+    (``flash_attention.general_launches``); all are held alike, and two
+    launches are bit-equal."""
     B, H, Lq, Lk, D = shape
     rng = np.random.default_rng(8)
     q, k, v = (_randn(rng, B, H, L, D).to(card, dtype)
                for L in (Lq, Lk, Lk))
-    valid = _key_valid(rng, B, Lk, kind).to(card)
+    tile = 128 if D <= 128 else 64
+    valid = _key_valid(rng, B, Lk, kind, tile).to(card)
     general = flash_attention.general_launches
+    launches = flash_attention.launches
     got = flash_attention(q, k, v, valid)
-    assert flash_attention.general_launches - general == (D > 128)
+    assert flash_attention.general_launches - general == (D > 256)
+    assert flash_attention.launches - launches == (D <= 256)
+    assert torch.equal(flash_attention(q, k, v, valid), got)
     expect = attention_reference(q, k, v, valid)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), expect.float(), atol=BF16_TOL,
@@ -136,7 +161,7 @@ def test_flash_attention(card, shape, kind, dtype):
     tol = attention_bf16_tolerance(q, k, v, valid, expect)
     gap = (got.float() - expect.float()).abs()
     assert (gap <= tol).all()
-    if Lk <= 128 or kind == "last tile":   # every item in one key tile
+    if Lk <= tile or kind == "last tile":  # every item in one key tile
         assert gap.mean() <= ONE_TILE_MEAN
     assert (got[0] == 0).all()
 
@@ -210,6 +235,29 @@ def _alignment_inputs(card, B, H, T, L, D, seed):
     return q, k, v, valid, src, mel
 
 
+def _assert_argmax(args, idx, e_idx):
+    """``idx`` equals the f32 plain version's ``e_idx`` up to head dim
+    ARGMAX_EXACT_MAX_D.  Past it (3xTF32 at DP 192/256) a differing index
+    passes where each pick's float64 score lies within its version's error
+    bound of the float64 maximum: a score scale·Σ q_i k_i is off by at most
+    eps·scale·Σ|q_i k_i|, eps = D·F32_U for the f32 sum and
+    TF32X3_PRODUCT_EPS more for the kernel's products (as chip_smoke.py's
+    ``argmax_ties``)."""
+    q, k, _, valid = args[:4]
+    D = q.shape[-1]
+    differ = (idx != e_idx).nonzero().tolist()
+    assert D > ARGMAX_EXACT_MAX_D or not differ, differ[:4]
+    eps = {"kernel": TF32X3_PRODUCT_EPS + D * F32_U, "plain": D * F32_U}
+    for b, t in differ:
+        qt, kb = q[b, 0, t].double(), k[b, 0].double()
+        s64 = torch.where(valid[b], kb @ qt, -1e30) / D ** 0.5
+        mag = (kb.abs() @ qt.abs()) / D ** 0.5
+        top = int(torch.nonzero(s64 == s64.max())[0, 0])
+        for who, pick in (("kernel", idx[b, t]), ("plain", e_idx[b, t])):
+            limit = eps[who] * (mag[pick] + mag[top])
+            assert s64[top] - s64[pick] <= limit, (b, t, who, int(pick))
+
+
 def _check_tf32x3(args, out, gnum):
     """The kernel's outputs against the plain version that rounds its
     operands where it does (``idx`` is held to the f32 one)."""
@@ -226,45 +274,60 @@ def _check_tf32x3(args, out, gnum):
                                    (2, 2, 1500, 1000, 128),
                                    (3, 2, 200, 70, 30),
                                    (3, 2, 200, 70, 96),
-                                   (3, 2, 200, 70, 192)])
+                                   (3, 2, 200, 70, 192),
+                                   (3, 2, 200, 70, 150),
+                                   (3, 2, 200, 70, 256),
+                                   (2, 2, 300, 128, 192),
+                                   (2, 2, 1500, 1000, 192),
+                                   (3, 2, 45, 13, 256),
+                                   (3, 2, 200, 70, 320)])
 def test_alignment_attention(card, shape):
-    """Head dims up to 128 run the tensor-core kernel (30 zero-padded to
-    32), 192 the general kernel (f32 CUDA-core products): held to the f32
-    plain version alike, and the tensor-core kernel also to the 3xTF32
-    one."""
+    """Head dims up to 256 run the tensor-core kernel (30 and 150
+    zero-padded to a multiple of 4, then to the kernel's 32, 64, 128, 192
+    or 256), 320 the general kernel (f32 CUDA-core products): held to the
+    f32 plain version alike, and the tensor-core kernel also to the 3xTF32
+    one; two launches are bit-equal."""
     args = _alignment_inputs(card, *shape, seed=10)
     general = alignment_attention.general_launches
+    launches = alignment_attention.launches
     out, idx, gnum = alignment_attention(*args)
     D = shape[-1]
-    assert alignment_attention.general_launches - general == (D > 128)
-    _, idx2, gnum2 = alignment_attention(*args)
+    assert alignment_attention.general_launches - general == (D > 256)
+    assert alignment_attention.launches - launches == (D <= 256)
+    out2, idx2, gnum2 = alignment_attention(*args)
     e_out, e_idx, e_gnum = alignment_reference(*args)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
     assert torch.equal(idx, e_idx)
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
     assert torch.equal(idx2, idx)
     assert torch.equal(gnum2, gnum)                   # bit-equal
-    if D <= 128:
+    assert torch.equal(out2, out)
+    if D <= 256:
         _check_tf32x3(args, out, gnum)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 150, 192, 256])
 @pytest.mark.parametrize("case", ["q zero", "v identity"])
-def test_alignment_attention_products_apart(card, case):
+def test_alignment_attention_products_apart(card, case, D):
     """q = 0: uniform probabilities, so ``out`` is the PV product alone (the
-    mean of the valid v rows); v = identity (L = D): ``out`` is P itself,
-    the QKᵀ product through the softmax alone."""
-    q, k, v, valid, src, mel = _alignment_inputs(card, 4, 2, 300, 128, 128,
-                                                 seed=15)
+    mean of the valid v rows); v = identity (L = D keys): ``out`` is P
+    itself, the QKᵀ product through the softmax alone.  At each padded
+    depth of the tensor-core kernel (150 padded to 152, then 192; chunks of
+    64 keys up to 128, 32 at 192, 16 at 256); idx as ``_assert_argmax``."""
+    q, k, v, valid, src, mel = _alignment_inputs(
+        card, 4, 2, 300, D, D, seed=15 if D == 128 else 17)
     if case == "q zero":
         q = torch.zeros_like(q)
     else:
-        v = torch.eye(128, device=card).expand(4, 2, 128, 128).contiguous()
+        v = torch.eye(D, device=card).expand(4, 2, D, D).contiguous()
     args = (q, k, v, valid, src, mel)
+    general = alignment_attention.general_launches
     out, idx, gnum = alignment_attention(*args)
+    assert alignment_attention.general_launches == general
     e_out, e_idx, e_gnum = alignment_reference(*args)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
-    assert torch.equal(idx, e_idx)
+    _assert_argmax(args, idx, e_idx)
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
     _check_tf32x3(args, out, gnum)
 
