@@ -25,7 +25,7 @@ any failure raises (exit code 1):
             registers, shared memory and spills of each of its kernels.
             At head dims 192 and 256 (64-key tiles) it is checked and timed
             the same way at (8, 2, 4096, D), at D 192 also on holes and
-            last-tile masks, bit-equal across launches, the general kernel
+            last-tile masks, bit-equal across launches, the wide kernel
             not launched.  The alignment kernel (3xTF32 products) is also
             held to ``alignment_tf32x3_reference`` at the training shape, a
             ragged one and L 1000, and on q = 0 and v = identity (each
@@ -39,12 +39,18 @@ any failure raises (exit code 1):
             mel_len exact) and phonemes longer than 12σ (one of 132 frames;
             [7, 9, 4, 11, 6, d_last] for d_last 120-190), with its ptxas
             figures
-  kernel ... general  the widths the first kernels do not take as they
+  kernel ... widths  the widths the first kernels do not take as they
             are: flash attention at head dims 32, 80, 96, 160, 200
-            (zero-padded to 64, 128, 192 or 256), 192, 256 and 320 (the
-            general kernel, past 256), alignment attention at D 30, 96, 150
-            (padded), 192, 256 and 320 (general), the log-mel DFT kernel at
-            n_fft 16, 800, 1000, 1200 and 8192; each general kernel timed
+            (zero-padded to 64, 128, 192 or 256), 192, 256, 288 and 320 (the
+            wide kernel, past 256), alignment attention at D 30, 96, 150
+            (padded), 192, 256, 300 and 320 (wide), the log-mel DFT kernel
+            at n_fft 16, 800, 1000, 1200 and 8192; then the wide kernels at
+            head dims 320, 384 and 512: flash at (8, 2, 4096, D) (at 320
+            also on holes and last-tile masks), f32 and bf16 operands,
+            bit-equal across launches, timed beside its plain version and
+            SDPA on both; alignment at the training shape, held as above
+            and timed beside its plain version and f32 SDPA on ``out``;
+            with their ptxas figures; the DFT kernel timed
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings,
@@ -173,11 +179,11 @@ BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
 ONE_TILE_MEAN = 1e-5
 
 
-# head dims past 128 that the tensor-core kernels take, timed: FastSpeech's
-# 192 (384 hidden, 2 heads) and the widest, 256; the general kernels' (past
-# 256), checked and timed at GENERAL_D
+# head dims past 128 that the first tensor-core kernels take, timed:
+# FastSpeech's 192 (384 hidden, 2 heads) and the widest, 256; the wide
+# kernels' (past 256), checked and timed at WIDE_HEAD_DS
 WIDE_DS = (192, 256)
-GENERAL_D = 320
+WIDE_HEAD_DS = (320, 384, 512)
 
 
 def flash_tile(d):
@@ -363,9 +369,10 @@ def flash_errors(torch, kernels, name, out, q, k, v, valid):
 
 
 def flash_ptxas(compiled, lib):
-    """ptxas registers, static shared memory and spills of each kernel of
-    csrc/flash_attention.cu (when this run compiled it), and the attention
-    kernel's dynamic shared memory."""
+    """ptxas registers, static shared memory and spills of the first
+    kernel of csrc/flash_attention.cu and its bf16 conversion (when this
+    run compiled them; the wide kernel's: :func:`wide_ptxas`), and the
+    attention kernel's dynamic shared memory."""
     import re
     out = {"dynamic_smem_bytes": {
         f"D {d}, Lk {T_CAP_LONG}": lib.flash_attention_smem_bytes(
@@ -374,8 +381,10 @@ def flash_ptxas(compiled, lib):
         out["kernels"] = "not compiled in this run: the build directory had it"
         return out
     for name, info in compiled["flash_attention"]["kernels"].items():
-        label = re.search(r"(flash_attention|kv_to_bf16)_kernel",
-                          name).group(0)
+        label = re.search(r"(flash_attention|kv_to_bf16)_kernel", name)
+        if label is None:               # the wide kernel's: wide_ptxas
+            continue
+        label = label.group(0)
         d = re.search(r"ILi(\d+)E(?:Li(\d+)ELi(\d+)E)?", name)
         if d:
             label += f"<D {d.group(1)}"
@@ -472,7 +481,7 @@ def kernel_flash_attention(torch, np, kernels, compiled):
     # the head dims past 128 on the tensor cores (WIDE_DS: FastSpeech's 192
     # and 256; 64-key tiles): the serving decoder at T_CAP_LONG, timed, and
     # at D 192 a mask with holes and one whose valid keys sit in the last
-    # (ragged) 64-key tile; f32 and bf16 operands; the general kernel must
+    # (ragged) 64-key tile; f32 and bf16 operands; the wide kernel must
     # not run
     wide = [(d, T_CAP_LONG, "prefix") for d in WIDE_DS] + [
         (WIDE_DS[0], T_CAP_LONG, "holes"), (WIDE_DS[0], 4000, "last tile")]
@@ -484,14 +493,14 @@ def kernel_flash_attention(torch, np, kernels, compiled):
             errs = {}
             for dtype in (torch.float32, torch.bfloat16):
                 args = (*(t.to(dtype) for t in (q, k, v)), valid)
-                out, general = routed(
-                    kernels, "flash_attention_general",
+                out, wide = routed(
+                    kernels, "flash_attention_wide",
                     lambda: kernels.flash_attention(*args))
                 again = kernels.flash_attention(*args)
                 torch.cuda.synchronize()
-                if general or not torch.equal(out, again):
-                    raise AssertionError(f"flash_attention D {d}: general "
-                                         f"kernel {general}, or two "
+                if wide or not torch.equal(out, again):
+                    raise AssertionError(f"flash_attention D {d}: wide "
+                                         f"kernel {wide}, or two "
                                          "launches differ")
                 err, err_emu, share, mean = flash_errors(
                     torch, kernels, f"D {d} {kind}", out, *args)
@@ -659,9 +668,10 @@ def alignment_inputs(torch, np, rng, b, h, t, l, d):
 
 
 def alignment_ptxas(compiled, lib):
-    """ptxas registers, static shared memory and spills of each kernel of
-    csrc/alignment_attention.cu (when this run compiled it), and the
-    dynamic shared memory of each instantiation."""
+    """ptxas registers, static shared memory and spills of the first
+    kernel of csrc/alignment_attention.cu and its sum (when this run
+    compiled them; the wide kernels': :func:`wide_ptxas`), and the dynamic
+    shared memory of each instantiation."""
     import re
     out = {"dynamic_smem_bytes": {f"D {d}": lib.alignment_attention_smem_bytes(
         d) for d in (32, 64, 128, 192, 256)}}
@@ -669,7 +679,10 @@ def alignment_ptxas(compiled, lib):
         out["kernels"] = "not compiled in this run: the build directory had it"
         return out
     for name, info in compiled["alignment_attention"]["kernels"].items():
-        label = re.search(r"(alignment|gnum_reduce)_kernel", name).group(0)
+        label = re.search(r"(alignment|gnum_reduce)_kernel", name)
+        if label is None:               # the wide kernels': wide_ptxas
+            continue
+        label = label.group(0)
         d = re.search(r"ILi(\d+)E", name)
         out[label + (f"<D {d.group(1)}>" if d else "")] = info
     return out
@@ -796,7 +809,7 @@ def kernel_alignment_attention(torch, np, kernels, compiled):
     # apart: q = 0 (uniform p: PV alone) and v = identity (out = P: QKᵀ
     # through the softmax alone); then the head dims past 128 on the
     # tensor cores (WIDE_DS: FastSpeech's 192 and 256) at the training
-    # shape and each product apart, the general kernel not launched
+    # shape and each product apart, the wide kernel not launched
     cases = [("train", 128), ("ragged", 128), ("L 1000", 128),
              ("q zero", 128), ("v identity", 128)]
     cases += [(name, d) for d in WIDE_DS
@@ -813,13 +826,13 @@ def kernel_alignment_attention(torch, np, kernels, compiled):
             elif name == "v identity":
                 eye = torch.eye(d, device="cuda").expand(4, 2, d, d)
                 args = (*args[:2], eye.contiguous(), *args[3:])
-            checks, general = routed(kernels, "alignment_attention_general",
-                                     lambda: alignment_check(
-                                         torch, kernels, f"{name} D {d}",
-                                         args))
-            if general:
+            checks, wide = routed(kernels, "alignment_attention_wide",
+                                  lambda: alignment_check(
+                                      torch, kernels, f"{name} D {d}",
+                                      args))
+            if wide:
                 raise AssertionError(f"alignment_attention D {d}: the "
-                                     "general kernel ran")
+                                     "wide kernel ran")
             err_max = max(err_max, checks["max_abs_err"])
             f.update(case=name, shape=list(shape), **checks,
                      src_lens=args[4].tolist()[:4])
@@ -1061,7 +1074,7 @@ def fastspeech_phase(torch, np, kernels, synth, inv, texts, src_lens):
     stage A of bench.py's inputs at cap 4096 through ``Synthesizer(...,
     t_cap=4096)``, with the launch counts set to 0 just before and read
     just after: the decoder's six self-attentions run the tensor-core flash
-    kernel at (8, 2, 4096, 192), the general kernel none; each launch's
+    kernel at (8, 2, 4096, 192), the wide kernel none; each launch's
     output held to ``attention_bf16_tolerance`` of its own inputs;
     durations equal to a cap-1000 card run of the same model; finite
     outputs.  (b) FS_TRAIN_STEPS train steps (``intended``/``first``) at the
@@ -1095,10 +1108,10 @@ def fastspeech_phase(torch, np, kernels, synth, inv, texts, src_lens):
         with mock.patch.object(layers, "flash_attention", spy):
             out = long_synth.stage_a(tokens, lens)
         torch.cuda.synchronize()
-        serving = {**kernels.launches(), **kernels.general_launches()}
+        serving = {**kernels.launches(), **kernels.route_launches()}
         shapes = [list(c[0].shape) for c in calls]
         want = dict(PER_SERVING_BATCH_FS, **{
-            n: 0 for n in kernels.general_launches()})
+            n: 0 for n in kernels.route_launches()})
         if serving != want or shapes != [[B, 2, T_CAP_LONG, 192]] * 6:
             raise AssertionError(f"FastSpeech cap-4096 launches {serving} "
                                  f"at {shapes}, expected {want}")
@@ -1179,10 +1192,10 @@ def fastspeech_phase(torch, np, kernels, synth, inv, texts, src_lens):
                         durations.dtype)):
                     raise AssertionError("FastSpeech duration targets do "
                                          "not sum to mel_lens")
-        train = {**kernels.launches(), **kernels.general_launches()}
+        train = {**kernels.launches(), **kernels.route_launches()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         want = {n: c * FS_TRAIN_STEPS for n, c in PER_TRAIN_STEP_FS.items()}
-        want.update({n: 0 for n in kernels.general_launches()})
+        want.update({n: 0 for n in kernels.route_launches()})
         if train != want:
             raise AssertionError(f"FastSpeech train launches {train}, "
                                  f"expected {want}")
@@ -1489,7 +1502,7 @@ def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
     FFT_MEL_ATOL / FFT_ENERGY_RTOL and to ``log_mel_fft_reference`` (its
     schedule in float64 torch) within FFT_REF_ATOL, and two launches are
     bit-equal.  Then timed on the speech segments.  Other n_fft sizes go to
-    the DFT kernel (:func:`kernel_general_paths`)."""
+    the DFT kernel (:func:`kernel_widths`)."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
     from smart_nar_fast_tts_tpu_torch.kernels import _build
@@ -1711,147 +1724,194 @@ def vocoder_train_reference_phase(torch, np):
                                  f"{VOC_RTOL}: {bad}")
 
 
-def alignment_general_check(torch, kernels, name, args):
-    """The general alignment kernel (f32 CUDA-core products) against the
-    f32 plain version: out F32_TOL, idx exact, gnum GNUM_ATOL/GNUM_RTOL;
-    two launches bit-equal."""
-    out, idx, gnum = kernels.alignment_attention(*args)
-    out2, idx2, gnum2 = kernels.alignment_attention(*args)
-    torch.cuda.synchronize()
-    r_out, r_idx, r_gnum = kernels.alignment_reference(*args)
-    err = check_close(f"alignment_attention {name} out", out, r_out,
-                      F32_TOL, torch)
-    n_idx = int((idx != r_idx).sum())
-    if n_idx:
-        raise AssertionError(f"alignment_attention {name}: {n_idx} argmax "
-                             "indices differ")
-    gnum_err = check_close(f"alignment_attention {name} gnum", gnum, r_gnum,
-                           GNUM_ATOL, torch, rtol=GNUM_RTOL)
-    if not (torch.equal(out, out2) and torch.equal(idx, idx2)
-            and torch.equal(gnum, gnum2)):
-        raise AssertionError(f"alignment_attention {name}: two launches "
-                             "differ")
-    return dict(max_abs_err=err,
-                mean_abs_err=(out - r_out).abs().mean().item(),
-                gnum_max_abs_err=gnum_err, idx_differ=0, bit_equal=True)
-
-
 def routed(kernels, name, fn):
     """``fn()``, and whether the wrapper launched its second kernel
-    (``name`` of :func:`kernels.general_launches`) for it."""
-    before = kernels.general_launches()[name]
+    (``name`` of :func:`kernels.route_launches`) for it."""
+    before = kernels.route_launches()[name]
     out = fn()
-    return out, kernels.general_launches()[name] > before
+    return out, kernels.route_launches()[name] > before
 
 
-def kernel_general_paths(torch, np, kernels, compiled):
+def wide_ptxas(compiled, flash_lib, align_lib):
+    """ptxas registers, static shared memory and spills of the wide kernels
+    and the bf16 conversion (when this run compiled them), and each wide
+    kernel's shape at WIDE_HEAD_DS: the flash kernel's dynamic shared memory
+    and ring stages (negative where q streams) at Lk T_CAP_LONG, the
+    alignment kernel's route (``team`` or ``wide``), warps, columns of K
+    staged at once, slices and dynamic shared memory."""
+    import ctypes
+    import re
+    out = {}
+    for d in WIDE_HEAD_DS + (1024,):
+        stages = ctypes.c_int(0)
+        smem = flash_lib.flash_attention_wide_smem_bytes(
+            d, T_CAP_LONG, ctypes.byref(stages))
+        shape = (ctypes.c_int * 5)()
+        align_lib.alignment_attention_wide_shape(d, shape)
+        out[f"D {d}"] = dict(
+            flash_dynamic_smem_bytes=smem, flash_stages=stages.value,
+            alignment_kernel="team" if shape[0] else "wide",
+            alignment_warps=shape[1], alignment_chunk_columns=shape[2],
+            alignment_slices=shape[3], alignment_dynamic_smem_bytes=shape[4])
+    for stem, pattern in (
+            ("flash_attention", r"flash_wide_kernel|(?<!kv_)to_bf16_kernel"),
+            ("alignment_attention",
+             r"alignment_wide_kernel|alignment_team_kernel")):
+        if stem not in compiled:
+            out[stem] = "not compiled in this run: the build directory had it"
+            continue
+        for name, info in compiled[stem]["kernels"].items():
+            found = re.search(pattern, name)
+            if found:
+                arg = re.search(r"_kernelI(f|13__nv_bfloat16)E", name)
+                dtype = "" if arg is None else (
+                    ", f32" if arg.group(1) == "f" else ", bf16")
+                out[found.group(0) + dtype] = info
+    return out
+
+
+def kernel_widths(torch, np, kernels, compiled):
     """The widths the first kernels do not take as they are (ROADMAP
     §C.2).  Flash attention at head dims 32, 80, 96, 160 and 200
-    (zero-padded to the tensor-core kernel's 64, 128, 192 or 256), 192 and
-    256 (the tensor-core kernel) and GENERAL_D (the general kernel, past
-    256), f32 and bf16 operands, held as the tensor-core kernel is
-    (:func:`flash_errors`); alignment attention at D 30, 96 and 150
-    (zero-padded to a multiple of 4), 192 and 256 (:func:`alignment_check`)
-    and GENERAL_D (the general kernel: :func:`alignment_general_check`);
-    the log-mel DFT kernel at n_fft 16, 800, 1000, 1200 and 8192 against
-    the float64 plain version (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and
-    ``log_mel_dft_reference`` (FFT_REF_ATOL), bit-equal across launches.
-    Then each general kernel timed: flash at (8, 2, 4096, GENERAL_D)
-    beside its plain version and SDPA, alignment at the training shape with
-    D GENERAL_D, log-mel at (16, 8192) with n_fft 1200.  Returns the three
-    kernels' entries."""
+    (zero-padded to the tensor-core kernel's 64, 128, 192 or 256), 192,
+    256, and 288 and 320 (the wide kernel, 288 padded to 320), f32 and bf16
+    operands, held as the tensor-core kernel is (:func:`flash_errors`);
+    alignment attention at D 30, 96 and 150 (zero-padded to a multiple of
+    4), 192, 256, 300 and 320 (the wide kernel), held as
+    :func:`alignment_check` holds it; the log-mel DFT kernel at n_fft 16,
+    800, 1000, 1200 and 8192 against the float64 plain version
+    (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and ``log_mel_dft_reference``
+    (FFT_REF_ATOL), bit-equal across launches.  Then the wide kernels at
+    WIDE_HEAD_DS: flash at (8, 2, 4096, D) on prefix masks (at D 320 also
+    holes and a last-tile mask), f32 and bf16 operands, bit-equal across
+    launches, timed beside its plain version and SDPA on f32 and bf16
+    operands; alignment at the training shape with head dim D, timed
+    beside its plain version and f32 SDPA on ``out`` alone; the log-mel
+    DFT kernel timed at (16, 8192) with n_fft 1200.  Returns the three
+    second kernels' entries."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.alignment import (
+        _SIGNATURES as ALIGN_SIGNATURES)
+    from smart_nar_fast_tts_tpu_torch.kernels.attention import (
+        _SIGNATURES as FLASH_SIGNATURES)
     rng = np.random.default_rng(6)
     flash, align, dft = {}, {}, {}
-    flash_err = align_err = dft_err = 0.0
-    for D in (32, 80, 96, 160, 192, 200, 256, GENERAL_D):
+    flash_err = flash_share = align_err = dft_err = 0.0
+    for D in (32, 80, 96, 160, 192, 200, 256, 288, 320):
         valid = flash_valid(torch, np, rng, 4, 700, "prefix")
         base = [torch.from_numpy(rng.standard_normal(
             (4, 2, 700, D)).astype(np.float32)).cuda() for _ in range(3)]
         for dtype in (torch.float32, torch.bfloat16):
-            with Phase("kernel flash_attention general widths") as f:
+            with Phase("kernel flash_attention widths") as f:
                 q, k, v = (t.to(dtype) for t in base)
-                out, general = routed(
-                    kernels, "flash_attention_general",
+                out, wide = routed(
+                    kernels, "flash_attention_wide",
                     lambda: kernels.flash_attention(q, k, v, valid))
                 torch.cuda.synchronize()
-                if general != (D > 256):
-                    raise AssertionError(f"flash_attention D {D}: general "
-                                         f"kernel launched: {general}")
+                if wide != (D > 256):
+                    raise AssertionError(f"flash_attention D {D}: wide "
+                                         f"kernel launched: {wide}")
                 err, err_emu, share, mean = flash_errors(
                     torch, kernels, f"D {D}", out, q, k, v, valid)
-                if general:
+                if wide:
                     flash_err = max(flash_err, err_emu)
+                    flash_share = max(flash_share, share)
                 f.update(D=D, dtype=str(dtype), shape=list(q.shape),
-                         route="general" if general else
-                         "tensor cores" + (", D zero-padded" if D not in (
-                             64, 128, 192, 256) else ""),
+                         route=("wide" if wide else "tensor cores") + (
+                             ", D zero-padded" if D not in (
+                                 64, 128, 192, 256, 320) else ""),
                          max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
                          bf16_tolerance_share=share,
                          mean_abs_err_vs_bf16_plain=mean)
-    with Phase("kernel flash_attention general") as f:
-        valid = flash_valid(torch, np, rng, B, T_CAP_LONG, "prefix")
-        q, k, v = (torch.from_numpy(rng.standard_normal(
-            (B, 2, T_CAP_LONG, GENERAL_D)).astype(np.float32)).cuda()
-            for _ in range(3))
-        out, general = routed(kernels, "flash_attention_general",
-                              lambda: kernels.flash_attention(q, k, v, valid))
-        if not general:
-            raise AssertionError(f"flash_attention D {GENERAL_D}: the "
-                                 "general kernel did not run")
-        err, err_emu, share, _ = flash_errors(
-            torch, kernels, f"D {GENERAL_D} timed", out, q, k, v, valid)
-        timing = flash_timing(torch, kernels, q, k, v, valid, reps=5)
-        flash = dict(timing, library_ms=timing["library_bf16_ms"],
-                     library="SDPA on bf16 operands",
-                     library_f32_ms=timing["library_ms"],
-                     shape=list(q.shape), max_abs_err=max(flash_err, err_emu),
-                     max_abs_err_vs_f32_plain=err,
-                     bf16_tolerance_share=share)
-        f.update(flash)
-    for D in (30, 96, 150, 192, 256, GENERAL_D):
-        with Phase("kernel alignment_attention general widths") as f:
+    cases = [(d, "prefix") for d in WIDE_HEAD_DS] + [
+        (WIDE_HEAD_DS[0], "holes"), (WIDE_HEAD_DS[0], "last tile")]
+    for D, kind in cases:
+        with Phase("kernel flash_attention wide") as f:
+            Lx = T_CAP_LONG if kind != "last tile" else 4000
+            valid = flash_valid(torch, np, rng, B, Lx, kind, flash_tile(D))
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, 2, Lx, D)).astype(np.float32)).cuda() for _ in range(3))
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                args = (*(t.to(dtype) for t in (q, k, v)), valid)
+                out, wide = routed(kernels, "flash_attention_wide",
+                                   lambda: kernels.flash_attention(*args))
+                again = kernels.flash_attention(*args)
+                torch.cuda.synchronize()
+                if not wide or not torch.equal(out, again):
+                    raise AssertionError(f"flash_attention D {D}: wide "
+                                         f"kernel {wide}, or two launches "
+                                         "differ")
+                err, err_emu, share, mean = flash_errors(
+                    torch, kernels, f"D {D} {kind}", out, *args)
+                flash_err = max(flash_err, err_emu)
+                flash_share = max(flash_share, share)
+                errs[str(dtype)] = dict(
+                    max_abs_err=err, max_abs_err_vs_bf16_plain=err_emu,
+                    bf16_tolerance_share=share,
+                    mean_abs_err_vs_bf16_plain=mean)
+            f.update(case=f"decoder {Lx} D {D} {kind}", shape=list(q.shape),
+                     mask=kind, valid_keys=int(valid.sum()), route="wide",
+                     bit_equal=True, errors=errs)
+            if kind == "prefix":
+                timing = flash_timing(torch, kernels, q, k, v, valid)
+                entry = dict(timing, library_ms=timing["library_bf16_ms"],
+                             library="SDPA on bf16 operands",
+                             library_f32_ms=timing["library_ms"],
+                             shape=list(q.shape), errors=errs)
+                f.update(entry)
+                if D == WIDE_HEAD_DS[0]:
+                    flash.update(entry)
+                else:
+                    flash[f"d{D}"] = entry
+    flash.update(max_abs_err=flash_err, bf16_tolerance_share=flash_share)
+    for D in (30, 96, 150, 192, 256, 300, 320):
+        with Phase("kernel alignment_attention widths") as f:
             args = alignment_inputs(torch, np, rng, 4, 2, 300, 70, D)
-            check = (alignment_general_check if D > 256 else
-                     alignment_check)
-            checks, general = routed(
-                kernels, "alignment_attention_general",
-                lambda: check(torch, kernels, f"D {D}", args))
-            if general != (D > 256):
-                raise AssertionError(f"alignment_attention D {D}: general "
-                                     f"kernel launched: {general}")
-            if general:
+            checks, wide = routed(
+                kernels, "alignment_attention_wide",
+                lambda: alignment_check(torch, kernels, f"D {D}", args))
+            if wide != (D > 256):
+                raise AssertionError(f"alignment_attention D {D}: wide "
+                                     f"kernel launched: {wide}")
+            if wide:
                 align_err = max(align_err, checks["max_abs_err"])
-            f.update(D=D, route="general" if general else
-                     "tensor cores" + (", D zero-padded" if D not in (
-                         32, 64, 128, 192, 256) else ""),
+            f.update(D=D, route=("wide" if wide else "tensor cores") + (
+                         ", D zero-padded" if D not in (
+                             32, 64, 128, 192, 256, 320) else ""),
                      **checks)
-    with Phase("kernel alignment_attention general") as f:
-        shape = (TRAIN_B, 2, TRAIN_T, TRAIN_L, GENERAL_D)
-        args = alignment_inputs(torch, np, rng, *shape)
-        checks, general = routed(
-            kernels, "alignment_attention_general",
-            lambda: alignment_general_check(
-                torch, kernels, f"D {GENERAL_D} timed", args))
-        if not general:
-            raise AssertionError(f"alignment_attention D {GENERAL_D}: the "
-                                 "general kernel did not run")
-        align = dict(alignment_timing(torch, kernels, args),
-                     shape=list(shape),
-                     max_abs_err=max(align_err, checks["max_abs_err"]))
-        f.update(align, gnum_max_abs_err=checks["gnum_max_abs_err"])
+    for D in WIDE_HEAD_DS:
+        with Phase("kernel alignment_attention wide") as f:
+            shape = (TRAIN_B, 2, TRAIN_T, TRAIN_L, D)
+            args = alignment_inputs(torch, np, rng, *shape)
+            checks, wide = routed(
+                kernels, "alignment_attention_wide",
+                lambda: alignment_check(torch, kernels, f"D {D} timed", args))
+            if not wide:
+                raise AssertionError(f"alignment_attention D {D}: the wide "
+                                     "kernel did not run")
+            align_err = max(align_err, checks["max_abs_err"])
+            entry = dict(alignment_timing(torch, kernels, args),
+                         shape=list(shape), **checks)
+            f.update(entry)
+            if D == WIDE_HEAD_DS[0]:
+                align.update(entry)
+            else:
+                align[f"d{D}"] = entry
+    align.update(max_abs_err=align_err)
     tones = tone_with_pause(torch, np, rng, 4, 16384)
     for n in (16, 800, 1000, 1200, 8192):
         with Phase("kernel fused_log_mel dft") as f:
             c = MelSpectrogramConfig(n_fft=n, win_length=n,
                                      hop_length=max(n // 4, 1))
-            (mel, energy), general = routed(
+            (mel, energy), launched = routed(
                 kernels, "fused_log_mel_dft",
                 lambda: kernels.fused_log_mel(tones, c))
             mel2, energy2 = kernels.fused_log_mel(tones, c)
             torch.cuda.synchronize()
-            if not general:
+            if not launched:
                 raise AssertionError(f"fused_log_mel n_fft {n}: the DFT "
                                      "kernel did not run")
             exact_mel, exact_energy = mel_spectrogram(tones.double(), c)
@@ -1900,11 +1960,13 @@ def kernel_general_paths(torch, np, kernels, compiled):
                    bound_share=bound_ms / ms, shape=list(y.shape),
                    n_fft=1200, max_abs_err=dft_err)
         f.update(dft)
-    ptxas = kernel_ptxas(compiled, "attention_general", None, {})
+    ptxas = wide_ptxas(compiled,
+                       _build.load("flash_attention", FLASH_SIGNATURES),
+                       _build.load("alignment_attention", ALIGN_SIGNATURES))
     flash.update(ptxas=ptxas)
     align.update(ptxas=ptxas)
-    return {"flash_attention_general": flash,
-            "alignment_attention_general": align,
+    return {"flash_attention_wide": flash,
+            "alignment_attention_wide": align,
             "fused_log_mel_dft": dft}
 
 
@@ -2037,7 +2099,7 @@ def cli_run(torch, np, kernels, synthesize, argv, flash_calls=None):
         utts = synthesize.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {**kernels.launches(), **kernels.general_launches()}
+    counts = {**kernels.launches(), **kernels.route_launches()}
     for u in utts:
         with open(u.base + ".png", "rb") as f:
             if f.read(8) != b"\x89PNG\r\n\x1a\n":
@@ -2266,7 +2328,7 @@ def main() -> int:
     }
     for name, err in kernel_backward(torch, np, kernels).items():
         entries[name]["grad_max_abs_err"] = err
-    general = kernel_general_paths(torch, np, kernels, compiled)
+    second = kernel_widths(torch, np, kernels, compiled)
 
     texts, src_lens, inv = bench_inputs(np)
     synth, short, wav, mel_lens, serving, ups_cap1000 = e2e_phase(
@@ -2321,16 +2383,16 @@ def main() -> int:
     # the second kernels: no driven path has a head dim past 256 or an
     # n_fft that is not a power of two, so each counts 0 on every path
     sources = {
-        "flash_attention_general": (
-            "smart_nar_fast_tts_tpu_torch/csrc/attention_general.cu",
+        "flash_attention_wide": (
+            "smart_nar_fast_tts_tpu_torch/csrc/flash_attention.cu",
             "smart_nar_fast_tts_tpu/ops/pallas/attention.py:52"),
-        "alignment_attention_general": (
-            "smart_nar_fast_tts_tpu_torch/csrc/attention_general.cu",
+        "alignment_attention_wide": (
+            "smart_nar_fast_tts_tpu_torch/csrc/alignment_attention.cu",
             "smart_nar_fast_tts_tpu/ops/pallas/alignment.py:67"),
         "fused_log_mel_dft": (
             "smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
             "smart_nar_fast_tts_tpu/ops/pallas/stft.py:46")}
-    for name, entry in general.items():
+    for name, entry in second.items():
         source, replaces = sources[name]
         launched = {run: c["launches"][name] for run, c in cli_counts.items()}
         entries[name] = dict(

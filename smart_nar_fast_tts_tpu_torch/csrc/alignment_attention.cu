@@ -72,7 +72,8 @@
 //   and a second, one-thread-per-item launch adds the units' sums in frame
 //   order: gnum and idx are bit-identical from run to run (no float atomics).
 // The ragged edges of T, L and D are masked or zero-filled in the kernel: no
-// padding copies.
+// padding copies.  Head dims past 256 run on the team and wide kernels at
+// the end of this file.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -663,6 +664,647 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 256: the wide kernel.
+//
+// The same function, contract and 3xTF32 products as the kernel above, for
+// any D (a multiple of 4).  What stops that design at 256 is the output
+// fragment (16·DP/32 registers a lane, 160 at DP 320) and each warp's q rows
+// beside a K chunk in shared memory.  So here:
+//  * the output's columns are split into slices of at most WIDE_SLICE
+//    columns, as even as 32-column groups allow (D 320: 160 + 160; 384:
+//    192 + 192; 512: 192 + 160 + 160); a warp computes the full scores of
+//    its 16 frames and writes one slice, so every slice runs its own online
+//    softmax over the same scores (Q K^T once per slice);
+//  * scores accumulate over D in chunks of `dc` columns (the widest
+//    multiple of 32, at most 256, that fits: 192): the block stages a chunk
+//    of WIDE_KC keys x dc columns of K, split into tf32 hi and lo once for
+//    the block, as the kernel above stages a whole key chunk, and each warp
+//    stages its 16 q rows' dc columns beside it; the small passes (lo·hi,
+//    hi·lo) are summed apart from hi·hi across all of D;
+//  * only slice 0 writes idx and the guided numerator's partial sums, so no
+//    term is counted twice and the fixed order of the sums holds.
+// The team kernel below does the scores once for all slices where its
+// shared memory fits (D up to 512); this kernel takes every other D.
+// Bound: as for the kernel above, the 3xTF32 products over the valid keys
+// at the TF32 rate; this kernel does Q K^T once per slice.
+// The persistent-block walk over 16-frame units (now of (batch, head,
+// slice)), the alternating order of key chunks, the skipping of keys past an
+// item's last valid one and the second launch that adds the partial sums
+// are those of the kernel above.
+constexpr int WIDE_KC = 32, WIDE_NT = WIDE_KC / 8;  // keys a chunk, tiles
+constexpr int WIDE_NJ = 24;                   // 8-column tiles of a slice
+constexpr int WIDE_SLICE = 8 * WIDE_NJ;       // 192 columns
+constexpr int WIDE_VS = WIDE_SLICE + 4;       // V row stride, ≡ 4 (mod 32)
+constexpr int WIDE_MAX_WARPS = 8;
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The runtime shape of a wide launch
+struct Wide {
+  int slices;          // output column slices
+  int dq;              // depth swept: D rounded up to 16
+  int dc, ndc;         // columns a K chunk, K chunks over dq
+  int ks;              // q and K row stride (≡ 16 mod 32 floats)
+};
+
+// slice `slice`'s first column and width (multiples of 32)
+__host__ __device__ inline void wide_cols(int D, int slices, int slice,
+                                          int& c0, int& dv) {
+  const int groups = (D + 31) / 32;
+  const int base = groups / slices, rem = groups % slices;
+  dv = 32 * (base + (slice < rem ? 1 : 0));
+  c0 = 32 * (slice * base + (slice < rem ? slice : rem));
+}
+
+__host__ __device__ inline size_t wide_smem(int ks) {
+  return sizeof(float) * ((size_t)WIDE_MAX_WARPS * 16 * ks +
+                          2 * (size_t)WIDE_KC * ks +
+                          2 * (size_t)WIDE_KC * WIDE_VS + WIDE_KC +
+                          2 * WIDE_MAX_WARPS);
+}
+
+// cp.async rows [r0, r0 + nrows) and columns [c0, c0 + ncols) (multiples
+// of 4) of a (rows_total, D) matrix into dst with row stride `stride`,
+// zeros past D and rows_total; `perm` as stage_rows
+__device__ __forceinline__ void stage_block(float* dst, const float* src,
+                                            int r0, int nrows, int rows_total,
+                                            int D, int c0, int ncols,
+                                            int stride, bool perm, int tid,
+                                            int threads) {
+  const int c4 = ncols / 4;
+#pragma unroll 1
+  for (int i = tid; i < nrows * c4; i += threads) {
+    const int r = i / c4, c = i % c4;
+    const int n = r0 + r, col = c0 + 4 * c;
+    const bool ok = n < rows_total && col < D;
+    const int row = perm ? (r & ~7) + ((r & 7) >> 1) + ((r & 1) << 2) : r;
+    cp_async16(dst + row * stride + 4 * c,
+               ok ? src + (size_t)n * D + col : src, ok);
+  }
+}
+
+// split_rows over nrows x ncols at stride `stride`
+__device__ __forceinline__ void split_block(float* hi, float* lo, int nrows,
+                                            int ncols, int stride, int tid,
+                                            int threads) {
+  const int c4 = ncols / 4;
+#pragma unroll 1
+  for (int i = tid; i < nrows * c4; i += threads) {
+    const int off = (i / c4) * stride + 4 * (i % c4);
+    const float4 x = *reinterpret_cast<const float4*>(lo + off);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+// big += q_hi K_hi^T, small += q_lo K_hi^T + q_hi K_lo^T over `width`
+// depths (a multiple of 16) of a staged K chunk: as qk_product, with q rows
+// q0 and q1 and K rows starting at the chunk's first column.  hi·hi goes
+// through the tensor cores in runs of WIDE_RUN depths, each into a zeroed
+// accumulator then added to big in f32: the tensor cores' f32 sums drift
+// with the length of a chain (with one chain over all of D, `out` at D 512
+// and L 1000 lay 8.4e-6 from the 3xTF32 plain version on an H100, beyond
+// the 8e-6 of tests/test_torch_kernels_cuda.py).
+constexpr int WIDE_RUN = 128;
+
+template <int NT>
+__device__ __forceinline__ void wide_qk(float (&big)[NT][4],
+                                        float (&small)[NT][4],
+                                        const float* q0, const float* q1,
+                                        const float* khi, const float* klo,
+                                        int ks, int g, int tq, int width) {
+  float run[NT][4];
+  for (int c = 0; c < width / 16; ++c) {
+    if (c % (WIDE_RUN / 16) == 0) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        run[i][0] = run[i][1] = run[i][2] = run[i][3] = 0.f;
+    }
+    const int d0 = 16 * c + 4 * tq;
+    uint32_t ah[2][4], al[2][4];
+    {
+      const float4 xa = *reinterpret_cast<const float4*>(q0 + d0);
+      const float4 xb = *reinterpret_cast<const float4*>(q1 + d0);
+      const float a0[4] = {xa.x, xb.x, xa.y, xb.y};
+      const float a1[4] = {xa.z, xb.z, xa.w, xb.w};
+      split4(a0, ah[0], al[0]);
+      split4(a1, ah[1], al[1]);
+    }
+    uint32_t bh[2][NT][2], bl[2][NT][2];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int off = (8 * i + g) * ks + d0;
+      const float4 h4 = *reinterpret_cast<const float4*>(khi + off);
+      const float4 l4 = *reinterpret_cast<const float4*>(klo + off);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        bh[j >> 1][i][j & 1] = word(h4, j);
+        bl[j >> 1][i][j & 1] = word(l4, j);
+      }
+    }
+    mma_3xtf32_apart<NT>(run, small, ah[0], al[0], bh[0], bl[0]);
+    mma_3xtf32_apart<NT>(run, small, ah[1], al[1], bh[1], bl[1]);
+    if ((c + 1) % (WIDE_RUN / 16) == 0 || c + 1 == width / 16) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[i][e] += run[i][e];
+    }
+  }
+}
+
+// exp_pv_product for a slice of `nf` 32-column groups (V staged at stride
+// WIDE_VS from the slice's first column)
+template <int NT>
+__device__ __forceinline__ void wide_exp_pv(
+    float (&o)[WIDE_NJ][4], const float (&s)[NT][4], Rows& r,
+    const float* kval, const float* vhi, const float* vlo, int c0, int g,
+    int tq, int ntiles, bool guided, float ilen, float inv_ilen,
+    float inv_2s2, int nf) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (nt >= ntiles) break;
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * nt + 2 * tq + (e & 1), i = e >> 1;
+      p[e] = kval[col] > 0.f ? expf(s[nt][e] - r.m[i]) : 0.f;
+      r.lsum[i] += p[e];
+      const float n = (float)(c0 + col);
+      if (guided && r.frame_ok[i] && n < ilen) {
+        const float dn = n * inv_ilen - r.tpos[i];
+        r.gacc[i] += (1.f - expf(-(dn * dn) * inv_2s2)) * p[e];
+      }
+    }
+    uint32_t ph[4], pl[4];
+    const float a[4] = {p[0], p[2], p[1], p[3]};
+    split4(a, ph, pl);
+    const int off = (8 * nt + tq) * WIDE_VS + 16 * (g & 1) + 4 * (g >> 1);
+#pragma unroll
+    for (int f = 0; f < WIDE_NJ / 4; ++f) {
+      if (f >= nf) break;
+      const float4 h0 = *reinterpret_cast<const float4*>(vhi + off + 32 * f);
+      const float4 h1 =
+          *reinterpret_cast<const float4*>(vhi + off + 4 * WIDE_VS + 32 * f);
+      const float4 l0 = *reinterpret_cast<const float4*>(vlo + off + 32 * f);
+      const float4 l1 =
+          *reinterpret_cast<const float4*>(vlo + off + 4 * WIDE_VS + 32 * f);
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        bh[i][0] = word(h0, i);
+        bh[i][1] = word(h1, i);
+        bl[i][0] = word(l0, i);
+        bl[i][1] = word(l1, i);
+      }
+      mma_3xtf32<4>(o + 4 * f, ph, pl, bh, bl);
+    }
+  }
+}
+
+// finish_rows for a slice from column c0 of `nf` 32-column groups; `first`
+// (head 0, slice 0) also writes idx and returns the guided numerator
+__device__ __forceinline__ float wide_finish(Rows& r,
+                                             const float (&o)[WIDE_NJ][4],
+                                             float* out_bh, int* idx_b,
+                                             int T, int D, int tq, int c0,
+                                             int nf, bool first) {
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      r.lsum[i] += __shfl_xor_sync(0xffffffffu, r.lsum[i], off);
+      r.gacc[i] += __shfl_xor_sync(0xffffffffu, r.gacc[i], off);
+    }
+    inv[i] = 1.f / fmaxf(r.lsum[i], 1e-37f);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r.t[i] >= T) continue;
+    float* orow = out_bh + (size_t)r.t[i] * D + c0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int f = 0; f < WIDE_NJ / 4; ++f) {
+        const int col0 = 32 * f + 16 * half + 4 * tq;
+        if (f >= nf || c0 + col0 >= D) continue;
+        const int e = 2 * i + half;
+        *reinterpret_cast<float4*>(orow + col0) = make_float4(
+            o[4 * f][e] * inv[i], o[4 * f + 1][e] * inv[i],
+            o[4 * f + 2][e] * inv[i], o[4 * f + 3][e] * inv[i]);
+      }
+    }
+  }
+  float gsum = 0.f;
+  if (first) {
+    if (tq == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r.t[i] < T) idx_b[r.t[i]] = r.best[i];
+      gsum = (r.frame_ok[0] ? r.gacc[0] * inv[0] : 0.f) +
+             (r.frame_ok[1] ? r.gacc[1] * inv[1] : 0.f);
+    }
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1)
+      gsum += __shfl_xor_sync(0xffffffffu, gsum, off);
+  }
+  return gsum;
+}
+
+// The walk of alignment_kernel over units (b, h, slice, 16 frames); each
+// key chunk's scores sum over the chunks of K, then its softmax, argmax,
+// guided numerator and P V as there.
+__global__ void __launch_bounds__(32 * WIDE_MAX_WARPS, 1)
+alignment_wide_kernel(const Args a, const Wide w, int total_units) {
+  constexpr int KC = WIDE_KC, NT = WIDE_NT;
+  extern __shared__ __align__(16) float smem[];
+  // WIDE_MAX_WARPS warps, read at run time: as compile-time constants they
+  // let the staging loops take registers enough to spill (255 registers
+  // and 112 spill bytes in chip_smoke.py's build report on an H100)
+  const int warps = blockDim.x / 32, threads = blockDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  float* qs = smem + warp * 16 * w.ks;       // this warp's 16 q rows
+  float* khi = smem + warps * 16 * w.ks;
+  float* klo = khi + KC * w.ks;
+  float* vhi = klo + KC * w.ks;
+  float* vlo = vhi + KC * WIDE_VS;
+  float* kval = vlo + KC * WIDE_VS;
+  int* kend_of = reinterpret_cast<int*>(kval + KC);   // 2 x WIDE_MAX_WARPS
+  const int U = units_of(a.T);
+  const int u_begin = (int)((long long)blockIdx.x * total_units / gridDim.x);
+  const int u_end =
+      (int)((long long)(blockIdx.x + 1) * total_units / gridDim.x);
+
+  int parity = 0;
+  for (int seg = u_begin; seg < u_end;) {
+    const int sg = seg / U;                  // (b, h, slice)
+    const int seg_end = min(u_end, (sg + 1) * U);
+    const int bh = sg / w.slices, slice = sg % w.slices;
+    const int b = bh / a.H, h = bh % a.H;
+    int c0, dv;
+    wide_cols(a.D, w.slices, slice, c0, dv);
+    const int nf = dv / 32;
+    const bool first = h == 0 && slice == 0;
+    const float* kb = a.k + (size_t)bh * a.L * a.D;
+    const float* vb = a.v + (size_t)bh * a.L * a.D;
+    const uint8_t* validb = a.key_valid + (size_t)b * a.L;
+    const float ilen = (float)a.src_lens[b], olen = (float)a.mel_lens[b];
+    const float inv_ilen = 1.f / ilen;
+    float* out_bh = a.out + (size_t)bh * a.T * a.D;
+    int* idx_b = a.idx + (size_t)b * a.T;
+    int last = 0;
+    for (int n = threadIdx.x; n < a.L; n += threads)
+      if (validb[n]) last = n + 1;
+    last = __reduce_max_sync(0xffffffffu, last);
+    int* slot = kend_of + (parity ^= 1) * WIDE_MAX_WARPS;
+    if (lane == 0) slot[warp] = last;
+    __syncthreads();
+    int kend = 0;
+    for (int i = 0; i < warps; ++i) kend = max(kend, slot[i]);
+    const int chunks = max(1, (kend + KC - 1) / KC);
+    int res_k = -1, res_v = -1;              // the staged K chunk, V chunk
+    const float* q_bh = a.q + (size_t)bh * a.T * a.D;
+
+    for (int round = seg; round < seg_end; round += warps) {
+      const int unit = round + warp;
+      const bool active = unit < seg_end;
+      const bool reverse = ((round - seg) / warps) & 1;
+      Rows r;
+      init_rows(r, 16 * (unit % U), g, a.T, olen);
+      float o[WIDE_NJ][4];
+#pragma unroll
+      for (int j = 0; j < WIDE_NJ; ++j)
+        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+      for (int i = 0; i < chunks; ++i) {
+        const int ch = reverse ? chunks - 1 - i : i;
+        float s[NT][4], small[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = small[nt][e] = 0.f;
+        for (int j = 0; j < w.ndc; ++j) {
+          const int d0 = j * w.dc, width = min(w.dc, w.dq - d0);
+          const int piece = ch * w.ndc + j;
+          const bool need_k = piece != res_k, need_v = ch != res_v;
+          __syncthreads();                 // every warp is done with them
+          if (need_k)
+            stage_block(klo, kb, KC * ch, KC, a.L, a.D, d0, width, w.ks,
+                        false, threadIdx.x, threads);
+          if (need_v) {
+            stage_block(vlo, vb, KC * ch, KC, a.L, a.D, c0, dv, WIDE_VS,
+                        true, threadIdx.x, threads);
+            for (int k = threadIdx.x; k < KC; k += threads) {
+              const int n = KC * ch + k;
+              kval[k] = n < a.L ? (validb[n] ? 1.f : 0.f) : -1.f;
+            }
+          }
+          if (active)                        // q rows, with every chunk
+            stage_block(qs, q_bh, 16 * (unit % U), 16, a.T, a.D, d0, width,
+                        w.ks, false, lane, 32);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+          if (need_k)
+            split_block(khi, klo, KC, width, w.ks, threadIdx.x, threads);
+          if (need_v)
+            split_block(vhi, vlo, KC, dv, WIDE_VS, threadIdx.x, threads);
+          __syncthreads();
+          res_k = piece;
+          res_v = ch;
+          if (active)
+            wide_qk(s, small, qs + g * w.ks, qs + (g + 8) * w.ks, khi, klo,
+                    w.ks, g, tq, width);
+        }
+        if (!active) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] += small[nt][e];
+        float alpha[2];
+        chunk_max<NT>(s, r, alpha, kval, KC * ch, tq, a.inv_sqrt_d);
+        if (i > 0) {
+#pragma unroll
+          for (int j = 0; j < WIDE_NJ; ++j) {
+            o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+            o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+          }
+        }
+        const int ntiles = min(NT, max(0, (kend - KC * ch + 7) / 8));
+        wide_exp_pv(o, s, r, kval, vhi, vlo, KC * ch, g, tq, ntiles,
+                    h == 0, ilen, inv_ilen, a.inv_2s2, nf);
+      }
+      if (active) {
+        const float gsum = wide_finish(r, o, out_bh, idx_b, a.T, a.D, tq, c0,
+                                       nf, first);
+        if (first && lane == 0) a.partial[(size_t)b * U + unit % U] = gsum;
+      }
+    }
+    seg = seg_end;
+  }
+}
+
+// The wide kernel in teams, where its shared memory fits (D up to 512 with
+// 8 or 6 warps): a team of as many warps as there are output slices takes
+// one 16-frame unit, and its warp s computes the unit's scores over the
+// columns of slice s only (its q rows over those columns stay in shared
+// memory); the warps add their partial scores through shared memory, in
+// the same order in every warp, so each warp of the team holds the same
+// scores, runs the same softmax and then its own slice's P V.  So Q K^T is
+// done once, not once per slice, and a key chunk is staged over all of D
+// at once (chunks of TEAM_KC keys).
+constexpr int TEAM_KC = 16, TEAM_NT = TEAM_KC / 8;
+
+struct Team {
+  int slices;          // warps a team: output slices
+  int dk;              // K's staged depth: D rounded up to 32
+  int qs, ks;          // q and K row strides
+  int warps;           // teams x slices
+};
+
+__host__ __device__ inline size_t team_smem(const Team& t) {
+  return sizeof(float) *
+         ((size_t)t.warps * 16 * t.qs + 2 * (size_t)TEAM_KC * t.ks +
+          2 * (size_t)t.slices * TEAM_KC * WIDE_VS + TEAM_KC +
+          (size_t)t.warps * 32 * TEAM_NT * 4 + 2 * WIDE_MAX_WARPS);
+}
+
+__device__ __forceinline__ void team_sync(int team, int warps) {
+  asm volatile("bar.sync %0, %1;" :: "r"(1 + team), "r"(32 * warps)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(32 * WIDE_MAX_WARPS, 1)
+alignment_team_kernel(const Args a, const Team t, int total_units) {
+  constexpr int KC = TEAM_KC, NT = TEAM_NT;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x / 32, threads = blockDim.x;
+  const int S = t.slices, teams = warps / S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int team = warp / S, slice = warp % S;
+  int c0, dv;
+  wide_cols(a.D, S, slice, c0, dv);
+  const int nf = dv / 32;
+  float* qs = smem + warp * 16 * t.qs;       // this warp's q rows, its slice
+  float* khi = smem + warps * 16 * t.qs;
+  float* klo = khi + KC * t.ks;
+  float* vhi = klo + KC * t.ks;              // slice s at s KC WIDE_VS
+  float* vlo = vhi + S * KC * WIDE_VS;
+  float* kval = vlo + S * KC * WIDE_VS;
+  float* part = kval + KC;                   // warps x 32 lanes x NT x 4
+  int* kend_of = reinterpret_cast<int*>(part + warps * 32 * NT * 4);
+  const int U = units_of(a.T);
+  const int u_begin = (int)((long long)blockIdx.x * total_units / gridDim.x);
+  const int u_end =
+      (int)((long long)(blockIdx.x + 1) * total_units / gridDim.x);
+
+  auto stage_q = [&](int unit) {
+    stage_block(qs, a.q + (size_t)(unit / U) * a.T * a.D, 16 * (unit % U), 16,
+                a.T, a.D, c0, dv, t.qs, false, lane, 32);
+    cp_async_commit();
+  };
+
+  int parity = 0;
+  for (int seg = u_begin; seg < u_end;) {
+    const int bh = seg / U;
+    const int seg_end = min(u_end, (bh + 1) * U);
+    const int b = bh / a.H, h = bh % a.H;
+    const bool first = h == 0 && slice == 0;
+    const float* kb = a.k + (size_t)bh * a.L * a.D;
+    const float* vb = a.v + (size_t)bh * a.L * a.D;
+    const uint8_t* validb = a.key_valid + (size_t)b * a.L;
+    const float ilen = (float)a.src_lens[b], olen = (float)a.mel_lens[b];
+    const float inv_ilen = 1.f / ilen;
+    float* out_bh = a.out + (size_t)bh * a.T * a.D;
+    int* idx_b = a.idx + (size_t)b * a.T;
+    int last = 0;
+    for (int n = threadIdx.x; n < a.L; n += threads)
+      if (validb[n]) last = n + 1;
+    last = __reduce_max_sync(0xffffffffu, last);
+    int* slot = kend_of + (parity ^= 1) * WIDE_MAX_WARPS;
+    if (lane == 0) slot[warp] = last;
+    __syncthreads();
+    int kend = 0;
+    for (int i = 0; i < warps; ++i) kend = max(kend, slot[i]);
+    const int chunks = max(1, (kend + KC - 1) / KC);
+    int resident = -1;                       // the chunk staged
+    if (seg + team < seg_end) stage_q(seg + team);
+
+    for (int round = seg; round < seg_end; round += teams) {
+      const int unit = round + team;
+      const bool active = unit < seg_end;
+      const bool reverse = ((round - seg) / teams) & 1;
+      const bool prefetch = unit + teams < seg_end;
+      Rows r;
+      init_rows(r, 16 * (unit % U), g, a.T, olen);
+      float o[WIDE_NJ][4];
+#pragma unroll
+      for (int j = 0; j < WIDE_NJ; ++j)
+        o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+      for (int i = 0; i < chunks; ++i) {
+        const int ch = reverse ? chunks - 1 - i : i;
+        if (ch != resident) {
+          __syncthreads();                   // every warp is done with it
+          stage_block(klo, kb, KC * ch, KC, a.L, a.D, 0, t.dk, t.ks, false,
+                      threadIdx.x, threads);
+          for (int sl = 0; sl < S; ++sl) {
+            int s0, sw;
+            wide_cols(a.D, S, sl, s0, sw);
+            stage_block(vlo + sl * KC * WIDE_VS, vb, KC * ch, KC, a.L, a.D,
+                        s0, sw, WIDE_VS, true, threadIdx.x, threads);
+          }
+          cp_async_commit();
+          for (int k = threadIdx.x; k < KC; k += threads) {
+            const int n = KC * ch + k;
+            kval[k] = n < a.L ? (validb[n] ? 1.f : 0.f) : -1.f;
+          }
+          cp_async_wait_all();
+          __syncthreads();
+          split_block(khi, klo, KC, t.dk, t.ks, threadIdx.x, threads);
+          split_block(vhi, vlo, S * KC, WIDE_SLICE, WIDE_VS, threadIdx.x,
+                      threads);
+          __syncthreads();
+          resident = ch;
+        }
+        if (!active) continue;
+        float s[NT][4], small[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[nt][e] = small[nt][e] = 0.f;
+        wide_qk(s, small, qs + g * t.qs, qs + (g + 8) * t.qs, khi + c0,
+                klo + c0, t.ks, g, tq, dv);
+        // the team's partial scores, added in slice order in every warp
+        float4* mine = reinterpret_cast<float4*>(part) +
+                       (warp * 32 + lane) * (NT * 4 / 4);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mine[nt] = make_float4(s[nt][0] + small[nt][0],
+                                 s[nt][1] + small[nt][1],
+                                 s[nt][2] + small[nt][2],
+                                 s[nt][3] + small[nt][3]);
+        team_sync(team, S);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4* p = reinterpret_cast<const float4*>(part) +
+                            (team * S * 32 + lane) * NT + nt;
+          float4 x = p[0];
+          for (int w = 1; w < S; ++w) {
+            const float4 y = p[w * 32 * NT];
+            x.x += y.x; x.y += y.y; x.z += y.z; x.w += y.w;
+          }
+          s[nt][0] = x.x; s[nt][1] = x.y; s[nt][2] = x.z; s[nt][3] = x.w;
+        }
+        team_sync(team, S);                  // the partials are read
+        if (i == chunks - 1 && prefetch) {
+          __syncwarp();                      // every lane is done with q
+          stage_q(unit + teams);
+        }
+        float alpha[2];
+        chunk_max<NT>(s, r, alpha, kval, KC * ch, tq, a.inv_sqrt_d);
+        if (i > 0) {
+#pragma unroll
+          for (int j = 0; j < WIDE_NJ; ++j) {
+            o[j][0] *= alpha[0]; o[j][1] *= alpha[0];
+            o[j][2] *= alpha[1]; o[j][3] *= alpha[1];
+          }
+        }
+        const int ntiles = min(NT, max(0, (kend - KC * ch + 7) / 8));
+        wide_exp_pv(o, s, r, kval, vhi + slice * KC * WIDE_VS,
+                    vlo + slice * KC * WIDE_VS, KC * ch, g, tq, ntiles,
+                    first, ilen, inv_ilen, a.inv_2s2, nf);
+      }
+      if (active) {
+        const float gsum = wide_finish(r, o, out_bh, idx_b, a.T, a.D, tq, c0,
+                                       nf, first);
+        if (first && lane == 0) a.partial[(size_t)b * U + unit % U] = gsum;
+      }
+      cp_async_wait_all();                   // the next unit's q
+      __syncwarp();
+    }
+    seg = seg_end;
+  }
+}
+
+// The team kernel's shape at head dim D: as many whole teams as fit, at
+// most 8 warps; the dynamic shared memory, or 0 if not one team fits.
+size_t team_plan(int D, Team& t) {
+  t.slices = ((D + 31) / 32 + WIDE_NJ / 4 - 1) / (WIDE_NJ / 4);
+  t.dk = round_up(D, 32);
+  t.ks = t.dk + 16;
+  int widest = 0;
+  for (int s = 0; s < t.slices; ++s) {
+    int c0, dv;
+    wide_cols(D, t.slices, s, c0, dv);
+    widest = max(widest, dv);
+  }
+  t.qs = widest + 16;
+  for (int n = WIDE_MAX_WARPS / t.slices; n >= 1; --n) {
+    t.warps = n * t.slices;
+    if (team_smem(t) <= MAX_SMEM) return team_smem(t);
+  }
+  return 0;
+}
+
+// The wide launch's shape at head dim D: 8 warps and the widest K chunk (a
+// multiple of 32, at most 256 columns) that fits, since fewer chunks mean
+// fewer block barriers; the dynamic shared memory.
+size_t wide_plan(int D, Wide& w) {
+  w.dq = round_up(D, 16);
+  w.slices = ((D + 31) / 32 + WIDE_NJ / 4 - 1) / (WIDE_NJ / 4);
+  for (w.dc = min(round_up(w.dq, 32), 256);; w.dc -= 32) {
+    w.ks = round_up(w.dc, 32) + 16;
+    if (w.dc == 32 || wide_smem(w.ks) <= MAX_SMEM) break;
+  }
+  w.dc = min(w.dc, w.dq);
+  w.ndc = (w.dq + w.dc - 1) / w.dc;
+  return wide_smem(w.ks);
+}
+
+// The team kernel where it fits with at least two teams, else the wide
+// kernel.
+cudaError_t launch_wide(const Args& a, int B, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  Team t;
+  size_t smem = team_plan(a.D, t);
+  if (smem != 0 && t.warps >= 2 * t.slices) {
+    const int units = B * a.H * units_of(a.T);
+    err = cudaFuncSetAttribute(alignment_team_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    alignment_team_kernel<<<min(sms, units), 32 * t.warps, smem, s>>>(
+        a, t, units);
+    return cudaGetLastError();
+  }
+  Wide w;
+  smem = wide_plan(a.D, w);
+  const int units = B * a.H * w.slices * units_of(a.T);
+  err = cudaFuncSetAttribute(alignment_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  alignment_wide_kernel<<<min(sms, units), 32 * WIDE_MAX_WARPS, smem, s>>>(
+      a, w, units);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // 16-frame units per (batch, head): the wrapper allocates partial
@@ -711,6 +1353,57 @@ extern "C" int alignment_attention_forward(
       static_cast<const float*>(partial), static_cast<float*>(gnum), B,
       units_of(T));
   return static_cast<int>(cudaGetLastError());
+}
+
+// As alignment_attention_forward for a D past 256 (a multiple of 4), on
+// the team or the wide kernel.
+extern "C" int alignment_attention_wide_forward(
+    const void* q, const void* k, const void* v, const void* key_valid,
+    const void* src_lens, const void* mel_lens, void* out, void* idx,
+    void* partial, void* gnum, int B, int H, int T, int L, int D,
+    float inv_sqrt_d, float two_sigma2, void* stream) {
+  if (B == 0) return 0;
+  if (H < 1 || T < 1 || L < 1 || D < 4 || D % 4 != 0 || H > 65535 ||
+      B > 65535 || (long long)B * H * units_of(T) * ((D + 191) / 192) >
+                       2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v),
+               static_cast<const uint8_t*>(key_valid),
+               static_cast<const int*>(src_lens),
+               static_cast<const int*>(mel_lens), static_cast<float*>(out),
+               static_cast<int*>(idx), static_cast<float*>(partial), H, T, L,
+               D, inv_sqrt_d, 1.f / two_sigma2};
+  const cudaError_t err = launch_wide(a, B, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gnum_reduce_kernel<<<(B + 127) / 128, 128, 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(gnum), B,
+      units_of(T));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shape alignment_attention_wide_forward takes at head dim D: shape[0]
+// 1 for the team kernel, 0 for the wide one; shape[1] warps; shape[2]
+// columns of K staged at once; shape[3] output slices; shape[4] the dynamic
+// shared memory in bytes.
+extern "C" void alignment_attention_wide_shape(int D, int* shape) {
+  Team t{};
+  const size_t team = team_plan(D, t);
+  if (team != 0 && t.warps >= 2 * t.slices) {
+    shape[0] = 1;
+    shape[1] = t.warps;
+    shape[2] = t.dk;
+    shape[3] = t.slices;
+    shape[4] = static_cast<int>(team);
+    return;
+  }
+  Wide w{};
+  shape[4] = static_cast<int>(wide_plan(D, w));
+  shape[0] = 0;
+  shape[1] = WIDE_MAX_WARPS;
+  shape[2] = w.dc;
+  shape[3] = w.slices;
 }
 
 extern "C" const char* alignment_attention_error_string(int status) {

@@ -69,7 +69,8 @@
 // warpgroups (ping-pong) and a persistent grid that loads the next block's
 // q during this one's stores were each measured no faster here; removing
 // the K/V loads altogether did not speed the loop up either, so it is
-// bound by the consumers' instructions, not by L2.
+// bound by the consumers' instructions, not by L2.  Head dims past 256 run
+// on the wide kernel further down (flash_wide_kernel).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -804,6 +805,418 @@ int launch(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 256: the wide kernel.
+//
+// The same function, rounding points and key-tile skipping as the kernel
+// above, for any head dim D that is a multiple of 64 (the wrapper zero-pads
+// D past 256 to the next multiple of 64; the scale stays 1/sqrt of the true
+// D).  What stops the design above at 256 is the output accumulator (64 x D
+// f32 a warpgroup: 128 of a consumer's 240 registers at D 256) and the q
+// tiles and K/V stages in shared memory.  So here:
+//  * the output's columns are split across blocks: a block computes the full
+//    scores over all of D and writes a slice of 2 to 4 chunks of 64 columns
+//    (128-256), the slices of a D as even as whole chunks allow (D 320: 192 +
+//    128; 384: 192 + 192; 512: 256 + 256; 1024: 4 x 256), so that every
+//    block of a launch does about the same work; the price is Q K^T once per
+//    slice (2x at D 320-512);
+//  * K and the slice's V go through the TMA ring in chunks of 64 keys x 64
+//    columns (8 KB), so a stage does not grow with D: a key tile is D / 64
+//    K chunks, then its slice's V chunks.  Q K^T accumulates over the K
+//    chunks in m64n64k16 steps, a chunk's stage released as soon as the next
+//    chunk's product is issued; P V is m64n64k16 per V chunk, from P in
+//    registers;
+//  * q (bf16(q * scale), written by `to_bf16_kernel` into scratch) is loaded
+//    by TMA once per block and stays in shared memory while it fits beside a
+//    ring of 6-8 stages (D up to 704 with 128-row blocks); past that each K
+//    chunk's stage also holds the block's 128 x 64 chunk of q, re-read from
+//    L2 for every key tile;
+//  * as above, tile n's Q K^T is issued before tile n - 1's P V, so the
+//    softmax of tile n runs while P V is on the tensor cores; the producer
+//    loads in the order the consumers read: K of tile n, then V of tile
+//    n - 1, so a ring of NV + 2 stages never stalls on a stage held back.
+// Bound: the products over the valid keys at the bf16 tensor-core rate, D x
+// Lk x Lq twice; this design does the Q K^T part once per slice.  What it
+// leaves on the table: with 64-key tiles each Q K^T step (m64n64k16, both
+// operands from shared memory) reads 4 KB of shared memory for 32 cycles of
+// the tensor cores, the SM's whole 128 bytes a cycle, as the kernel above
+// does at D 192 and 256; a wider key tile needs registers that the output
+// slice holds.
+constexpr int WIDE_BN = 64;                  // keys per tile
+constexpr int CHUNK = 64 * ROW_BYTES;        // 64 rows x 64 columns, bf16
+constexpr int Q_CHUNK = 2 * CHUNK;           // the block's 128 rows x 64
+constexpr int WIDE_MAX_STAGES = 8, WIDE_MIN_STAGES = 6;
+constexpr int WIDE_MAX_SLICE = 4;            // chunks of 64 columns a slice
+// shared memory beside q and the ring: alignment slack, the mbarriers
+// (full, empty, q), then the key tiles' words
+constexpr int WIDE_FIXED = 1024 + 16 * WIDE_MAX_STAGES + 16;
+
+// The output slices over NC chunks of 64 columns: as few as hold at most
+// WIDE_MAX_SLICE chunks each.
+__host__ __device__ inline int wide_slices(int nc) {
+  return (nc + WIDE_MAX_SLICE - 1) / WIDE_MAX_SLICE;
+}
+// Slice `slice` of `slices`: its first chunk and its width in chunks (the
+// first NC % slices slices take one more).
+__host__ __device__ inline void wide_slice(int nc, int slices, int slice,
+                                           int& first, int& width) {
+  const int base = nc / slices, rem = nc % slices;
+  width = base + (slice < rem ? 1 : 0);
+  first = slice * base + (slice < rem ? slice : rem);
+}
+
+// Layout of the wide kernel's dynamic shared memory, from a 1024-byte
+// aligned base: [q, NC chunks of 16 KB, if resident] [the ring: STAGES
+// stages] [mbarriers] [key-tile words].  A stage holds one 8 KB K or V
+// chunk; where q streams, a K stage holds the q chunk first (24 KB).
+struct WideLayout {
+  bool q_resident;
+  int stages;
+  uint32_t q_bytes, stage_bytes, k_off;
+};
+
+__host__ __device__ inline WideLayout wide_layout(int nc, bool q_resident,
+                                                  int stages) {
+  WideLayout w;
+  w.q_resident = q_resident;
+  w.stages = stages;
+  w.q_bytes = q_resident ? nc * Q_CHUNK : 0;
+  w.stage_bytes = q_resident ? CHUNK : Q_CHUNK + CHUNK;
+  w.k_off = q_resident ? 0 : Q_CHUNK;
+  return w;
+}
+
+// O (64 x DV) += P V for one key tile: V's DV / 64 chunks in ring positions
+// vpos .. (issued and committed, not waited for)
+template <int DV>
+__device__ __forceinline__ void wide_pv(float (&o)[DV / 2],
+                                        const uint32_t (&pa)[WIDE_BN / 4],
+                                        uint32_t ring, uint32_t full,
+                                        const WideLayout& w, int vpos) {
+#pragma unroll
+  for (int j = 0; j < DV / 64; ++j) {
+    const int p = vpos + j;
+    mbar_wait(full + 8 * (p % w.stages), (p / w.stages) & 1);
+  }
+  __syncwarp();
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < DV / 64; ++j) {
+    const uint32_t st = ring + ((vpos + j) % w.stages) * w.stage_bytes;
+#pragma unroll
+    for (int kk = 0; kk < WIDE_BN / 16; ++kk)
+      wgmma_rs(*reinterpret_cast<float(*)[32]>(o + 32 * j), pa + 4 * kk,
+               wgmma_desc(st + kk * 16 * ROW_BYTES, CHUNK, 1024));
+  }
+  wgmma_commit();
+}
+
+// S = (q scale) K^T for one key tile over its NC K chunks in ring positions
+// pos .. pos + NC - 1: each chunk's four k-steps are one group, and chunk
+// c - 1's stage is released once chunk c is issued; the last chunk's group
+// stays open.
+__device__ __forceinline__ void wide_qk(float (&sc)[WIDE_BN / 2],
+                                        uint32_t q_res, uint32_t ring,
+                                        uint32_t full, uint32_t empty,
+                                        const WideLayout& w, int nc, int wg,
+                                        int pos) {
+  for (int c = 0; c < nc; ++c) {
+    const int p = pos + c;
+    const uint32_t st = ring + (p % w.stages) * w.stage_bytes;
+    const uint32_t qa = (w.q_resident ? q_res + c * Q_CHUNK : st) + wg * CHUNK;
+    mbar_wait(full + 8 * (p % w.stages), (p / w.stages) & 1);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sc, wgmma_desc(qa + kk * 32, 16, 1024),
+               wgmma_desc(st + w.k_off + kk * 32, 16, 1024), c > 0 || kk > 0);
+    wgmma_commit();
+    if (c > 0) {
+      wgmma_wait<1>();
+      mbar_arrive(empty + 8 * ((p - 1) % w.stages));
+    }
+  }
+}
+
+template <int DV, typename T>
+__device__ __forceinline__ void wide_body(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, const uint8_t* __restrict__ key_valid,
+    T* __restrict__ out, int H, int Lq, int Lk, int D, const WideLayout& w,
+    int row0, int first, uint32_t base, uint8_t* base_ptr) {
+  constexpr int NV = DV / 64;
+  const int nc = D / 64;
+  const uint32_t ring = base + w.q_bytes;
+  const uint32_t full = ring + w.stages * w.stage_bytes;
+  const uint32_t empty = full + 8 * WIDE_MAX_STAGES;
+  const uint32_t q_full = empty + 8 * WIDE_MAX_STAGES;
+  KeyWords<WIDE_BN>* masks =
+      reinterpret_cast<KeyWords<WIDE_BN>*>(base_ptr + (q_full + 16 - base));
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y;
+  const uint8_t* valid_b = key_valid + (size_t)(bh / H) * Lk;
+  const int n_tiles = (Lk + WIDE_BN - 1) / WIDE_BN;
+
+  build_masks<WIDE_BN>(valid_b, Lk, n_tiles, warp, lane, masks);
+  if (tid == 0) {
+    for (int s = 0; s < w.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    // the producer: q once (if resident), then for each tile with a valid
+    // key its K chunks and the previous such tile's V chunks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
+    if (warp != CONSUMERS / 32 || lane != 0) return;
+    if (w.q_resident) {
+      mbar_expect_tx(q_full, nc * Q_CHUNK);
+      for (int c = 0; c < nc; ++c)
+        tma_load(base + c * Q_CHUNK, q_map, q_full, 64 * c, row0, bh);
+    }
+    int pos = 0, prev = -1;
+    auto acquire = [&](uint32_t bytes) {
+      const int s = pos % w.stages;
+      mbar_wait(empty + 8 * s, ((pos / w.stages) & 1) ^ 1);
+      mbar_expect_tx(full + 8 * s, bytes);
+      ++pos;
+      return s;
+    };
+    auto load_v = [&](int t) {
+      for (int j = 0; j < NV; ++j) {
+        const int s = acquire(CHUNK);
+        tma_load(ring + s * w.stage_bytes, v_map, full + 8 * s,
+                 64 * (first + j), t * WIDE_BN, bh);
+      }
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      if (!any_key(masks[t])) continue;
+      for (int c = 0; c < nc; ++c) {
+        const int s = acquire(w.stage_bytes);
+        const uint32_t st = ring + s * w.stage_bytes;
+        if (!w.q_resident)
+          tma_load(st, q_map, full + 8 * s, 64 * c, row0, bh);
+        tma_load(st + w.k_off, k_map, full + 8 * s, 64 * c, t * WIDE_BN, bh);
+      }
+      if (prev >= 0) load_v(prev);
+      prev = t;
+    }
+    if (prev >= 0) load_v(prev);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+  const int wg = warp / 4, quad = lane % 4;
+  if (w.q_resident) mbar_wait(q_full, 0);
+
+  // accumulator layout (m64n64 per 64 columns): o[32 j + 4 i + e] holds row
+  // 16 (warp % 4) + lane / 4 + 8 (e / 2), column 64 j + 8 i + 2 quad + e % 2
+  // of the slice
+  float o[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  uint32_t pa[WIDE_BN / 4];
+  int n = 0, t = 0, pos = 0;
+  while (t < n_tiles && !any_key(masks[t])) ++t;
+  if (t < n_tiles) {
+    float sc[WIDE_BN / 2];
+    wide_qk(sc, base, ring, full, empty, w, nc, wg, pos);
+    pos += nc;
+    wgmma_wait<0>();
+    pin(sc);
+    mbar_arrive(empty + 8 * ((pos - 1) % w.stages));
+    float alpha0, alpha1;
+    tile_softmax(sc, masks[t], quad, m0, m1, l0, l1, alpha0, alpha1, pa);
+    for (n = 1, ++t; t < n_tiles; ++t) {
+      if (!any_key(masks[t])) continue;
+      wide_qk(sc, base, ring, full, empty, w, nc, wg, pos);
+      const int vpos = pos + nc;
+      wide_pv<DV>(o, pa, ring, full, w, vpos);
+      wgmma_wait<1>();                         // S is done, P V runs on
+      pin(sc);
+      mbar_arrive(empty + 8 * ((vpos - 1) % w.stages));
+      uint32_t pn[WIDE_BN / 4];
+      tile_softmax(sc, masks[t], quad, m0, m1, l0, l1, alpha0, alpha1, pn);
+      wgmma_wait<0>();                         // the last tile's P V is done
+      pin(o);
+      pin(pa);
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        mbar_arrive(empty + 8 * ((vpos + j) % w.stages));
+      pos = vpos + NV;
+#pragma unroll
+      for (int i = 0; i < DV / 8; ++i) {
+        o[4 * i] *= alpha0;
+        o[4 * i + 1] *= alpha0;
+        o[4 * i + 2] *= alpha1;
+        o[4 * i + 3] *= alpha1;
+      }
+#pragma unroll
+      for (int i = 0; i < WIDE_BN / 4; ++i) pa[i] = pn[i];
+      ++n;
+    }
+    wide_pv<DV>(o, pa, ring, full, w, pos);    // the last tile's P V
+    wgmma_wait<0>();
+    pin(o);
+    pin(pa);
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+      mbar_arrive(empty + 8 * ((pos + j) % w.stages));
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = n ? fmaxf(l0, 1e-37f) : 1.f;
+  const float den1 = n ? fmaxf(l1, 1e-37f) : 1.f;
+  const int r0 = row0 + 64 * wg + 16 * (warp % 4) + lane / 4, r1 = r0 + 8;
+  T* out_bh = out + (size_t)bh * Lq * D + 64 * first;
+#pragma unroll
+  for (int i = 0; i < DV / 8; ++i) {
+    const int col = 8 * i + 2 * quad;
+    if (r0 < Lq)
+      store2(out_bh + (size_t)r0 * D + col, o[4 * i] / den0,
+             o[4 * i + 1] / den0);
+    if (r1 < Lq)
+      store2(out_bh + (size_t)r1 * D + col, o[4 * i + 2] / den1,
+             o[4 * i + 3] / den1);
+  }
+}
+
+// One block per (128 query rows, slice) of one (batch, head): blockIdx.x =
+// row tile x slices + slice, so that the slices of a row tile, which read
+// the same K chunks, run side by side.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const uint8_t* __restrict__ key_valid, T* __restrict__ out,
+                  int H, int Lq, int Lk, int D, int q_resident, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* base_ptr = smem_raw + (base - raw);
+  const int nc = D / 64, slices = wide_slices(nc);
+  int first, width;
+  wide_slice(nc, slices, blockIdx.x % slices, first, width);
+  const WideLayout w = wide_layout(nc, q_resident != 0, stages);
+  const int row0 = (blockIdx.x / slices) * BM;
+  if (width == 2)
+    wide_body<128, T>(&q_map, &k_map, &v_map, key_valid, out, H, Lq, Lk, D, w,
+                      row0, first, base, base_ptr);
+  else if (width == 3)
+    wide_body<192, T>(&q_map, &k_map, &v_map, key_valid, out, H, Lq, Lk, D, w,
+                      row0, first, base, base_ptr);
+  else
+    wide_body<256, T>(&q_map, &k_map, &v_map, key_valid, out, H, Lq, Lk, D, w,
+                      row0, first, base, base_ptr);
+}
+
+// src (B H, L, D) -> bf16(src * scale) in dst, in tiles of 64 rows; with
+// key_valid, only the tiles that hold a valid key of their item (the wide
+// kernel reads no other).
+template <typename T>
+__global__ void __launch_bounds__(256)
+to_bf16_kernel(const T* __restrict__ src, __nv_bfloat16* __restrict__ dst,
+               const uint8_t* __restrict__ key_valid, int H, int L, int D,
+               float scale) {
+  const int row0 = blockIdx.x * WIDE_BN, bh = blockIdx.y;
+  if (key_valid != nullptr) {
+    const uint8_t* valid_b = key_valid + (size_t)(bh / H) * L;
+    const int r = row0 + threadIdx.x;
+    if (!__syncthreads_or(threadIdx.x < WIDE_BN && r < L && valid_b[r] != 0))
+      return;
+  }
+  const size_t off = ((size_t)bh * L + row0) * D;
+  const int chunks = min(WIDE_BN, L - row0) * D / 8;
+  for (int c = threadIdx.x; c < chunks; c += 256) {
+    float x[8];
+    load8(src + off + 8 * c, x);
+    *reinterpret_cast<uint4*>(dst + off + 8 * c) = make_uint4(
+        bf16x2(x[0] * scale, x[1] * scale), bf16x2(x[2] * scale, x[3] * scale),
+        bf16x2(x[4] * scale, x[5] * scale), bf16x2(x[6] * scale, x[7] * scale));
+  }
+}
+
+// The wide kernel's shared-memory plan at head dim D and Lk keys: q
+// resident with as many stages as fit (at most 8, at least 6), else q
+// streamed; false if neither fits.
+bool wide_plan(int D, int Lk, WideLayout& w, int& smem) {
+  const int nc = D / 64;
+  const int fixed = WIDE_FIXED + 8 * ((Lk + WIDE_BN - 1) / WIDE_BN);
+  for (int resident = 1; resident >= 0; --resident) {
+    const WideLayout probe = wide_layout(nc, resident != 0, 1);
+    const int room = MAX_SMEM - fixed - static_cast<int>(probe.q_bytes);
+    const int stages = min(WIDE_MAX_STAGES,
+                           room / static_cast<int>(probe.stage_bytes));
+    if (room > 0 && stages >= WIDE_MIN_STAGES) {
+      w = wide_layout(nc, resident != 0, stages);
+      smem = fixed + w.q_bytes + stages * w.stage_bytes;
+      return true;
+    }
+  }
+  return false;
+}
+
+template <typename T>
+int launch_wide(const void* q, const void* k, const void* v,
+                const uint8_t* key_valid, void* out, void* scratch, int B,
+                int H, int Lq, int Lk, int D, float scale,
+                cudaStream_t stream) {
+  const int BH = B * H;
+  WideLayout w;
+  int smem;
+  if (D % 64 != 0 || D < 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wide_plan(D, Lk, w, smem)) return TOO_MANY_KEYS;
+  __nv_bfloat16* q16 = static_cast<__nv_bfloat16*>(scratch);
+  const void* k16 = k;
+  const void* v16 = v;
+  to_bf16_kernel<T><<<dim3((Lq + WIDE_BN - 1) / WIDE_BN, BH), 256, 0,
+                      stream>>>(static_cast<const T*>(q), q16, nullptr, H, Lq,
+                                D, scale);
+  if (std::is_same<T, float>::value) {
+    __nv_bfloat16* k_s = q16 + (size_t)BH * Lq * D;
+    __nv_bfloat16* v_s = k_s + (size_t)BH * Lk * D;
+    const dim3 grid((Lk + WIDE_BN - 1) / WIDE_BN, BH);
+    to_bf16_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(k), k_s,
+                                                 key_valid, H, Lk, D, 1.f);
+    to_bf16_kernel<T><<<grid, 256, 0, stream>>>(static_cast<const T*>(v), v_s,
+                                                 key_valid, H, Lk, D, 1.f);
+    k16 = k_s;
+    v16 = v_s;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode(&q_map, q16, D, Lq, BH, BM) ||
+      !encode(&k_map, k16, D, Lk, BH, WIDE_BN) ||
+      !encode(&v_map, v16, D, Lk, BH, WIDE_BN))
+    return ENCODE_FAILED;
+  static int allowed = 0;               // the largest size granted so far
+  if (smem > allowed) {
+    err = cudaFuncSetAttribute(flash_wide_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed = smem;
+  }
+  const int slices = wide_slices(D / 64);
+  flash_wide_kernel<T><<<dim3((Lq + BM - 1) / BM * slices, BH), THREADS, smem,
+                         stream>>>(q_map, k_map, v_map, key_valid,
+                                   static_cast<T*>(out), H, Lq, Lk, D,
+                                   w.q_resident ? 1 : 0, w.stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q (B, H, Lq, D), k and v (B, H, Lk, D), out (B, H, Lq, D): contiguous and
@@ -849,11 +1262,50 @@ extern "C" int flash_attention_smem_bytes(int D, int Lk) {
                     : 0;
 }
 
+// q (B, H, Lq, D), k and v (B, H, Lk, D), out (B, H, Lq, D) as for
+// flash_attention_forward, D a multiple of 64 past 256.  scratch holds
+// B H Lq D bf16 (the scaled, rounded q) and, for f32, 2 B H Lk D more (the
+// rounded k, then v).  Returns the cudaError_t of the launches, -1 if no
+// TMA map could be made, or -2 if the key tiles' words do not fit in shared
+// memory beside a ring of 6 stages.
+extern "C" int flash_attention_wide_forward(const void* q, const void* k,
+                                            const void* v,
+                                            const void* key_valid, void* out,
+                                            void* scratch, int B, int H,
+                                            int Lq, int Lk, int D, int dtype,
+                                            float scale, void* stream) {
+  if (B == 0 || H == 0 || Lq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Lk == 0)
+    return static_cast<int>(cudaMemsetAsync(
+        out, 0, (size_t)B * H * Lq * D * (dtype == 0 ? 4 : 2), s));
+  const uint8_t* valid = static_cast<const uint8_t*>(key_valid);
+  if (dtype == 0)
+    return launch_wide<float>(q, k, v, valid, out, scratch, B, H, Lq, Lk, D,
+                              scale, s);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(q, k, v, valid, out, scratch, B, H, Lq,
+                                      Lk, D, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide kernel's dynamic shared memory at head dim D (a multiple of 64)
+// and Lk keys, in bytes (0 if it does not fit); *stages gets the ring's
+// depth, negative where q streams through the ring instead of staying.
+extern "C" int flash_attention_wide_smem_bytes(int D, int Lk, int* stages) {
+  WideLayout w;
+  int smem = 0;
+  if (D % 64 != 0 || !wide_plan(D, Lk, w, smem)) return 0;
+  *stages = w.q_resident ? w.stages : -w.stages;
+  return smem;
+}
+
 extern "C" const char* flash_attention_error_string(int status) {
   if (status == ENCODE_FAILED)
     return "cuTensorMapEncodeTiled is unavailable or refused the tensor map";
   if (status == TOO_MANY_KEYS)
     return "Lk too large: the key tiles' masks do not fit in shared memory "
-           "(at most 16,000 keys at D 128, 278,000 at D 192 and 256)";
+           "(at most 16,000 keys at D 128, 278,000 at D 192 and 256, 670,000 "
+           "or more past 256)";
   return cudaGetErrorString(static_cast<cudaError_t>(status));
 }

@@ -22,16 +22,21 @@ where the kernel does, within 8e-6 (the order of the f32 sums in the
 scores, not the rounding points, makes the rest of the gap).  Single-pass
 TF32 (~1e-3) would fail both.
 
-The TPU kernel takes any head dim D; the tensor-core kernel takes a
-multiple of 4 up to 256 (192 is FastSpeech's 384 hidden over 2 heads).  Up
-to 256 the wrapper zero-pads q, k and v along D to the next multiple of 4
-and slices the output (exact: zero columns add exact zeros, and the
-temperature stays 1/√D of the true D); the kernel pads it further to 32,
-64, 128, 192 or 256 as it stages rows.  Past 256 the wrapper launches the
-general kernel of ``csrc/attention_general.cu``: f32 CUDA-core products (no
-split), the same argmax and guided numerator, held to the same
-tolerances.  ``alignment_attention.launches`` counts the tensor-core
-kernel's launches, ``.general_launches`` the general kernel's.
+The TPU kernel takes any head dim D, and so does the port, on the tensor
+cores.  The kernel of ``alignment_attention_forward`` takes a multiple of 4
+up to 256 (192 is FastSpeech's 384 hidden over 2 heads) and pads it further
+to 32, 64, 128, 192 or 256 as it stages rows; past 256 the wide kernels of
+``alignment_attention_wide_forward`` (same file) take any multiple of 4,
+splitting the output's columns into slices of at most 192
+(:func:`wide_column_slices`): up to D 512 a team of warps, one a slice,
+splits each unit's scores by slice and adds the parts; past it each warp
+computes the full scores over chunks of D for its slice.  The wrapper
+zero-pads q, k and v along D to a multiple of 4 and slices the output
+(exact: zero columns add exact zeros, and the temperature stays 1/√D of the
+true D).  All are held to the same tolerances;
+``alignment_attention.launches`` counts every launch, ``.wide_launches``
+those past 256.  :func:`alignment_wide_reference` is the wide kernels'
+schedule in plain PyTorch.
 
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes ``out`` and the
 numerator with the plain version and differentiates them; the argmax has no
@@ -47,7 +52,6 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import GENERAL_SIGNATURES
 
 # the masked score, as the TPU kernel's NEG_INF
 NEG_INF = -1e30
@@ -60,8 +64,16 @@ _SIGNATURES = {
     "alignment_attention_tiles": ([ctypes.c_int], ctypes.c_int),
     "alignment_attention_smem_bytes": ([ctypes.c_int], ctypes.c_int),
     "alignment_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "alignment_attention_wide_forward": (
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "alignment_attention_wide_shape": (
+        [ctypes.c_int, ctypes.POINTER(ctypes.c_int)], None),
 }
-MAX_TC_HEAD_DIM = 256       # the tensor-core kernel's widest head dim
+MAX_TC_HEAD_DIM = 256       # the first kernel's widest head dim
+WIDE_KC = 32                # the wide kernel's keys a chunk
+WIDE_DC = 64                # its columns of D a chunk of the scores
+WIDE_GROUPS = 6             # 32-column groups a slice at most (192)
 
 
 def guided_weight(T: int, L: int, src_lens: torch.Tensor,
@@ -160,6 +172,88 @@ def alignment_tf32x3_reference(q: torch.Tensor, k: torch.Tensor,
     return out, _first_argmax(masked[:, 0]), gnum
 
 
+def wide_column_slices(d: int) -> list[tuple[int, int]]:
+    """The wide kernel's output slices at head dim ``d``: (first column,
+    columns) of each, multiples of 32, as even as 32-column groups allow
+    with at most 192 a slice (csrc/alignment_attention.cu ``wide_cols``)."""
+    groups = -(-d // 32)
+    n = -(-groups // WIDE_GROUPS)
+    base, rem = divmod(groups, n)
+    out, first = [], 0
+    for s in range(n):
+        width = base + (s < rem)
+        out.append((32 * first, 32 * width))
+        first += width
+    return out
+
+
+def alignment_wide_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, key_valid: torch.Tensor,
+                             src_lens: torch.Tensor, mel_lens: torch.Tensor,
+                             sigma: float = 0.2, scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The wide kernels' schedule in plain PyTorch, for the tests: for each
+    output slice (:func:`wide_column_slices`) and each chunk of 32 keys, the
+    scores in 3xTF32 summed over 64-column chunks of D (the kernels' chunks
+    differ only in the order of the f32 sums), ``hi·hi`` apart from
+    ``lo·hi + hi·lo``, times f32(1/√D); an online softmax over the key
+    chunks (``e = exp(s − m)·mask``, sums rescaled); ``o += 3xTF32(e, v)``
+    over the slice's columns; ``out = o·(1/max(l, 1e-37))`` slice by slice;
+    from slice 0 the guided numerator (as :func:`alignment_tf32x3_reference`)
+    and head 0's first argmax.  Matmuls must run in f32 (TF32 off).
+    ``scale`` defaults to 1/√D of q's last axis."""
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    B, H, T, _ = q.shape
+    L = k.shape[2]
+    slices = wide_column_slices(D)
+    width = slices[-1][0] + slices[-1][1]
+    q, k, v = (F.pad(t.float(), (0, width - D)) for t in (q, k, v))
+    w, pair_valid = guided_weight(T, L, src_lens, mel_lens, sigma)
+    w = torch.where(pair_valid, w, 0.0)
+    dev = q.device
+    out = torch.zeros(B, H, T, width, device=dev)
+    masked = None
+    for c0, dv in slices:
+        o = torch.zeros(B, H, T, dv, device=dev)
+        m = torch.full((B, H, T, 1), -math.inf, device=dev)
+        l = torch.zeros(B, H, T, 1, device=dev)
+        g = torch.zeros(B, T, 1, device=dev)
+        scores = []
+        for n0 in range(0, L, WIDE_KC):
+            keys = slice(n0, n0 + WIDE_KC)
+            big = small = 0.0
+            for d0 in range(0, width, WIDE_DC):
+                cols = slice(d0, d0 + WIDE_DC)
+                qc, kc = q[..., cols], k[:, :, keys, cols]
+                q_hi, k_hi = tf32_round(qc), tf32_round(kc)
+                q_lo, k_lo = tf32_round(qc - q_hi), tf32_round(kc - k_hi)
+                eq = "bhqd,bhkd->bhqk"
+                big = big + torch.einsum(eq, q_hi, k_hi)
+                small = (small + torch.einsum(eq, q_lo, k_hi)
+                         + torch.einsum(eq, q_hi, k_lo))
+            valid = key_valid[:, None, None, keys]
+            s = torch.where(valid, (big + small) * scale, NEG_INF)
+            scores.append(s)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            e = torch.exp(s - m_new) * valid
+            l = l * alpha + e.sum(dim=-1, keepdim=True)
+            g = g * alpha[:, 0] + (w[:, :, keys] * e[:, 0]).sum(
+                dim=-1, keepdim=True)
+            o = o * alpha + _product_tf32x3("bhqk,bhkd->bhqd", e,
+                                            v[:, :, keys, c0:c0 + dv])
+            m = m_new
+        inv = 1.0 / torch.clamp(l, min=1e-37)
+        out[..., c0:c0 + dv] = o * inv
+        if c0 == 0:
+            gnum = (g * inv[:, 0]).sum(dim=(1, 2))
+            masked = torch.cat(scores, dim=-1)[:, 0]
+    return out[..., :D], _first_argmax(masked), gnum
+
+
 class _AlignmentAttention(torch.autograd.Function):
     """``launch`` (the kernel) forward; backward recomputes ``out`` and
     ``gnum`` with :func:`alignment_reference` and returns their VJP for q,
@@ -185,38 +279,10 @@ class _AlignmentAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
-def _launch_general(q, k, v, key_valid, src, mel, sigma):
+def _run(entry, q, k, v, key_valid, src, mel, sigma, scale):
+    """The library's ``entry`` on the inputs' card: returns (out, idx,
+    gnum); raises on a status other than 0."""
     B, H, T, D = q.shape
-    lib = _build.load("attention_general", GENERAL_SIGNATURES)
-    out = torch.empty_like(q)
-    idx = torch.empty((B, T), dtype=torch.int32, device=q.device)
-    row_gnum = torch.empty((B, T), dtype=torch.float32, device=q.device)
-    gnum = torch.empty((B,), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        status = lib.alignment_attention_general_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            src.data_ptr(), mel.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            row_gnum.data_ptr(), gnum.data_ptr(), B, H, T, k.shape[2], D,
-            1.0 / math.sqrt(D), 2.0 * float(sigma) ** 2,
-            torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError(
-            "alignment_attention: general kernel launch failed: "
-            + lib.attention_general_error_string(status).decode())
-    alignment_attention.general_launches += 1
-    return out, idx, gnum
-
-
-def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
-    B, H, T, D = q.shape
-    L = k.shape[2]
-    src = src_lens.to(torch.int32).contiguous()
-    mel = mel_lens.to(torch.int32).contiguous()
-    if D > MAX_TC_HEAD_DIM:
-        return _launch_general(q, k, v, key_valid, src, mel, sigma)
-    width = -(-D // 4) * 4
-    if width != D:
-        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
     lib = _build.load("alignment_attention", _SIGNATURES)
     out = torch.empty_like(q)
     idx = torch.empty((B, T), dtype=torch.int32, device=q.device)
@@ -224,16 +290,42 @@ def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
                           dtype=torch.float32, device=q.device)
     gnum = torch.empty((B,), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        status = lib.alignment_attention_forward(
+        status = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
             src.data_ptr(), mel.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            partial.data_ptr(), gnum.data_ptr(), B, H, T, L, width,
-            1.0 / math.sqrt(D), 2.0 * float(sigma) ** 2,
+            partial.data_ptr(), gnum.data_ptr(), B, H, T, k.shape[2], D,
+            scale, 2.0 * float(sigma) ** 2,
             torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(
             "alignment_attention: launch failed: "
             + lib.alignment_attention_error_string(status).decode())
+    return out, idx, gnum
+
+
+def _launch_tc(*args):
+    """The first kernel, D a multiple of 4 up to 256."""
+    return _run("alignment_attention_forward", *args)
+
+
+def _launch_wide(*args):
+    """The wide kernels, D a multiple of 4 past 256 (the team kernel where
+    it fits, else the wide one)."""
+    res = _run("alignment_attention_wide_forward", *args)
+    alignment_attention.wide_launches += 1
+    return res
+
+
+def _launch(q, k, v, key_valid, src_lens, mel_lens, sigma):
+    D = q.shape[-1]
+    src = src_lens.to(torch.int32).contiguous()
+    mel = mel_lens.to(torch.int32).contiguous()
+    width = -(-D // 4) * 4
+    if width != D:
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+    launch = _launch_wide if width > MAX_TC_HEAD_DIM else _launch_tc
+    out, idx, gnum = launch(q, k, v, key_valid, src, mel, sigma,
+                            1.0 / math.sqrt(D))
     alignment_attention.launches += 1
     return (out if width == D else out[..., :D].contiguous()), idx, gnum
 
@@ -248,8 +340,9 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32, gnum (B,) f32), as :func:`alignment_reference`.
 
     A CPU tensor takes the plain version.  A CUDA tensor launches the
-    tensor-core kernel for D ≤ 256 (zero-padded to a multiple of 4) and the
-    general kernel past it: q, k, v contiguous float32 (16-byte aligned),
+    tensor-core kernel for D ≤ 256 and the wide one past it (both on D
+    zero-padded to a multiple of 4): q, k, v contiguous float32 (16-byte
+    aligned),
     any L, with a backward through :class:`_AlignmentAttention`."""
     if q.device.type == "cpu":
         return alignment_reference(q, k, v, key_valid, src_lens, mel_lens,
@@ -285,4 +378,4 @@ def alignment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 alignment_attention.launches = 0
-alignment_attention.general_launches = 0
+alignment_attention.wide_launches = 0

@@ -10,15 +10,18 @@ the same points, to the difference between an online and a two-pass softmax
 (~1e-3).  Its products run on Hopper's tensor cores (``wgmma``); for f32
 inputs the wrapper allocates bf16 scratch for the rounded k and v.
 
-The TPU kernel takes any head dim D.  The tensor-core kernel takes D 64,
-128, 192 or 256 (192 is FastSpeech's 384 hidden over 2 heads); up to 256 the
-wrapper zero-pads q, k and v along D to the next of the four and slices the
-output (exact: zero columns add exact zeros to every score, and the scale
-stays 1/√D of the true D), and past 256 it launches the general kernel of
-``csrc/attention_general.cu``, which rounds at the same points with f32
-CUDA-core sums and takes any D.  ``flash_attention.launches`` counts the
-tensor-core kernel's launches, ``.general_launches`` the general
-kernel's.
+The TPU kernel takes any head dim D, and so does the port, on the tensor
+cores.  The kernel of ``flash_attention_forward`` takes D 64, 128, 192 or 256
+(192 is FastSpeech's 384 hidden over 2 heads); past 256 the wide kernel of
+``flash_attention_wide_forward`` (same file) takes any multiple of 64,
+splitting the output's columns across blocks (:func:`wide_slices`).  The
+wrapper zero-pads q, k and v along D to the kernel's width
+(:func:`padded_head_dim`) and slices the output (exact: zero columns add
+exact zeros to every score, and the scale stays 1/√D of the true D).  Both
+round at the same points; ``flash_attention.launches`` counts both kernels'
+launches, ``.wide_launches`` the wide kernel's.
+:func:`attention_wide_reference` is the wide kernel's schedule in plain
+PyTorch.
 
 Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
 version and returns that function's vector-Jacobian product: the gradient of
@@ -116,25 +119,88 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "flash_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "flash_attention_smem_bytes": ([ctypes.c_int] * 2, ctypes.c_int),
-}
-# csrc/attention_general.cu, the general kernels of this wrapper and of
-# alignment_attention (one library: its signatures are set once)
-GENERAL_SIGNATURES = {
-    "flash_attention_general_forward": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    "flash_attention_wide_forward": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
-    "alignment_attention_general_forward": (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
-    "attention_general_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "flash_attention_wide_smem_bytes": (
+        [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+        ctypes.c_int),
 }
-TC_HEAD_DIMS = (64, 128, 192, 256)    # the tensor-core kernel's head dims
+TC_HEAD_DIMS = (64, 128, 192, 256)    # the first kernel's head dims
+WIDE_CHUNK = 64                       # past 256: multiples of 64 columns
+WIDE_MAX_SLICE = 4                    # chunks of 64 columns a slice
+WIDE_TILE = 64                        # keys a tile of the wide kernel
 
 
 def padded_head_dim(d: int) -> int:
-    """The tensor-core kernel's head dim for a head dim d ≤ 256: the
-    smallest of :data:`TC_HEAD_DIMS` that holds it."""
+    """The kernels' head dim for a head dim d: the smallest of
+    :data:`TC_HEAD_DIMS` that holds it up to 256, the next multiple of 64
+    past it (the wide kernel)."""
+    if d > TC_HEAD_DIMS[-1]:
+        return -(-d // WIDE_CHUNK) * WIDE_CHUNK
     return next(w for w in TC_HEAD_DIMS if d <= w)
+
+
+def wide_slices(width: int) -> list[tuple[int, int]]:
+    """The wide kernel's output slices at a padded head dim ``width``: (first
+    column, columns) of each, as even as whole 64-column chunks allow with
+    at most 4 chunks a slice (csrc/flash_attention.cu ``wide_slice``)."""
+    nc = width // WIDE_CHUNK
+    n = -(-nc // WIDE_MAX_SLICE)
+    base, rem = divmod(nc, n)
+    out, first = [], 0
+    for s in range(n):
+        chunks = base + (s < rem)
+        out.append((WIDE_CHUNK * first, WIDE_CHUNK * chunks))
+        first += chunks
+    return out
+
+
+def attention_wide_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, key_valid: torch.Tensor,
+                             scale: float | None = None) -> torch.Tensor:
+    """The wide kernel's schedule in plain PyTorch, for the tests: D
+    zero-padded to a multiple of 64; bf16(q·scale), bf16 k and v; for each
+    output slice (:func:`wide_slices`) and each 64-key tile holding a valid
+    key, the scores summed over 64-column chunks of D in f32, an online
+    softmax in f32 (an invalid key -1e30, probability 0), p rounded to bf16
+    for its P·V over the slice's columns, f32 sums; ``out = PV / max(l,
+    1e-37)``, slice by slice.  ``scale`` defaults to 1/√D of the true D."""
+    bf16 = torch.bfloat16
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    width = -(-D // WIDE_CHUNK) * WIDE_CHUNK
+    qs, ks, vs = (F.pad(t.float(), (0, width - D)) for t in (q, k, v))
+    qs = (qs * scale).to(bf16).float()
+    ks, vs = ks.to(bf16).float(), vs.to(bf16).float()
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    out = torch.zeros(B, H, Lq, width, device=q.device)
+    for c0, dv in wide_slices(width):
+        o = torch.zeros(B, H, Lq, dv, device=q.device)
+        m = torch.full((B, H, Lq, 1), NEG_INF, device=q.device)
+        l = torch.zeros(B, H, Lq, 1, device=q.device)
+        for t0 in range(0, Lk, WIDE_TILE):
+            keys = slice(t0, t0 + WIDE_TILE)
+            valid = key_valid[:, None, None, keys]
+            s = sum(torch.einsum("bhqd,bhkd->bhqk",
+                                 qs[..., d:d + WIDE_CHUNK],
+                                 ks[:, :, keys, d:d + WIDE_CHUNK])
+                    for d in range(0, width, WIDE_CHUNK))
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new) * valid
+            # a tile with no valid key of its item is skipped, changing no bit
+            live = key_valid[:, keys].any(1)[:, None, None, None]
+            l = torch.where(live, l * alpha + p.sum(dim=-1, keepdim=True), l)
+            pv = torch.einsum("bhqk,bhkd->bhqd", p.to(bf16).float(),
+                              vs[:, :, keys, c0:c0 + dv])
+            o = torch.where(live, o * alpha + pv, o)
+            m = torch.where(live, m_new, m)
+        out[..., c0:c0 + dv] = o / torch.clamp(l, min=1e-37)
+    return out[..., :D].to(q.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -156,30 +222,20 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _launch_general(q, k, v, key_valid):
-    B, H, Lq, D = q.shape
-    lib = _build.load("attention_general", GENERAL_SIGNATURES)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        status = lib.flash_attention_general_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            out.data_ptr(), B, H, Lq, k.shape[2], D, _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+def _run(lib, entry, device, *args):
+    """Call the library's ``entry`` with ``args`` and the current stream on
+    ``device``; raises on a status other than 0."""
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(*args,
+                                     torch.cuda.current_stream().cuda_stream)
     if status != 0:
-        raise RuntimeError(
-            "flash_attention: general kernel launch failed: "
-            + lib.attention_general_error_string(status).decode())
-    flash_attention.general_launches += 1
-    return out
+        raise RuntimeError("flash_attention: launch failed: "
+                           + lib.flash_attention_error_string(status).decode())
 
 
-def _launch(q, k, v, key_valid):
-    B, H, Lq, D = q.shape
-    if D > TC_HEAD_DIMS[-1]:
-        return _launch_general(q, k, v, key_valid)
-    width = padded_head_dim(D)
-    if width != D:
-        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+def _launch_tc(q, k, v, key_valid, scale):
+    """The first kernel, q, k, v at D 64, 128, 192 or 256."""
+    B, H, Lq, width = q.shape
     Lk = k.shape[2]
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
@@ -187,15 +243,38 @@ def _launch(q, k, v, key_valid):
     scratch = (torch.empty((2, B, H, Lk, width), dtype=torch.bfloat16,
                            device=q.device)
                if q.dtype == torch.float32 else None)
-    with torch.cuda.device(q.device):
-        status = lib.flash_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            B, H, Lq, Lk, width, _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    if status != 0:
-        raise RuntimeError("flash_attention: launch failed: "
-                           + lib.flash_attention_error_string(status).decode())
+    _run(lib, "flash_attention_forward", q.device, q.data_ptr(), k.data_ptr(),
+         v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+         None if scratch is None else scratch.data_ptr(), B, H, Lq, Lk,
+         width, _DTYPE_CODES[q.dtype], scale)
+    return out
+
+
+def _launch_wide(q, k, v, key_valid, scale):
+    """The wide kernel, q, k, v at a multiple of 64 past 256."""
+    B, H, Lq, width = q.shape
+    Lk = k.shape[2]
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    # bf16(q·scale), and for f32 the rounded k and v, for the TMA loads
+    rows = Lq + (2 * Lk if q.dtype == torch.float32 else 0)
+    scratch = torch.empty((B, H, rows, width), dtype=torch.bfloat16,
+                          device=q.device)
+    _run(lib, "flash_attention_wide_forward", q.device, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+         scratch.data_ptr(), B, H, Lq, Lk, width, _DTYPE_CODES[q.dtype],
+         scale)
+    flash_attention.wide_launches += 1
+    return out
+
+
+def _launch(q, k, v, key_valid):
+    D = q.shape[-1]
+    width = padded_head_dim(D)
+    if width != D:
+        q, k, v = (F.pad(t, (0, width - D)) for t in (q, k, v))
+    launch = _launch_wide if width > TC_HEAD_DIMS[-1] else _launch_tc
+    out = launch(q, k, v, key_valid, 1.0 / math.sqrt(D))
     flash_attention.launches += 1
     return out if width == D else out[..., :D].contiguous()
 
@@ -206,7 +285,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
     the tensor-core kernel for D ≤ 256 (zero-padded to 64, 128, 192 or 256)
-    and the general kernel past it: q, k, v contiguous and 16-byte aligned,
+    and the wide one past it (zero-padded to a multiple of 64): q, k, v
+    contiguous and 16-byte aligned,
     all f32 or all bf16; key_valid (B, Lk) bool.  The output has q's dtype
     and, on CUDA, a backward through :class:`_FlashAttention`."""
     if q.device.type == "cpu":
@@ -237,4 +317,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.general_launches = 0
+flash_attention.wide_launches = 0

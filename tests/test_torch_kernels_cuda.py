@@ -37,12 +37,16 @@ where the f32 plain version, the kernel and float64 take key 45: a top-two
 gap of 5.9e-6).  Head dims 129-256 run on the same tensor-core kernels
 (flash: 64-key tiles, D zero-padded to 192 or 256; alignment: 32- or
 16-key chunks, the small 3xTF32 passes summed apart) and are held to the
-same tolerances; the general kernels take D past 256.  Where the
-alignment kernel's argmax differs from the f32 plain version's in the new
-wide cases, both picks must lie within 1e-6 (relative) of the float64
-maximum: 3xTF32 resolves a score to ~2^-21 of each product, f32 to
-2^-24, and a near-tie of 7.9e-7 at a score of 2.649 (D 256, v =
-identity) went the other way on an H100.
+same tolerances; past 256 the wide tensor-core kernels (flash: D padded to
+a multiple of 64, output slices of at most 256 columns, 64-key tiles;
+alignment: output slices of at most 192 columns, scores summed over
+chunks of D), held to the same tolerances too (``.wide_launches`` counts
+them).  Where the alignment kernel's argmax differs from the f32 plain
+version's past head dim 128, both picks must lie within their versions'
+score error bounds of the float64 maximum (``_assert_argmax``): 3xTF32
+resolves a score to ~2^-21 of each product, f32 to 2^-24, and a near-tie
+of 7.9e-7 at a score of 2.649 (D 256, v = identity) went the other way on
+an H100; up to 256 the argmax is held exact in ``test_alignment_attention``.
 The backward passes recompute the plain versions, so a gradient through a
 kernel's ``autograd.Function`` equals autograd through its plain version to
 f32 rounding: 1e-4.  The log-mel kernel is f32 FMA against cuFFT in the
@@ -134,24 +138,40 @@ def _key_valid(rng, B, Lk, kind, tile=128):
     ((8, 2, 128, 128, 192), "prefix"),
     ((3, 2, 333, 300, 256), "prefix"),
     ((2, 2, 333, 700, 256), "last tile"),
-    ((3, 2, 200, 300, 320), "prefix")])
+    ((3, 2, 200, 300, 320), "prefix"),
+    ((3, 2, 300, 333, 288), "prefix"),
+    ((3, 2, 300, 333, 288), "holes"),
+    ((3, 2, 300, 333, 288), "last tile"),
+    ((3, 2, 300, 333, 320), "holes"),
+    ((2, 2, 333, 700, 320), "last tile"),
+    ((8, 2, 128, 128, 320), "prefix"),
+    ((3, 2, 300, 333, 384), "prefix"),
+    ((3, 2, 300, 333, 384), "holes"),
+    ((3, 2, 300, 333, 384), "last tile"),
+    ((3, 2, 333, 300, 512), "prefix"),
+    ((3, 2, 300, 333, 512), "holes"),
+    ((3, 2, 300, 333, 512), "last tile"),
+    ((3, 2, 300, 333, 1024), "prefix"),
+    ((3, 2, 300, 333, 1024), "holes"),
+    ((3, 2, 300, 333, 1024), "last tile")])
 def test_flash_attention(card, shape, kind, dtype):
     """Head dims 64, 128, 192 and 256 run the tensor-core kernel (128-key
     tiles up to 128, 64-key tiles past it), 32, 80, 96 and 160 the same
-    kernel on D zero-padded to the next of them, 320 the general kernel
-    (``flash_attention.general_launches``); all are held alike, and two
-    launches are bit-equal."""
+    kernel on D zero-padded to the next of them; 288 (padded to 320), 320,
+    384, 512 and 1024 the wide kernel (``flash_attention.wide_launches``;
+    q staying in shared memory up to D 704, streamed with the K chunks at
+    1024); all are held alike, and two launches are bit-equal."""
     B, H, Lq, Lk, D = shape
     rng = np.random.default_rng(8)
     q, k, v = (_randn(rng, B, H, L, D).to(card, dtype)
                for L in (Lq, Lk, Lk))
     tile = 128 if D <= 128 else 64
     valid = _key_valid(rng, B, Lk, kind, tile).to(card)
-    general = flash_attention.general_launches
+    wide = flash_attention.wide_launches
     launches = flash_attention.launches
     got = flash_attention(q, k, v, valid)
-    assert flash_attention.general_launches - general == (D > 256)
-    assert flash_attention.launches - launches == (D <= 256)
+    assert flash_attention.wide_launches - wide == (D > 256)
+    assert flash_attention.launches - launches == 1
     assert torch.equal(flash_attention(q, k, v, valid), got)
     expect = attention_reference(q, k, v, valid)
     assert got.dtype == dtype and got.shape == q.shape
@@ -280,41 +300,56 @@ def _check_tf32x3(args, out, gnum):
                                    (2, 2, 300, 128, 192),
                                    (2, 2, 1500, 1000, 192),
                                    (3, 2, 45, 13, 256),
-                                   (3, 2, 200, 70, 320)])
+                                   (3, 2, 200, 70, 320),
+                                   (3, 2, 45, 13, 300),
+                                   (2, 2, 1500, 1000, 300),
+                                   (3, 2, 45, 13, 320),
+                                   (2, 2, 1500, 1000, 320),
+                                   (48, 2, 896, 128, 320),
+                                   (3, 2, 45, 13, 384),
+                                   (2, 2, 1500, 1000, 384),
+                                   (3, 2, 45, 13, 512),
+                                   (2, 2, 1500, 1000, 512),
+                                   (3, 2, 200, 70, 640),
+                                   (2, 2, 300, 1000, 1024)])
 def test_alignment_attention(card, shape):
     """Head dims up to 256 run the tensor-core kernel (30 and 150
     zero-padded to a multiple of 4, then to the kernel's 32, 64, 128, 192
-    or 256), 320 the general kernel (f32 CUDA-core products): held to the
-    f32 plain version alike, and the tensor-core kernel also to the 3xTF32
-    one; two launches are bit-equal."""
+    or 256), 300-1024 the wide one (``alignment_attention.wide_launches``;
+    in teams up to 512): held to the f32 plain version alike (idx exact up
+    to 256, past it as ``_assert_argmax``) and to the 3xTF32 one; two
+    launches are bit-equal."""
     args = _alignment_inputs(card, *shape, seed=10)
-    general = alignment_attention.general_launches
+    wide = alignment_attention.wide_launches
     launches = alignment_attention.launches
     out, idx, gnum = alignment_attention(*args)
     D = shape[-1]
-    assert alignment_attention.general_launches - general == (D > 256)
-    assert alignment_attention.launches - launches == (D <= 256)
+    assert alignment_attention.wide_launches - wide == (D > 256)
+    assert alignment_attention.launches - launches == 1
     out2, idx2, gnum2 = alignment_attention(*args)
     e_out, e_idx, e_gnum = alignment_reference(*args)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
-    assert torch.equal(idx, e_idx)
+    if D > 256:
+        _assert_argmax(args, idx, e_idx)
+    else:
+        assert torch.equal(idx, e_idx)
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
     assert torch.equal(idx2, idx)
     assert torch.equal(gnum2, gnum)                   # bit-equal
     assert torch.equal(out2, out)
-    if D <= 256:
-        _check_tf32x3(args, out, gnum)
+    _check_tf32x3(args, out, gnum)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [128, 150, 192, 256])
+@pytest.mark.parametrize("D", [128, 150, 192, 256, 320])
 @pytest.mark.parametrize("case", ["q zero", "v identity"])
 def test_alignment_attention_products_apart(card, case, D):
     """q = 0: uniform probabilities, so ``out`` is the PV product alone (the
     mean of the valid v rows); v = identity (L = D keys): ``out`` is P
     itself, the QKᵀ product through the softmax alone.  At each padded
     depth of the tensor-core kernel (150 padded to 152, then 192; chunks of
-    64 keys up to 128, 32 at 192, 16 at 256); idx as ``_assert_argmax``."""
+    64 keys up to 128, 32 at 192, 16 at 256) and on the wide kernel at 320;
+    idx as ``_assert_argmax``."""
     q, k, v, valid, src, mel = _alignment_inputs(
         card, 4, 2, 300, D, D, seed=15 if D == 128 else 17)
     if case == "q zero":
@@ -322,9 +357,9 @@ def test_alignment_attention_products_apart(card, case, D):
     else:
         v = torch.eye(D, device=card).expand(4, 2, D, D).contiguous()
     args = (q, k, v, valid, src, mel)
-    general = alignment_attention.general_launches
+    wide = alignment_attention.wide_launches
     out, idx, gnum = alignment_attention(*args)
-    assert alignment_attention.general_launches == general
+    assert alignment_attention.wide_launches - wide == (D > 256)
     e_out, e_idx, e_gnum = alignment_reference(*args)
     torch.testing.assert_close(out, e_out, atol=F32_ATOL, rtol=0)
     _assert_argmax(args, idx, e_idx)
