@@ -43,14 +43,19 @@ any failure raises (exit code 1):
             are: flash attention at head dims 32, 80, 96, 160, 200
             (zero-padded to 64, 128, 192 or 256), 192, 256, 288 and 320 (the
             wide kernel, past 256), alignment attention at D 30, 96, 150
-            (padded), 192, 256, 300 and 320 (wide), the log-mel DFT kernel
-            at n_fft 16, 800, 1000, 1200 and 8192; then the wide kernels at
-            head dims 320, 384 and 512: flash at (8, 2, 4096, D) (at 320
-            also on holes and last-tile masks), f32 and bf16 operands,
-            bit-equal across launches, timed beside its plain version and
-            SDPA on both; alignment at the training shape, held as above
-            and timed beside its plain version and f32 SDPA on ``out``;
-            with their ptxas figures; the DFT kernel timed
+            (padded), 192, 256, 300 and 320 (wide), the log-mel mixed-radix
+            FFT kernel at n_fft 16, 8192, 400, 800, 882, 1000, 1200, 1920,
+            2400, 1001, 1202, 1201, 7263 and 14526 and the DFT kernel at
+            7265 and 14527 (each against float64, its twin, and itself);
+            then the wide kernels at head dims 320, 384 and 512: flash at
+            (8, 2, 4096, D) (at 320 also on holes and last-tile masks), f32
+            and bf16 operands, bit-equal across launches, timed beside its
+            plain version and SDPA on both; alignment at the training shape,
+            held as above and timed beside its plain version and f32 SDPA
+            on ``out``; with their ptxas figures; the mixed-radix kernel
+            timed at (16, 8192) for n_fft 1200, 400, 882, 1001, 1201, 1202
+            and 8192 (the DFT kernel's body beside it at 1200-1202), the
+            DFT kernel at n_fft 7265
   e2e       ``Synthesizer.from_committed().synthesize`` on bench.py's serving
             inputs (B 8, L 128, T_CAP 1000), with every kernel's launch count
             set to 0 just before and read just after; then stage timings,
@@ -178,6 +183,22 @@ BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
                     # a moved rounding point costs ≥ 1.6e-4 there
 ONE_TILE_MEAN = 1e-5
 
+
+# n_fft of the log-mel kernels past the first FFT kernel's (powers of two
+# from 32 to 4096), checked on tones with a pause: the mixed-radix kernel at
+# powers of two outside that range, the 7-smooth sizes of users'
+# configurations (400 to 2400), generic radices (1001 = 7·11·13), a prime
+# half (1202, M = 601), a prime (1201) and its largest odd and even n_fft;
+# the DFT kernel at the odd n_fft past those, its smallest and largest
+MIXED_N_FFTS = (16, 8192, 400, 800, 882, 1000, 1200, 1920, 2400, 1001, 1202,
+                1201, 7263, 14526)
+DFT_N_FFTS = (7265, 14527)
+# (n_fft, hop) timed at the GAN step's (16, 8192) beside the plain version:
+# the first is the kernels line's entry; the DFT kernel's body is also timed
+# at DFT_BODY_TIMED (the route took n_fft 1200 before the mixed-radix kernel)
+MIXED_TIMED = ((1200, 256), (400, 160), (882, 256), (1001, 256),
+               (1201, 256), (1202, 256), (8192, 2048))
+DFT_BODY_TIMED = (1200, 1201, 1202)
 
 # head dims past 128 that the first tensor-core kernels take, timed:
 # FastSpeech's 192 (384 hidden, 2 heads) and the widest, 256; the wide
@@ -1491,6 +1512,54 @@ def tone_with_pause(torch, np, rng, b, n):
     return torch.from_numpy(out.astype(np.float32)).cuda()
 
 
+def log_mel_timing(torch, np, kernels, y, c, mel, energy):
+    """The log-mel kernel of ``c``'s route timed on y beside the plain
+    version (cuFFT rfft and the mel product), with its bound: the
+    function's least work per frame is the window, a real FFT
+    (2.5·n·log2 n, the usual count), power, sqrt and the energy sum per
+    bin, the filterbank's nonzeros, clip and log per mel; y read and the
+    outputs written once."""
+    from smart_nar_fast_tts_tpu_torch.audio import mel_spectrogram
+    ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
+    plain_ms = device_ms(lambda: mel_spectrogram(y, c), torch)
+    b, n_frames = energy.shape
+    n_bins = c.n_fft // 2 + 1
+    per_frame = (c.win_length + 2.5 * c.n_fft * math.log2(c.n_fft)
+                 + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
+                 + 2 * c.n_mels + 1)
+    flops = b * n_frames * per_frame
+    nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
+    bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
+                library="the plain version (cuFFT rfft + mel product): no "
+                        "one PyTorch call computes log-mel",
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_share=bound_ms / ms, flops=flops)
+
+
+def dft_body(torch, lib, y, c):
+    """A launch of the DFT kernel on y at ``c``'s n_fft, whatever its route
+    (timed beside the mixed-radix kernel; counted nowhere)."""
+    from smart_nar_fast_tts_tpu_torch.kernels.stft import (_tables_on,
+                                                           num_frames)
+    b, S = y.shape
+    F = num_frames(S, c)
+    window, twiddles, ranges, weights = _tables_on(c, y.device)
+    mel = torch.empty((b, c.n_mels, F), device=y.device)
+    energy = torch.empty((b, F), device=y.device)
+
+    def launch():
+        status = lib.log_mel_dft_forward(
+            y.data_ptr(), window.data_ptr(), twiddles.data_ptr(),
+            ranges.data_ptr(), weights.data_ptr(), mel.data_ptr(),
+            energy.data_ptr(), b, S, F, c.n_fft, c.hop_length, c.n_mels,
+            float(c.compression_clip),
+            torch.cuda.current_stream().cuda_stream)
+        if status != 0:
+            raise RuntimeError(f"log_mel_dft_forward: status {status}")
+    return launch
+
+
 def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
     """The log-mel kernel against its plain version (cuFFT rfft and the mel
     product) on noise, the speech segments and silence at the GAN step's
@@ -1502,7 +1571,7 @@ def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
     FFT_MEL_ATOL / FFT_ENERGY_RTOL and to ``log_mel_fft_reference`` (its
     schedule in float64 torch) within FFT_REF_ATOL, and two launches are
     bit-equal.  Then timed on the speech segments.  Other n_fft sizes go to
-    the DFT kernel (:func:`kernel_widths`)."""
+    the mixed-radix and DFT kernels (:func:`kernel_widths`)."""
     from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
                                                     mel_spectrogram)
     from smart_nar_fast_tts_tpu_torch.kernels import _build
@@ -1582,24 +1651,7 @@ def kernel_fused_log_mel(torch, np, kernels, segments, compiled):
                      mel_min=mel.min().item(), bit_equal=True, **errs)
             if name != "speech":
                 continue
-            ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
-            plain_ms = device_ms(lambda: mel_spectrogram(y, c), torch)
-            b, n_frames = energy.shape
-            n_bins = c.n_fft // 2 + 1
-            # the least work of the function per frame: the window, a real
-            # FFT (2.5·n·log2 n, the usual count), power, sqrt and the energy
-            # sum per bin, the filterbank's nonzeros, clip and log per mel
-            per_frame = (c.win_length + 2.5 * c.n_fft * math.log2(c.n_fft)
-                         + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
-                         + 2 * c.n_mels + 1)
-            flops = b * n_frames * per_frame
-            nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
-            bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
-                          library="the plain version (cuFFT rfft + mel "
-                                  "product): no one PyTorch call computes "
-                                  "log-mel",
-                          bound_ms=bound_ms, bound_by=bound_by, flops=flops)
+            timing = log_mel_timing(torch, np, kernels, y, c, mel, energy)
             f.update(timing)
             entry.update(timing, shape=list(y.shape))
     lib = _build.load("log_mel", _SIGNATURES)
@@ -1770,6 +1822,113 @@ def wide_ptxas(compiled, flash_lib, align_lib):
     return out
 
 
+def log_mel_widths(torch, np, kernels, compiled, rng):
+    """The log-mel kernels past the first FFT kernel's n_fft: the
+    mixed-radix kernel at MIXED_N_FFTS and the DFT kernel at DFT_N_FFTS on
+    tones with a pause (4, 16384), hop n_fft/4, each launch on its route's
+    counter, against the float64 plain version (FFT_MEL_ATOL /
+    FFT_ENERGY_RTOL) and its twin (FFT_REF_ATOL), bit-equal across
+    launches; then timed at (16, 8192) as :func:`kernel_widths` says.
+    Returns the mixed-radix and DFT kernels' entries."""
+    from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
+                                                    mel_spectrogram)
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    from smart_nar_fast_tts_tpu_torch.kernels.stft import (
+        _SIGNATURES as LOG_MEL_SIGNATURES)
+    from smart_nar_fast_tts_tpu_torch.kernels.stft import fft_plan
+    log_mel_lib = _build.load("log_mel", LOG_MEL_SIGNATURES)
+    tones = tone_with_pause(torch, np, rng, 4, 16384)
+    mixed, mixed_err, dft_err = {}, 0.0, 0.0
+    for n, route in [(n, "mixed") for n in MIXED_N_FFTS] + [
+            (n, "dft") for n in DFT_N_FFTS]:
+        with Phase(f"kernel fused_log_mel {route}") as f:
+            c = MelSpectrogramConfig(n_fft=n, win_length=n,
+                                     hop_length=max(n // 4, 1))
+            (mel, energy), launched = routed(
+                kernels, f"fused_log_mel_{route}",
+                lambda: kernels.fused_log_mel(tones, c))
+            mel2, energy2 = kernels.fused_log_mel(tones, c)
+            torch.cuda.synchronize()
+            if not launched:
+                raise AssertionError(f"fused_log_mel n_fft {n}: the {route} "
+                                     "kernel did not run")
+            twin = (kernels.log_mel_fft_reference if route == "mixed"
+                    else kernels.log_mel_dft_reference)
+            exact_mel, exact_energy = mel_spectrogram(tones.double(), c)
+            twin_mel, twin_energy = twin(tones, c)
+            mel_err = (mel.double() - exact_mel).abs().max().item()
+            energy_err = ((energy.double() - exact_energy).abs()
+                          / exact_energy.clamp(min=1e-30)).max().item()
+            if mel_err > FFT_MEL_ATOL or energy_err > FFT_ENERGY_RTOL:
+                raise AssertionError(
+                    f"fused_log_mel n_fft {n} vs float64: mel {mel_err} "
+                    f"(atol {FFT_MEL_ATOL}), energy {energy_err} relative "
+                    f"(rtol {FFT_ENERGY_RTOL})")
+            twin_err = check_close(f"fused_log_mel n_fft {n} vs "
+                                   f"{twin.__name__}", mel, twin_mel,
+                                   FFT_REF_ATOL, torch)
+            check_close(f"fused_log_mel n_fft {n} energy vs "
+                        f"{twin.__name__}", energy, twin_energy, 0.0,
+                        torch, rtol=FFT_ENERGY_RTOL)
+            if not (torch.equal(mel, mel2) and torch.equal(energy, energy2)):
+                raise AssertionError(f"fused_log_mel n_fft {n}: two "
+                                     "launches differ")
+            if route == "mixed":
+                mixed_err = max(mixed_err, mel_err)
+            else:
+                dft_err = max(dft_err, mel_err)
+            f.update(n_fft=n, shape=list(tones.shape), route=route,
+                     plan=fft_plan(n if n % 2 else n // 2)
+                     if route == "mixed" else None,
+                     mel_vs_float64=mel_err, energy_rel_vs_float64=energy_err,
+                     mel_vs_twin=twin_err, twin=twin.__name__,
+                     bit_equal=True)
+    y = torch.from_numpy(rng.uniform(-1, 1, (VOC_B, VOC_SEG)).astype(
+        np.float32)).cuda()
+    for n, hop in MIXED_TIMED:
+        with Phase("kernel fused_log_mel mixed timed") as f:
+            c = MelSpectrogramConfig(n_fft=n, win_length=n, hop_length=hop)
+            (mel, energy), launched = routed(
+                kernels, "fused_log_mel_mixed",
+                lambda: kernels.fused_log_mel(y, c))
+            if not launched:
+                raise AssertionError(f"fused_log_mel n_fft {n}: the mixed "
+                                     "kernel did not run")
+            timing = log_mel_timing(torch, np, kernels, y, c, mel, energy)
+            if n in DFT_BODY_TIMED:
+                timing["dft_body_ms"] = device_ms(
+                    dft_body(torch, log_mel_lib, y, c), torch)
+            timing.update(shape=list(y.shape), n_fft=n, hop_length=hop,
+                          plan=fft_plan(n if n % 2 else n // 2),
+                          dynamic_smem_bytes=(
+                              log_mel_lib.log_mel_mixed_smem_bytes(n)))
+            f.update(timing)
+            if not mixed:
+                mixed.update(timing)
+            else:
+                mixed.setdefault("sizes", {})[f"n_fft {n}"] = timing
+    mixed.update(max_abs_err=mixed_err)
+    with Phase("kernel fused_log_mel dft") as f:
+        n = DFT_N_FFTS[0]
+        c = MelSpectrogramConfig(n_fft=n, win_length=n)
+        (mel, energy), launched = routed(
+            kernels, "fused_log_mel_dft",
+            lambda: kernels.fused_log_mel(y, c))
+        if not launched:
+            raise AssertionError(f"fused_log_mel n_fft {n}: the DFT kernel "
+                                 "did not run")
+        dft = dict(log_mel_timing(torch, np, kernels, y, c, mel, energy),
+                   shape=list(y.shape), n_fft=n, max_abs_err=dft_err,
+                   dynamic_smem_bytes=log_mel_lib.log_mel_dft_smem_bytes(n))
+        f.update(dft)
+    ptxas = kernel_ptxas(compiled, "log_mel", log_mel_lib, {
+        f"mixed n_fft {n}": log_mel_lib.log_mel_mixed_smem_bytes(n)
+        for n, _ in MIXED_TIMED})
+    mixed.update(ptxas=ptxas)
+    dft.update(ptxas=ptxas)
+    return mixed, dft
+
+
 def kernel_widths(torch, np, kernels, compiled):
     """The widths the first kernels do not take as they are (ROADMAP
     §C.2).  Flash attention at head dims 32, 80, 96, 160 and 200
@@ -1778,27 +1937,29 @@ def kernel_widths(torch, np, kernels, compiled):
     operands, held as the tensor-core kernel is (:func:`flash_errors`);
     alignment attention at D 30, 96 and 150 (zero-padded to a multiple of
     4), 192, 256, 300 and 320 (the wide kernel), held as
-    :func:`alignment_check` holds it; the log-mel DFT kernel at n_fft 16,
-    800, 1000, 1200 and 8192 against the float64 plain version
-    (FFT_MEL_ATOL / FFT_ENERGY_RTOL) and ``log_mel_dft_reference``
-    (FFT_REF_ATOL), bit-equal across launches.  Then the wide kernels at
+    :func:`alignment_check` holds it; the log-mel mixed-radix kernel at
+    MIXED_N_FFTS and the DFT kernel at DFT_N_FFTS, on tones with a pause,
+    each against the float64 plain version (FFT_MEL_ATOL /
+    FFT_ENERGY_RTOL) and its twin, ``log_mel_fft_reference`` or
+    ``log_mel_dft_reference`` (FFT_REF_ATOL), bit-equal across launches.
+    Then the wide kernels at
     WIDE_HEAD_DS: flash at (8, 2, 4096, D) on prefix masks (at D 320 also
     holes and a last-tile mask), f32 and bf16 operands, bit-equal across
     launches, timed beside its plain version and SDPA on f32 and bf16
     operands; alignment at the training shape with head dim D, timed
     beside its plain version and f32 SDPA on ``out`` alone; the log-mel
-    DFT kernel timed at (16, 8192) with n_fft 1200.  Returns the three
-    second kernels' entries."""
-    from smart_nar_fast_tts_tpu_torch.audio import (MelSpectrogramConfig,
-                                                    mel_spectrogram)
+    mixed-radix kernel timed at (16, 8192) at MIXED_TIMED beside its plain
+    version and, at DFT_BODY_TIMED, the DFT kernel's body; the DFT kernel
+    at (16, 8192) with n_fft DFT_N_FFTS[0].  Returns the four further
+    kernels' entries."""
     from smart_nar_fast_tts_tpu_torch.kernels import _build
     from smart_nar_fast_tts_tpu_torch.kernels.alignment import (
         _SIGNATURES as ALIGN_SIGNATURES)
     from smart_nar_fast_tts_tpu_torch.kernels.attention import (
         _SIGNATURES as FLASH_SIGNATURES)
     rng = np.random.default_rng(6)
-    flash, align, dft = {}, {}, {}
-    flash_err = flash_share = align_err = dft_err = 0.0
+    flash, align = {}, {}
+    flash_err = flash_share = align_err = 0.0
     for D in (32, 80, 96, 160, 192, 200, 256, 288, 320):
         valid = flash_valid(torch, np, rng, 4, 700, "prefix")
         base = [torch.from_numpy(rng.standard_normal(
@@ -1901,65 +2062,7 @@ def kernel_widths(torch, np, kernels, compiled):
             else:
                 align[f"d{D}"] = entry
     align.update(max_abs_err=align_err)
-    tones = tone_with_pause(torch, np, rng, 4, 16384)
-    for n in (16, 800, 1000, 1200, 8192):
-        with Phase("kernel fused_log_mel dft") as f:
-            c = MelSpectrogramConfig(n_fft=n, win_length=n,
-                                     hop_length=max(n // 4, 1))
-            (mel, energy), launched = routed(
-                kernels, "fused_log_mel_dft",
-                lambda: kernels.fused_log_mel(tones, c))
-            mel2, energy2 = kernels.fused_log_mel(tones, c)
-            torch.cuda.synchronize()
-            if not launched:
-                raise AssertionError(f"fused_log_mel n_fft {n}: the DFT "
-                                     "kernel did not run")
-            exact_mel, exact_energy = mel_spectrogram(tones.double(), c)
-            twin_mel, twin_energy = kernels.log_mel_dft_reference(tones, c)
-            mel_err = (mel.double() - exact_mel).abs().max().item()
-            energy_err = ((energy.double() - exact_energy).abs()
-                          / exact_energy.clamp(min=1e-30)).max().item()
-            if mel_err > FFT_MEL_ATOL or energy_err > FFT_ENERGY_RTOL:
-                raise AssertionError(
-                    f"fused_log_mel n_fft {n} vs float64: mel {mel_err} "
-                    f"(atol {FFT_MEL_ATOL}), energy {energy_err} relative "
-                    f"(rtol {FFT_ENERGY_RTOL})")
-            twin_err = check_close(f"fused_log_mel n_fft {n} vs "
-                                   "log_mel_dft_reference", mel, twin_mel,
-                                   FFT_REF_ATOL, torch)
-            check_close(f"fused_log_mel n_fft {n} energy vs "
-                        "log_mel_dft_reference", energy, twin_energy, 0.0,
-                        torch, rtol=FFT_ENERGY_RTOL)
-            if not (torch.equal(mel, mel2) and torch.equal(energy, energy2)):
-                raise AssertionError(f"fused_log_mel n_fft {n}: two "
-                                     "launches differ")
-            dft_err = max(dft_err, mel_err)
-            f.update(n_fft=n, shape=list(tones.shape), route="dft",
-                     mel_vs_float64=mel_err, energy_rel_vs_float64=energy_err,
-                     mel_vs_dft_reference=twin_err, bit_equal=True)
-    with Phase("kernel fused_log_mel dft") as f:
-        c = MelSpectrogramConfig(n_fft=1200, win_length=1200)
-        y = torch.from_numpy(rng.uniform(-1, 1, (VOC_B, VOC_SEG)).astype(
-            np.float32)).cuda()
-        mel, energy = kernels.fused_log_mel(y, c)
-        ms = device_ms(lambda: kernels.fused_log_mel(y, c), torch)
-        plain_ms = device_ms(lambda: mel_spectrogram(y, c), torch)
-        b, n_frames = energy.shape
-        n_bins = c.n_fft // 2 + 1
-        # the function's least work, as for the FFT kernel's entry
-        per_frame = (c.win_length + 2.5 * c.n_fft * math.log2(c.n_fft)
-                     + 5 * n_bins + 2 * np.count_nonzero(c.mel_basis)
-                     + 2 * c.n_mels + 1)
-        flops = b * n_frames * per_frame
-        nbytes = 4 * (y.numel() + mel.numel() + energy.numel())
-        bound_ms, bound_by = bound(nbytes, flops, F32_FLOPS)
-        dft = dict(ms=ms, plain_ms=plain_ms, library_ms=plain_ms,
-                   library="the plain version (cuFFT rfft + mel product): "
-                           "no one PyTorch call computes log-mel",
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   bound_share=bound_ms / ms, shape=list(y.shape),
-                   n_fft=1200, max_abs_err=dft_err)
-        f.update(dft)
+    mixed, dft = log_mel_widths(torch, np, kernels, compiled, rng)
     ptxas = wide_ptxas(compiled,
                        _build.load("flash_attention", FLASH_SIGNATURES),
                        _build.load("alignment_attention", ALIGN_SIGNATURES))
@@ -1967,6 +2070,7 @@ def kernel_widths(torch, np, kernels, compiled):
     align.update(ptxas=ptxas)
     return {"flash_attention_wide": flash,
             "alignment_attention_wide": align,
+            "fused_log_mel_mixed": mixed,
             "fused_log_mel_dft": dft}
 
 
@@ -2380,7 +2484,7 @@ def main() -> int:
         "FastSpeech widths (head dim 192), serving stage A at cap 4096")
     entries["alignment_attention"]["fastspeech_width_path"] = (
         f"FastSpeech widths (head dim 192), {FS_TRAIN_STEPS} train steps")
-    # the second kernels: no driven path has a head dim past 256 or an
+    # the further kernels: no driven path has a head dim past 256 or an
     # n_fft that is not a power of two, so each counts 0 on every path
     sources = {
         "flash_attention_wide": (
@@ -2389,6 +2493,9 @@ def main() -> int:
         "alignment_attention_wide": (
             "smart_nar_fast_tts_tpu_torch/csrc/alignment_attention.cu",
             "smart_nar_fast_tts_tpu/ops/pallas/alignment.py:67"),
+        "fused_log_mel_mixed": (
+            "smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
+            "smart_nar_fast_tts_tpu/ops/pallas/stft.py:46"),
         "fused_log_mel_dft": (
             "smart_nar_fast_tts_tpu_torch/csrc/log_mel.cu",
             "smart_nar_fast_tts_tpu/ops/pallas/stft.py:46")}

@@ -3,11 +3,13 @@
 Each wrapper takes the plain PyTorch version for a CPU tensor and launches
 its CUDA kernel for a CUDA tensor (or raises); there is no fallback.  Each
 wrapper counts its launches in ``<wrapper>.launches``, so a run can show that
-it went through the kernels.  Three wrappers have a second kernel for the
+it went through the kernels.  Three wrappers have further kernels for the
 widths their first does not take, whose launches are also counted apart
 (:func:`route_launches`): the wide flash and alignment kernels (head dims
-past 256, on the tensor cores too; counted in ``.launches`` as well) and the
-log-mel DFT kernel (an n_fft that is not a power of two from 32 to 4096).
+past 256, on the tensor cores too; counted in ``.launches`` as well), and
+the log-mel mixed-radix FFT kernel (an n_fft that is not a power of two
+from 32 to 4096) and DFT kernel (an odd n_fft past the mixed-radix
+kernel's 7,263), each counted there alone.
 """
 
 from .alignment import (alignment_attention, alignment_reference,
@@ -24,6 +26,7 @@ WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention,
 ROUTE_COUNTERS = (
     (flash_attention, "wide_launches", "flash_attention_wide"),
     (alignment_attention, "wide_launches", "alignment_attention_wide"),
+    (fused_log_mel, "mixed_launches", "fused_log_mel_mixed"),
     (fused_log_mel, "dft_launches", "fused_log_mel_dft"))
 
 
@@ -39,7 +42,8 @@ def launches() -> dict[str, int]:
 
 
 def route_launches() -> dict[str, int]:
-    """Launches of the second kernels (head dims past 256, any n_fft)."""
+    """Launches of the further kernels (head dims past 256, n_fft not a
+    power of two from 32 to 4096)."""
     return {name: getattr(fn, counter)
             for fn, counter, name in ROUTE_COUNTERS}
 

@@ -6,12 +6,15 @@ JAX Pallas kernel in interpret mode at that kernel's own tolerances
 (``tests/test_pallas_kernels.py``: mel atol 2e-4, energy atol 2e-3, rtol
 1e-4), on noise, a speech-like signal with a pause, and silence.
 
-The CUDA kernel's own schedule, ``log_mel_fft_reference`` (an f64 FFT by
-Stockham radix-4 stages, the split step, sparse f64 mel sums, an f32 log),
-is held here to the JAX kernel at the same tolerances and to the float64
-plain version within 5e-6 in log-mel and 1e-6 relative in energy: the error
-of an f32 epilogue (~1e-6) with room for ``logf``'s last ulp on the card.
-Its host tables are held to their definitions."""
+The CUDA kernels' own schedule, ``log_mel_fft_reference`` (an f64 FFT by
+the Stockham stages of ``fft_plan``: radix 4 and 2 for a power of two, any
+radix for every other n_fft; the split step for an even n_fft; sparse f64
+mel sums, an f32 log), is held here to the JAX kernel at the same
+tolerances and to the float64 plain version within 5e-6 in log-mel and 1e-6
+relative in energy: the error of an f32 epilogue (~1e-6) with room for
+``logf``'s last ulp on the card.  So is ``log_mel_dft_reference``, the DFT
+kernel's twin (odd n_fft past the mixed-radix kernel's buffers).  Their
+host tables, plans and routes are held to their definitions."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +31,9 @@ from smart_nar_fast_tts_tpu_torch.audio import stft as port_stft
 from smart_nar_fast_tts_tpu_torch.kernels import (fused_log_mel,
                                                   log_mel_fft_reference)
 from smart_nar_fast_tts_tpu_torch.kernels.stft import (
-    _stockham_fft, fft_radices, log_mel_dft_reference, log_mel_tables,
-    num_frames, uses_fft)
+    MAX_SMEM, _stockham_fft, dft_smem_bytes, fft_plan, log_mel_dft_reference,
+    log_mel_route, log_mel_tables, max_odd_n_fft, mixed_smem_bytes,
+    num_frames)
 
 MEL_ATOL, ENERGY_ATOL, KERNEL_RTOL = 2e-4, 2e-3, 1e-4
 F32_ATOL = 1e-5
@@ -239,19 +243,68 @@ def test_log_mel_tables(name):
                                   np.asarray(tcfg.window, np.float64))
 
 
-@pytest.mark.parametrize("m", [16, 32, 64, 128, 512, 2048])
+@pytest.mark.parametrize("m", [16, 32, 64, 128, 512, 2048, 3, 5, 7, 12, 15,
+                               49, 75, 300, 441, 600, 601, 1001])
 def test_stockham_fft_matches_fft(m):
-    """The kernel's stages (radix-2 first where log2 m is odd, then
-    radix-4) against ``torch.fft.fft`` in float64."""
-    assert fft_radices(m) == [2] * (m.bit_length() % 2 == 0) + [4] * (
-        (m.bit_length() - 1) // 2)
+    """The kernels' stages (for a power of two radix-2 first where log2 m
+    is odd, then radix-4; for any other m the mixed plan) against
+    ``torch.fft.fft`` in float64, with twiddle tables of m points (an odd
+    n_fft) and 2m (an even one)."""
+    if m & (m - 1) == 0:
+        assert fft_plan(m) == [2] * (m.bit_length() % 2 == 0) + [4] * (
+            (m.bit_length() - 1) // 2)
     rng = np.random.default_rng(m)
     z = torch.from_numpy(rng.standard_normal((3, m))
                          + 1j * rng.standard_normal((3, m)))
-    w = torch.from_numpy(np.exp(-2j * np.pi * np.arange(2 * m) / (2 * m)))
-    np.testing.assert_allclose(_stockham_fft(z, w).numpy(),
-                               torch.fft.fft(z).numpy(), rtol=0,
-                               atol=1e-12 * m)
+    for big in (m, 2 * m):
+        w = torch.from_numpy(np.exp(-2j * np.pi * np.arange(big) / big))
+        np.testing.assert_allclose(_stockham_fft(z, w).numpy(),
+                                   torch.fft.fft(z).numpy(), rtol=0,
+                                   atol=1e-12 * m)
+
+
+def _is_prime(n):
+    return n > 1 and all(n % f for f in range(2, int(n ** 0.5) + 1))
+
+
+@pytest.mark.parametrize("m, plan", [
+    (1, []), (2, [2]), (8, [2, 4]), (4096, [4] * 6), (600, [4, 2, 3, 5, 5]),
+    (200, [4, 2, 5, 5]), (441, [3, 3, 7, 7]), (1001, [7, 11, 13]),
+    (601, [601]), (7263, [3, 3, 3, 269]), (4802, [2, 7, 7, 7, 7]),
+    (1100, [4, 5, 5, 11])])
+def test_fft_plan(m, plan):
+    """The plan of the sizes the kernels take: a power of two as the
+    first FFT kernel's stages, any other m as radix-4 stages, one 2, then
+    3, 5, 7 and larger primes in ascending order; a prime m one stage."""
+    assert fft_plan(m) == plan
+
+
+def test_log_mel_route_covers_the_domain():
+    """Every n_fft from 2 to the DFT kernel's largest has one route, as
+    before the mixed-radix kernel: powers of two from 32 to 4096 the first
+    FFT kernel, every even n_fft and every odd one up to 7,263 the
+    mixed-radix one, the odd ones past it the DFT kernel; each mixed plan
+    multiplies to its FFT's length in at most 20 stages (the kernel's
+    ``MAX_STAGES``), its radices in the plan's order."""
+    assert (max_odd_n_fft("mixed"), max_odd_n_fft("dft")) == (7263, 14527)
+    for n in range(2, 14528):
+        route = log_mel_route(n)
+        pow2 = 32 <= n <= 4096 and n & (n - 1) == 0
+        assert route == ("fft" if pow2 else "dft" if n % 2 and n > 7263
+                         else "mixed"), n
+        smem = dft_smem_bytes(n) if route == "dft" else mixed_smem_bytes(n)
+        assert smem <= MAX_SMEM
+        if route == "mixed":
+            m = n if n % 2 else n // 2
+            plan = fft_plan(m)
+            assert int(np.prod(plan)) == m and len(plan) <= 20, n
+            if m & (m - 1):
+                rank = [{4: 0, 2: 1}.get(r, r) for r in plan]
+                assert rank == sorted(rank) and all(
+                    _is_prime(r) for r in plan if r != 4), (n, plan)
+    for n in (1, 14528, 14529):
+        with pytest.raises(ValueError, match="outside 2 to 14527"):
+            log_mel_route(n)
 
 
 @pytest.mark.parametrize("kind", ["noise", "speech", "zeros"])
@@ -294,36 +347,49 @@ def test_log_mel_fft_reference_near_float64(name, kind):
 
 @pytest.mark.parametrize("n_fft", [16, 1000, 8192])
 def test_log_mel_fft_reference_rejects_n_fft(n_fft):
-    """The FFT kernel takes n_fft a power of two from 32 to 4096, and its
-    twin refuses the rest; those go to the DFT kernel, whose float64-torch
-    twin ``log_mel_dft_reference`` is within 5e-6 of the float64 plain
-    version there (log-mel; energy 1e-6 relative)."""
+    """16, 1000 and 8192, once the DFT kernel's, take the mixed-radix FFT
+    kernel: its twin takes them, within 5e-6 of the float64 plain version
+    (log-mel; energy 1e-6 relative) and 2e-6 of the DFT twin.  It rejects
+    only the odd n_fft past the mixed-radix kernel's buffers, which the
+    DFT kernel keeps."""
     cfg = port_stft.MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
                                          hop_length=max(n_fft // 4, 1))
-    assert not uses_fft(n_fft)
-    with pytest.raises(ValueError, match="power of two from 32 to 4096"):
-        log_mel_fft_reference(torch.zeros(1, 10000), cfg)
+    assert log_mel_route(n_fft) == "mixed"
+    odd = max_odd_n_fft("mixed") + 2
+    assert log_mel_route(odd) == "dft"
+    with pytest.raises(ValueError, match="odd n_fft past 7263"):
+        log_mel_fft_reference(torch.zeros(1, 10000),
+                              port_stft.MelSpectrogramConfig(
+                                  n_fft=odd, win_length=odd))
     y = torch.from_numpy(_tones_with_pause(2, 10000, seed=n_fft))
-    mel, energy = log_mel_dft_reference(y, cfg)
+    mel, energy = log_mel_fft_reference(y, cfg)
     e_mel, e_energy = port_stft.mel_spectrogram(y.double(), cfg)
     assert mel.dtype == energy.dtype == torch.float32
     np.testing.assert_allclose(mel.double().numpy(), e_mel.numpy(), rtol=0,
                                atol=FFT_MEL_ATOL)
     np.testing.assert_allclose(energy.double().numpy(), e_energy.numpy(),
                                rtol=FFT_ENERGY_RTOL, atol=0)
+    d_mel, d_energy = log_mel_dft_reference(y, cfg)
+    np.testing.assert_allclose(mel.numpy(), d_mel.numpy(), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(energy.numpy(), d_energy.numpy(),
+                               rtol=FFT_ENERGY_RTOL, atol=0)
 
 
-@pytest.mark.parametrize("n_fft", [800, 1200])
-def test_log_mel_dft_reference_near_float64(n_fft):
-    """The DFT kernel's twin at the ``filter_length`` of a user's
-    preprocess.yaml: within 5e-6 of the float64 plain version on tones with
-    a pause and on noise."""
+@pytest.mark.parametrize("n_fft", [16, 400, 882, 1001, 1200, 1201, 8192])
+def test_log_mel_fft_reference_mixed_near_float64(n_fft):
+    """The mixed-radix kernel's twin at a power of two outside 32-4096,
+    7-smooth sizes of users' configurations (400, 882, 1200), odd sizes with
+    generic radices (1001 = 7·11·13) and a prime (1201): within 5e-6 of the
+    float64 plain version (energy 1e-6 relative) on tones with a pause and
+    on noise."""
     cfg = port_stft.MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
-                                         hop_length=n_fft // 4)
-    for y in (_tones_with_pause(2, 8192, seed=n_fft),
-              _signal("noise", 2, 8192, seed=n_fft)):
+                                         hop_length=max(n_fft // 4, 1))
+    assert log_mel_route(n_fft) == "mixed"
+    S = 10000 if n_fft > 16 else 2000
+    for y in (_tones_with_pause(2, S, seed=n_fft),
+              _signal("noise", 2, S, seed=n_fft)):
         y = torch.from_numpy(y)
-        mel, energy = log_mel_dft_reference(y, cfg)
+        mel, energy = log_mel_fft_reference(y, cfg)
         e_mel, e_energy = port_stft.mel_spectrogram(y.double(), cfg)
         np.testing.assert_allclose(mel.double().numpy(), e_mel.numpy(),
                                    rtol=0, atol=FFT_MEL_ATOL)
@@ -331,12 +397,53 @@ def test_log_mel_dft_reference_near_float64(n_fft):
                                    rtol=FFT_ENERGY_RTOL, atol=0)
 
 
+@pytest.mark.parametrize("n_fft", [400, 1000, 1001, 1200])
+def test_log_mel_fft_reference_mixed_matches_pallas_kernel(n_fft):
+    """The mixed-radix kernel's twin against the JAX Pallas kernel in
+    interpret mode, at that kernel's tolerances."""
+    kw = dict(n_fft=n_fft, win_length=n_fft, hop_length=n_fft // 4)
+    cfg = jax_stft.MelSpectrogramConfig(**kw)
+    tcfg = port_stft.MelSpectrogramConfig(**kw)
+    y = _signal("speech", 2, 6000, seed=n_fft)
+    mel, energy = log_mel_fft_reference(torch.from_numpy(y), tcfg)
+    e_mel, e_energy = jax_fused_log_mel(jnp.asarray(y), cfg, block_f=16,
+                                        interpret=True)
+    assert mel.shape == e_mel.shape and energy.shape == e_energy.shape
+    np.testing.assert_allclose(mel.numpy(), np.asarray(e_mel),
+                               atol=MEL_ATOL, rtol=KERNEL_RTOL)
+    np.testing.assert_allclose(energy.numpy(), np.asarray(e_energy),
+                               atol=ENERGY_ATOL, rtol=KERNEL_RTOL)
+
+
+@pytest.mark.parametrize("n_fft", [800, 1200])
+def test_log_mel_dft_reference_near_float64(n_fft):
+    """At the ``filter_length`` of a user's preprocess.yaml, once the DFT
+    kernel's and now the mixed-radix kernel's: both twins within 5e-6 of
+    the float64 plain version on tones with a pause and on noise (the DFT
+    twin's schedule is the one the odd n_fft past 7,263 still take)."""
+    cfg = port_stft.MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
+                                         hop_length=n_fft // 4)
+    assert log_mel_route(n_fft) == "mixed"
+    for y in (_tones_with_pause(2, 8192, seed=n_fft),
+              _signal("noise", 2, 8192, seed=n_fft)):
+        y = torch.from_numpy(y)
+        e_mel, e_energy = port_stft.mel_spectrogram(y.double(), cfg)
+        for twin in (log_mel_dft_reference, log_mel_fft_reference):
+            mel, energy = twin(y, cfg)
+            np.testing.assert_allclose(mel.double().numpy(), e_mel.numpy(),
+                                       rtol=0, atol=FFT_MEL_ATOL)
+            np.testing.assert_allclose(energy.double().numpy(),
+                                       e_energy.numpy(),
+                                       rtol=FFT_ENERGY_RTOL, atol=0)
+
+
 @pytest.mark.parametrize("n_fft", [1000, 1024])
 def test_log_mel_dft_reference_matches_fft_and_pallas_kernel(n_fft):
-    """Its DFT against ``torch.fft`` in float64 (1e-9 of the magnitude's
-    peak), and its outputs against the JAX Pallas kernel in interpret mode
-    at that kernel's tolerances; at n_fft 1024 also against the FFT
-    kernel's twin (2e-6)."""
+    """The DFT twin's DFT against ``torch.fft`` in float64 (1e-9 of the
+    magnitude's peak), and its outputs against the JAX Pallas kernel in
+    interpret mode at that kernel's tolerances and against the FFT
+    kernels' twin (2e-6): the mixed-radix schedule at n_fft 1000, the
+    radix-2/4 one at 1024."""
     kw = dict(n_fft=n_fft, win_length=n_fft, hop_length=256)
     cfg = jax_stft.MelSpectrogramConfig(**kw)
     tcfg = port_stft.MelSpectrogramConfig(**kw)
@@ -360,9 +467,8 @@ def test_log_mel_dft_reference_matches_fft_and_pallas_kernel(n_fft):
                                atol=MEL_ATOL, rtol=KERNEL_RTOL)
     np.testing.assert_allclose(energy.numpy(), np.asarray(e_energy),
                                atol=ENERGY_ATOL, rtol=KERNEL_RTOL)
-    if uses_fft(n_fft):
-        f_mel, f_energy = log_mel_fft_reference(yt, tcfg)
-        np.testing.assert_allclose(mel.numpy(), f_mel.numpy(), rtol=0,
-                                   atol=2e-6)
-        np.testing.assert_allclose(energy.numpy(), f_energy.numpy(),
-                                   rtol=FFT_ENERGY_RTOL, atol=0)
+    assert log_mel_route(n_fft) == ("mixed" if n_fft == 1000 else "fft")
+    f_mel, f_energy = log_mel_fft_reference(yt, tcfg)
+    np.testing.assert_allclose(mel.numpy(), f_mel.numpy(), rtol=0, atol=2e-6)
+    np.testing.assert_allclose(energy.numpy(), f_energy.numpy(),
+                               rtol=FFT_ENERGY_RTOL, atol=0)

@@ -59,6 +59,9 @@ is also held within 5e-6 of the float64 plain version in log-mel and 1e-6
 relative in energy (f32 rounding of the mel value and ``logf``'s last ulp,
 ~1e-6), and within 2e-6 of ``log_mel_fft_reference``, which runs its
 schedule in float64 torch; its outputs are bit-equal from launch to launch.
+So are the mixed-radix FFT kernel (an n_fft that is not a power of two from
+32 to 4096; ``.mixed_launches``) and the DFT kernel (an odd n_fft past
+7,263; ``.dft_launches``, twin ``log_mel_dft_reference``).
 """
 
 import numpy as np
@@ -73,6 +76,7 @@ from smart_nar_fast_tts_tpu_torch.kernels import (
     attention_bf16_tolerance, attention_reference, flash_attention,
     fused_log_mel, gaussian_upsample_banded, log_mel_dft_reference,
     log_mel_fft_reference)
+from smart_nar_fast_tts_tpu_torch.kernels import stft as kstft
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
 BF16_TOL = 2e-2
@@ -523,7 +527,9 @@ def test_fused_log_mel_fft(card, case):
                  "tiny": (3, 300)}.get(case, (16, 8192))
         y = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
     y = y.to(card)
+    launched = fused_log_mel.launches
     mel, energy = fused_log_mel(y, cfg)
+    assert fused_log_mel.launches == launched + 1
     mel2, energy2 = fused_log_mel(y, cfg)
     exact_mel, exact_energy = mel_spectrogram(y.double(), cfg)
     torch.testing.assert_close(mel.double(), exact_mel, atol=FFT_MEL_ATOL,
@@ -537,27 +543,66 @@ def test_fused_log_mel_fft(card, case):
     assert torch.equal(mel, mel2) and torch.equal(energy, energy2)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_fft", [16, 800, 1000, 1200, 8192])
-def test_fused_log_mel_rejects_n_fft(card, n_fft):
-    """An n_fft that the FFT kernel does not take (a power of two from 32
-    to 4096) goes to the DFT kernel: within 5e-6 of the float64 plain
-    version (energy 1e-6 relative) on the tones with a pause, within 2e-6
-    of its twin ``log_mel_dft_reference``, bit-equal across launches."""
+def _log_mel_route_check(card, n_fft, counter, twin, S=16384):
+    """One route of ``fused_log_mel`` on the tones with a pause, (3, S), hop
+    n_fft/4: its counter, the float64 plain version (5e-6; energy 1e-6
+    relative), its twin (2e-6) and two launches bit-equal."""
     cfg = MelSpectrogramConfig(n_fft=n_fft, win_length=n_fft,
                                hop_length=max(n_fft // 4, 1))
-    y = _tones_with_pause(np.random.default_rng(n_fft), 3, 16384).to(card)
-    dft = fused_log_mel.dft_launches
+    y = _tones_with_pause(np.random.default_rng(n_fft), 3, S).to(card)
+    before = getattr(fused_log_mel, counter)
     mel, energy = fused_log_mel(y, cfg)
-    assert fused_log_mel.dft_launches == dft + 1
+    assert getattr(fused_log_mel, counter) == before + 1
     mel2, energy2 = fused_log_mel(y, cfg)
     exact_mel, exact_energy = mel_spectrogram(y.double(), cfg)
     torch.testing.assert_close(mel.double(), exact_mel, atol=FFT_MEL_ATOL,
                                rtol=0)
     torch.testing.assert_close(energy.double(), exact_energy, atol=0,
                                rtol=FFT_ENERGY_RTOL)
-    ref_mel, ref_energy = log_mel_dft_reference(y, cfg)
+    ref_mel, ref_energy = twin(y, cfg)
     torch.testing.assert_close(mel, ref_mel, atol=FFT_REF_ATOL, rtol=0)
     torch.testing.assert_close(energy, ref_energy, atol=0,
                                rtol=FFT_ENERGY_RTOL)
     assert torch.equal(mel, mel2) and torch.equal(energy, energy2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [16, 400, 882, 1001, 1200, 1201, 8192])
+def test_fused_log_mel_rejects_n_fft(card, n_fft):
+    """An n_fft that the first FFT kernel does not take (a power of two
+    from 32 to 4096) goes to the mixed-radix FFT kernel: a power of two
+    outside that range, 7-smooth sizes, generic radices (1001 = 7·11·13)
+    and a prime (1201), each held as :func:`_log_mel_route_check` holds
+    it, against its twin ``log_mel_fft_reference``."""
+    _log_mel_route_check(card, n_fft, "mixed_launches",
+                         log_mel_fft_reference)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [7263, 14526])
+def test_fused_log_mel_mixed_largest(card, n_fft):
+    """The mixed-radix kernel's largest odd and even n_fft (plan [3, 3, 3,
+    269] both): its buffers fill a block's shared memory."""
+    _log_mel_route_check(card, n_fft, "mixed_launches",
+                         log_mel_fft_reference, S=4 * n_fft)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft", [7265, 14527])
+def test_fused_log_mel_dft(card, n_fft):
+    """The odd n_fft past the mixed-radix kernel's buffers keep the DFT
+    kernel, held against its twin ``log_mel_dft_reference``."""
+    _log_mel_route_check(card, n_fft, "dft_launches", log_mel_dft_reference,
+                         S=2 * n_fft)
+
+
+@pytest.mark.cuda
+def test_log_mel_smem_rule(card):
+    """The host's route rule reads the kernels' shared memory as the
+    source computes it, at every n_fft of the domain."""
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    lib = _build.load("log_mel", kstft._SIGNATURES)
+    assert lib.log_mel_max_smem_bytes() == kstft.MAX_SMEM
+    for n in range(2, kstft.max_odd_n_fft("dft") + 2):
+        assert lib.log_mel_mixed_smem_bytes(n) == kstft.mixed_smem_bytes(n)
+        assert lib.log_mel_dft_smem_bytes(n) == kstft.dft_smem_bytes(n)
