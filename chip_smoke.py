@@ -88,8 +88,9 @@ any failure raises (exit code 1):
             just before and read just after; every .wav and .png checked;
             durations exact and postnet mel within 1e-3 against the CPU
             (in (b) with the card's flash outputs replayed, each held to
-            ``attention_bf16_reference`` of its own inputs); then the CLI
-            imported where yaml, matplotlib and JAX cannot be
+            ``attention_bf16_reference`` of its own inputs); then the four
+            CLIs (synthesize, train, evaluate, train_vocoder) imported
+            where yaml, matplotlib, tensorboard and JAX cannot be
   train     the training slice's main path: ``make_train_step`` on the
             committed flagship with ``intended``/``first`` duration
             extraction (the alignment kernel's path) at the flagship training
@@ -98,6 +99,26 @@ any failure raises (exit code 1):
             step of the default ``soft``/``mean`` configuration
   train_reference  one step on the card against the same step through the
             port's plain versions on the CPU, seeded weights and batch
+  trainer cli  the training CLIs (``cli.train``, ``cli.evaluate``) on the
+            flagship with ``intended``/``first`` extraction at the flagship
+            training shape (B 48, text bucket 128, mel bucket 896): a corpus
+            under the git-ignored ``build/trainer_smoke/`` (96 train and 40
+            val utterances of seeded phone strings, the port's stage-A
+            output as targets), a step-0 checkpoint of the committed
+            flagship; 6 steps over 3 epochs (log every 2, validation every
+            3, a checkpoint every 3, samples with HiFi-GAN audio at 6, the
+            profiler over steps 4-5), a resume to step 8, then
+            ``cli.evaluate`` of step 8, each with the launch counts set to 0
+            just before and read just after (4 alignment and 1 upsampling
+            launch a forward); checkpoints 0, 3, 6, 8, the data positions,
+            log.txt, every event record's CRCs and the count of its
+            ``Loss/*``, ``Perf/*``, image and audio values, the
+            profiler's trace (``profile_trainer.py`` times the loop's parts)
+  trainer reference  ``cli.evaluate --device cpu`` of the same checkpoint:
+            the 7 val loss terms within rtol 1e-4 of the card's, the CPU
+            taking the card's alignment argmax; every kernel pick that the
+            plain version does not share on the launch's inputs a float64
+            near-tie
   fastspeech serving / train  FastSpeech's widths (384 hidden, 2 heads:
             head dim 192, filter 1536, 6 + 6 layers) with seeded weights:
             stage A of bench.py's inputs at cap 4096 (6 flash launches at
@@ -113,6 +134,12 @@ any failure raises (exit code 1):
             before and read just after (``fused_log_mel`` 2 per step)
   vocoder train reference  one GAN step of a narrow configuration on the
             card against the same step on the CPU, from the same state
+  train_vocoder cli  ``cli.train_vocoder`` warm-started from the cli
+            phase's HiFi-GAN V1 checkpoint on the e2e waveforms (22,050 Hz
+            wavs under ``build/train_vocoder_smoke/``): 4 GAN steps of B 16
+            × 8192 samples, 8 log-mel launches; its checkpoints, config and
+            meta; ``load_vocoder`` of step 4 vocodes the e2e mel, and the
+            synthesize CLI runs with it as ``--vocoder_ckpt``
 
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -1061,7 +1088,7 @@ def train_phase(torch, np, kernels, synth, inv):
         f.update(launches=soft,
                  losses={k: float(v) for k, v in losses._asdict().items()})
         del state
-    return counts
+    return counts, step_ms
 
 
 def fastspeech_model(torch):
@@ -1724,7 +1751,7 @@ def vocoder_train_phase(torch, kernels, synth, segments):
                  params={t: sum(p.numel() for p in m_.parameters())
                          for t, m_ in trees.items()})
         del state, step, before
-    return counts
+    return counts, step_ms
 
 
 def vocoder_train_reference_phase(torch, np):
@@ -2099,6 +2126,32 @@ CLI_SOURCE = ("Hello world.", "Good morning to you.",
               "Turn left at the light.", "Rain falls on the roof.")
 
 
+def write_hifigan(torch, voc_dir):
+    """The committed HiFi-GAN V1 as an upstream torch checkpoint,
+    ``{"generator": state_dict}`` with weight norm written out, and its
+    ``config.json``, in ``voc_dir``.  Returns the checkpoint's path."""
+    from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
+    sd = {}
+    for key, value in committed_vocoder().state_dict().items():
+        if key.endswith(".weight") and value.ndim == 3:   # weight norm, dim 0
+            base = key[:-len(".weight")]
+            sd[base + ".weight_g"] = value.flatten(1).norm(dim=1)[:, None,
+                                                                  None]
+            sd[base + ".weight_v"] = value
+        else:
+            sd[key] = value
+    os.makedirs(voc_dir)
+    voc_path = os.path.join(voc_dir, "generator_v1.pth.tar")
+    torch.save({"generator": sd}, voc_path)
+    with open(os.path.join(REPO, "benchmarks", "results",
+                           "vocoder_meta.json")) as f:
+        voc_config = json.load(f)["config"]
+    with open(os.path.join(voc_dir, "config.json"), "w") as f:
+        json.dump({**voc_config, "num_mels": voc_config.get("n_mels", 80)},
+                  f)
+    return voc_path
+
+
 def cli_workspace(torch, np):
     """``build/cli_smoke/``: copies of ``configs/scaled/*.yaml`` whose paths
     point there, ``stats.json`` from ``scaled_flagship_meta.json``, a port
@@ -2110,8 +2163,7 @@ def cli_workspace(torch, np):
     import shutil
 
     from smart_nar_fast_tts_tpu_torch.config import Config
-    from smart_nar_fast_tts_tpu_torch.serving import (committed_flagship,
-                                                      committed_vocoder)
+    from smart_nar_fast_tts_tpu_torch.serving import committed_flagship
     from smart_nar_fast_tts_tpu_torch.text import text_to_sequence
     from smart_nar_fast_tts_tpu_torch.text.g2p import G2P
     from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
@@ -2148,25 +2200,7 @@ def cli_workspace(torch, np):
         cfg.train.optimizer, "cpu")
     state.step = int(meta["steps"])
     CheckpointManager(cfg.train.ckpt_path).save(state)
-    vocoder = committed_vocoder()
-    sd = {}
-    for key, value in vocoder.state_dict().items():
-        if key.endswith(".weight") and value.ndim == 3:   # weight norm, dim 0
-            base = key[:-len(".weight")]
-            sd[base + ".weight_g"] = value.flatten(1).norm(dim=1)[:, None,
-                                                                  None]
-            sd[base + ".weight_v"] = value
-        else:
-            sd[key] = value
-    voc_dir = os.path.join(CLI_DIR, "hifigan")
-    os.makedirs(voc_dir)
-    voc_path = os.path.join(voc_dir, "generator_v1.pth.tar")
-    torch.save({"generator": sd}, voc_path)
-    with open(os.path.join(results, "vocoder_meta.json")) as f:
-        voc_config = json.load(f)["config"]
-    with open(os.path.join(voc_dir, "config.json"), "w") as f:
-        json.dump({**voc_config, "num_mels": voc_config.get("n_mels", 80)},
-                  f)
+    voc_path = write_hifigan(torch, os.path.join(CLI_DIR, "hifigan"))
     g2p = G2P(cfg.preprocess.lexicon_path)
     lines = []
     for i, sentence in enumerate(CLI_SOURCE):
@@ -2361,17 +2395,498 @@ def cli_phase(torch, np, kernels):
                                runs)
         f.update(postnet_mel_max_err=report, mel_tol=MEL_TOL)
     with Phase("cli imports") as f:
-        blocked = ("yaml", "matplotlib", "jax", "flax",
+        blocked = ("yaml", "matplotlib", "tensorboard", "jax", "flax",
                    "smart_nar_fast_tts_tpu")
+        clis = ("synthesize", "train", "evaluate", "train_vocoder")
         code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
-                "None\nimport smart_nar_fast_tts_tpu_torch.cli.synthesize\n")
+                f"None\nfor c in {clis!r}:\n    __import__("
+                "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n")
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
-            raise AssertionError(f"the CLI needs a blocked module:\n"
+            raise AssertionError(f"a CLI needs a blocked module:\n"
                                  f"{res.stderr[-2000:]}")
-        f.update(blocked=list(blocked))
-    return entry, report
+        f.update(blocked=list(blocked), clis=list(clis))
+    return entry, report, dict(configs=paths, step=step, vocoder=voc)
+
+
+# the trainer CLI's corpus and run (build/trainer_smoke/): 96 train
+# utterances (2 batches of TRAIN_B an epoch) and 40 val ones (one batch,
+# mask-padded), texts of TRAIN_L - 32 to TRAIN_L phones as train_batch draws
+# them; 6 steps over 3 epochs, then a resume to 8
+TRAINER_DIR = os.path.join(REPO, "build", "trainer_smoke")
+TRAINER_UTTS = {"train": 96, "val": 40}
+TRAINER_STEP = dict(total_step=6, log_step=2, synth_step=6, val_step=3,
+                    save_step=3)
+TRAINER_RESUME_TOTAL = 8
+TRAINER_PROFILE = (3, 2)    # the profiler traces steps 4 and 5
+# launches of one forward of the flagship with intended/first extraction:
+# train, eval and sample forwards alike (teacher-forced, MelEncoder on)
+PER_FORWARD = {"flash_attention": 0, "alignment_attention": 4,
+               "gaussian_upsample_banded": 1, "fused_log_mel": 0}
+VOC_CLI_DIR = os.path.join(REPO, "build", "train_vocoder_smoke")
+VOC_CLI_STEPS = 4
+
+
+def yaml_text(d, indent=0):
+    """A nested dict of numbers, strings and lists as block YAML (the
+    subset ``yaml_subset`` reads; no PyYAML on the card's machine)."""
+    lines = []
+    for k, v in d.items():
+        pad = " " * indent
+        if isinstance(v, dict):
+            lines.append(f"{pad}{k}:")
+            lines.append(yaml_text(v, indent + 2))
+        else:
+            lines.append(f"{pad}{k}: {json.dumps(v)}")
+    return "\n".join(lines)
+
+
+def trainer_workspace(torch, np, synth, inv, vocoder):
+    """``build/trainer_smoke/``: a preprocessed corpus whose targets are
+    the port's stage-A output (postnet mel, pitch, energy, each cut to its
+    item's mel_len) for seeded texts from the trained phone inventory,
+    written as ``{P1 P2 …}`` phone strings; ``speakers.json``;
+    ``stats.json`` holding ``flagship_meta.json``'s stats; the YAML
+    triplet (``vocoder`` for the samples' audio); and a port checkpoint of
+    the committed flagship at step 0.  Returns the triplet's paths."""
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.config import Config, ModelConfig
+    from smart_nar_fast_tts_tpu_torch.data import AcousticDataset
+    from smart_nar_fast_tts_tpu_torch.serving import committed_flagship
+    from smart_nar_fast_tts_tpu_torch.text.symbols import ID_TO_SYMBOL
+    from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
+                                                       create_train_state)
+    shutil.rmtree(TRAINER_DIR, ignore_errors=True)
+    pre = os.path.join(TRAINER_DIR, "preprocessed")
+    for kind in ("mel", "pitch", "energy"):
+        os.makedirs(os.path.join(pre, kind))
+    n = sum(TRAINER_UTTS.values())
+    rng = np.random.default_rng(3)
+    ids = rng.choice(inv, size=(n, TRAIN_L))
+    lens = rng.integers(TRAIN_L - 32, TRAIN_L + 1, size=n)
+    lines = []
+    for lo in range(0, n, TRAIN_B):
+        with torch.inference_mode():
+            out = synth.stage_a(torch.from_numpy(ids[lo:lo + TRAIN_B]),
+                                torch.from_numpy(lens[lo:lo + TRAIN_B]))
+        for j in range(out.mel_lens.shape[0]):
+            i, m = lo + j, int(out.mel_lens[j])
+            name = f"utt{i:03d}"
+            for kind, value in (("mel", out.postnet_mel[j, :m]),
+                                ("pitch", out.pitch_prediction[j, :m]),
+                                ("energy", out.energy_prediction[j, :m])):
+                np.save(os.path.join(pre, kind, f"spk-{kind}-{name}.npy"),
+                        value.float().cpu().numpy())
+            phones = " ".join(ID_TO_SYMBOL[int(k)].lstrip("@")
+                              for k in ids[i, :lens[i]])
+            lines.append(f"{name}|spk|{{{phones}}}|{name}")
+    n_train = TRAINER_UTTS["train"]
+    for split, rows in (("train", lines[:n_train]), ("val", lines[n_train:])):
+        with open(os.path.join(pre, f"{split}.txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(pre, "speakers.json"), "w") as f:
+        json.dump({"spk": 0}, f)
+    with open(os.path.join(REPO, "benchmarks", "results",
+                           "flagship_meta.json")) as f:
+        st = json.load(f)["stats"]
+    with open(os.path.join(pre, "stats.json"), "w") as f:
+        json.dump({kind: [st[f"{kind}_{k}"] for k in ("min", "max", "mean",
+                                                      "std")]
+                   for kind in ("pitch", "energy")}, f)
+    out_dir = os.path.join(TRAINER_DIR, "output")
+    triplet = {
+        "preprocess": {"dataset": "TrainerSmoke",
+                       "path": {"data_path": "", "lexicon_path": "",
+                                "preprocessed_path": pre},
+                       "preprocessing": {"val_size": TRAINER_UTTS["val"]}},
+        "model": {"max_seq_len": 1000,
+                  "tpu": {"duration_extraction": "intended",
+                          "duration_head_reduce": "first"}},
+        "train": {"path": {k: os.path.join(out_dir, k.split("_")[0])
+                           for k in ("ckpt_path", "log_path",
+                                     "result_path")},
+                  "optimizer": {"batch_size": TRAIN_B},
+                  "step": TRAINER_STEP,
+                  "tpu": {"text_buckets": [TRAIN_L],
+                          "mel_buckets": [TRAIN_T],
+                          "profile_start_step": TRAINER_PROFILE[0],
+                          "profile_num_steps": TRAINER_PROFILE[1],
+                          "vocoder_ckpt": vocoder}}}
+    paths = []
+    for name, d in triplet.items():
+        paths.append(os.path.join(TRAINER_DIR, f"{name}.yaml"))
+        with open(paths[-1], "w") as f:
+            f.write(yaml_text(d) + "\n")
+    cfg = Config.from_yaml_triplet(*paths)
+    if cfg.model != ModelConfig(duration_extraction="intended",
+                                duration_head_reduce="first"):
+        raise AssertionError(f"model config {cfg.model}")
+    ds = AcousticDataset("train.txt", cfg.preprocess)
+    for i in range(len(ds)):
+        if not np.array_equal(ds.text_ids(i), ids[i, :lens[i]]):
+            raise AssertionError(f"{ds.rows[i][0]}: phone string does not "
+                                 "map back to its ids")
+    state = create_train_state(committed_flagship(cfg.model),
+                               cfg.train.optimizer, "cpu")
+    if not CheckpointManager(cfg.train.ckpt_path).save(state):
+        raise AssertionError("the step-0 checkpoint was not written")
+    return paths
+
+
+def forwards_in(first, last, val_batches):
+    """The flagship forwards of the fit loop from step ``first`` to
+    ``last``: one a train step, each validation's batches and its sample,
+    each train sample."""
+    steps = range(first + 1, last + 1)
+    evals = sum(s % TRAINER_STEP["val_step"] == 0 for s in steps)
+    samples = sum(s % TRAINER_STEP["synth_step"] == 0 for s in steps)
+    return len(steps) + evals * (val_batches + 1) + samples
+
+
+def read_events(log_dir):
+    """Every record of the event files under ``log_dir``, both CRCs
+    checked, decoded to (step, tag, kind) for each summary value (kind
+    "scalar", "image" or "audio")."""
+    import struct
+
+    from smart_nar_fast_tts_tpu_torch.training.logging import masked_crc32c
+
+    def fields(buf):
+        pos = 0
+        while pos < len(buf):
+            key, pos = varint(buf, pos)
+            field, wire = key >> 3, key & 7
+            if wire == 0:
+                value, pos = varint(buf, pos)
+            elif wire == 1:
+                value, pos = buf[pos:pos + 8], pos + 8
+            elif wire == 5:
+                value, pos = buf[pos:pos + 4], pos + 4
+            elif wire == 2:
+                n, pos = varint(buf, pos)
+                value, pos = buf[pos:pos + n], pos + n
+            else:
+                raise AssertionError(f"wire type {wire}")
+            yield field, value
+
+    def varint(buf, pos):
+        out = shift = 0
+        while True:
+            b = buf[pos]
+            pos += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return out, pos
+
+    kinds = {2: "scalar", 4: "image", 6: "audio"}
+    values, n_records = [], 0
+    for name in sorted(os.listdir(log_dir)):
+        if not name.startswith("events.out.tfevents."):
+            continue
+        with open(os.path.join(log_dir, name), "rb") as f:
+            data = f.read()
+        pos = 0
+        while pos < len(data):
+            header = data[pos:pos + 8]
+            (n,) = struct.unpack("<Q", header)
+            body = data[pos + 12:pos + 12 + n]
+            crcs = struct.unpack("<II", data[pos + 8:pos + 12]
+                                 + data[pos + 12 + n:pos + 16 + n])
+            if crcs != (masked_crc32c(header), masked_crc32c(body)):
+                raise AssertionError(f"{name}: a record's CRC fails")
+            pos += 16 + n
+            n_records += 1
+            event = dict(fields(body))
+            for _, value_bytes in fields(event.get(5, b"")):
+                value = dict(fields(value_bytes))
+                kind = next(kinds[k] for k in kinds if k in value)
+                values.append((event.get(2, 0), value[1].decode(), kind))
+    return values, n_records
+
+
+def trainer_cli_phase(torch, np, kernels, synth, inv, step_ms, cli):
+    """The training CLIs on the flagship training shape: ``cli.train``
+    for TRAINER_STEP's 6 steps over 3 epochs from a step-0 checkpoint of
+    the committed flagship, then resumed to step 8, then ``cli.evaluate``
+    of step 8; each with the launch counts set to 0 just before and read
+    just after.  The samples' audio is the cli phase's HiFi-GAN V1.
+    Returns (the launches of each run, the evaluation's losses, the
+    triplet's arguments)."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.cli import evaluate as evaluate_cli
+    from smart_nar_fast_tts_tpu_torch.cli import train as train_cli
+    from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
+                                                       Trainer)
+    with Phase("trainer setup") as f:
+        paths = trainer_workspace(torch, np, synth, inv, cli["vocoder"])
+        f.update(configs=paths, utterances=TRAINER_UTTS)
+    argv = ["-p", paths[0], "-m", paths[1], "-t", paths[2]]
+    total = TRAINER_STEP["total_step"]
+    with Phase("trainer cli") as f:
+        fit = Trainer.fit
+        fit_seconds = []
+
+        def timed_fit(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fit(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            fit_seconds.append(time.perf_counter() - t0)
+            return out
+
+        runs = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(Trainer, "fit", timed_fit):
+            for name, extra in (("fit", []), ("resume", [
+                    "--total_step", str(TRAINER_RESUME_TOTAL)])):
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_cli.main(argv + extra)
+                torch.cuda.synchronize()
+                runs[name] = dict(launches={**kernels.launches(),
+                                            **kernels.route_launches()},
+                                  wall_seconds=time.perf_counter() - t0,
+                                  fit_seconds=fit_seconds[-1])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        kernels.reset_launches()
+        losses = evaluate_cli.main(argv + ["--restore_step",
+                                           str(TRAINER_RESUME_TOTAL)])
+        torch.cuda.synchronize()
+        runs["evaluate"] = dict(launches={**kernels.launches(),
+                                          **kernels.route_launches()})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"val losses {losses}")
+
+        cfg = trainer.cfg
+        val = trainer.make_batcher("val.txt", pad_short="mask")
+        val_batches = len(list(val.batches(0)))
+        train = trainer.make_batcher("train.txt")
+        per_epoch = train.steps_per_epoch()
+        frames = sum(int(b.mel_lens.sum()) for e in range(total // per_epoch)
+                     for b, _, _ in train.batches(e))
+        plan = {"fit": forwards_in(0, total, val_batches),
+                "resume": forwards_in(total, TRAINER_RESUME_TOTAL,
+                                      val_batches),
+                "evaluate": val_batches}
+        for name, n_forwards in plan.items():
+            want = {k: 0 for k in kernels.route_launches()}
+            want.update({k: v * n_forwards for k, v in PER_FORWARD.items()})
+            if runs[name]["launches"] != want:
+                raise AssertionError(f"trainer {name} launches "
+                                     f"{runs[name]['launches']}, expected "
+                                     f"{want}")
+        mngr = CheckpointManager(cfg.train.ckpt_path)
+        saved = mngr.all_steps()
+        if saved != [0, 3, 6, 8]:
+            raise AssertionError(f"checkpoints {saved}")
+        positions = {}
+        for step in (6, 8):
+            with open(os.path.join(cfg.train.ckpt_path, str(step),
+                                   "data.json")) as fh:
+                positions[step] = json.load(fh)
+        # step 6 ends epoch 2; the resumed run trains epoch 3 from its start
+        if positions != {6: {"epoch": 2, "in_epoch": 2},
+                         8: {"epoch": 3, "in_epoch": 2}}:
+            raise AssertionError(f"data positions {positions}")
+        logs = {}
+        for writer in ("train", "val"):
+            with open(os.path.join(cfg.train.log_path, writer,
+                                   "log.txt")) as fh:
+                logs[writer] = [line.split(",")[0] for line in fh]
+        if logs != {"train": ["Step 2/6", "Step 4/6", "Step 6/6",
+                              "Step 8/8"],
+                    "val": ["Validation Step 3", "Validation Step 6"]}:
+            raise AssertionError(f"log.txt {logs}")
+        counts, records = {}, {}
+        for writer in ("train", "val"):
+            values, records[writer] = read_events(
+                os.path.join(cfg.train.log_path, writer))
+            for step, tag, kind in values:
+                key = f"{writer} {tag.split('/')[0]} {kind}"
+                counts[key] = counts.get(key, 0) + 1
+        # losses at every log step (2, 4, 6, 8) and validation (3, 6); the
+        # rates from the second update of each run on; a figure and two
+        # clips for each sample: the train one at 6, the val ones at 3, 6
+        want = {"train Loss scalar": 7 * 4, "train Perf scalar": 2 * 4,
+                "train Training image": 1, "train Training audio": 2,
+                "val Loss scalar": 7 * 2, "val Training image": 2,
+                "val Training audio": 4}
+        if counts != want:
+            raise AssertionError(f"event values {counts}, expected {want}")
+        start, n = TRAINER_PROFILE
+        trace = os.path.join(cfg.train.log_path, "profile",
+                             f"trace_steps_{start + 1}-{start + n}.json")
+        if not (os.path.isfile(trace) and os.path.getsize(trace) > 0):
+            raise AssertionError(f"no profiler trace {trace}")
+        with open(trace) as fh:
+            kernel_events = sum(e.get("cat") == "kernel"
+                                for e in json.load(fh)["traceEvents"])
+        fit_s = runs["fit"]["fit_seconds"]
+        f.update(runs=runs, checkpoints=saved, data_positions=positions,
+                 log_txt=logs, event_values=counts, event_records=records,
+                 profile_trace=os.path.relpath(trace, REPO),
+                 profile_kernel_events=kernel_events,
+                 val_losses=dict(losses._asdict()),
+                 fit_ms_per_step=fit_s / total * 1e3,
+                 cli_wall_ms_per_step=runs["fit"]["wall_seconds"] / total
+                 * 1e3,
+                 mel_frames_trained=frames,
+                 mel_frames_per_second=frames / fit_s,
+                 train_phase_step_ms=step_ms,
+                 host_share=1.0 - total * step_ms / 1e3 / fit_s,
+                 peak_mem_gib=peak, nvidia_smi=nvidia_smi())
+    return runs, losses, argv
+
+
+def trainer_reference_phase(torch, kernels, losses, argv):
+    """``cli.evaluate`` of the same step-8 checkpoint on the card and on the
+    CPU (the plain versions): each of the 7 val loss terms within
+    TRAIN_RTOL of the card's.  The duration targets are the last alignment
+    layer's head-0 argmax, which the card's 3xTF32 kernel and the CPU's f32
+    plain version may settle apart at a float64 near-tie; each frame moved
+    moves the duration, pitch and energy terms by ~2e-5.  So the card's run
+    records each alignment launch, the plain version on the launch's own
+    inputs must pick the kernel's key at every frame but near-ties
+    (:func:`argmax_ties`), and the CPU's run takes the card's argmax in
+    place of its own (its out and guided numerator its own).  The frames
+    where the CPU's own argmax differs are reported."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.cli import evaluate as evaluate_cli
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    wrapper = layers.alignment_attention
+    restore = argv + ["--restore_step", str(TRAINER_RESUME_TOTAL)]
+    with Phase("trainer reference") as f:
+        launches = []
+
+        def record(*args):
+            res = wrapper(*args)
+            launches.append(([a.cpu() if torch.is_tensor(a) else a
+                              for a in args], res[1].cpu()))
+            return res
+        with mock.patch.object(layers, "alignment_attention", record):
+            card = evaluate_cli.main(restore)
+        torch.cuda.synchronize()
+        ties = []
+        for args, idx in launches:
+            ties += argmax_ties(torch, args,
+                                idx, kernels.alignment_reference(*args)[1])
+        card_idx = iter(idx for _, idx in launches)
+        own_differ = []
+
+        def substitute(*args):
+            out, idx, gnum = wrapper(*args)
+            given = next(card_idx)
+            own_differ.append(int((idx != given).sum()))
+            return out, given, gnum
+        with mock.patch.object(layers, "alignment_attention", substitute):
+            cpu = evaluate_cli.main(restore + ["--device", "cpu"])
+        if len(own_differ) != len(launches):
+            raise AssertionError(f"{len(launches)} alignment launches on "
+                                 f"the card, {len(own_differ)} on the CPU")
+        rel = {k: abs(getattr(card, k) - v) / abs(v)
+               for k, v in cpu._asdict().items()}
+        f.update(card=dict(card._asdict()), cpu=dict(cpu._asdict()),
+                 card_equals_trainer_cli_run=card == losses,
+                 relative_err=rel, rtol=TRAIN_RTOL,
+                 alignment_launches=len(launches),
+                 kernel_vs_plain_argmax_differing=len(ties),
+                 argmax_ties=ties[:8],
+                 cpu_own_argmax_differing=own_differ)
+        far = [t for t in ties if not t["near_tie"]]
+        if far:
+            raise AssertionError(f"{len(far)} argmax picks of the alignment "
+                                 f"kernel are no float64 near-tie: {far[:3]}")
+        bad = {k: e for k, e in rel.items() if not e <= TRAIN_RTOL}
+        if bad:
+            raise AssertionError(f"val losses card vs CPU beyond rtol "
+                                 f"{TRAIN_RTOL}: {bad}")
+
+
+def train_vocoder_cli_phase(torch, np, kernels, synth, short, wav, mel_lens,
+                            cli, gan_step_ms):
+    """``cli.train_vocoder`` on the e2e phase's 8 waveforms (22,050 Hz
+    wavs), warm-started from the cli phase's HiFi-GAN V1 torch checkpoint:
+    4 GAN steps of B 16 × 8192 samples, with the launch counts set to 0
+    just before and read just after; its checkpoint then vocodes the e2e
+    mel through ``load_vocoder`` and through the synthesize CLI's
+    ``--vocoder_ckpt``."""
+    import contextlib
+    import io
+    import re
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.cli import train_vocoder
+    from smart_nar_fast_tts_tpu_torch.data import save_wav
+    from smart_nar_fast_tts_tpu_torch.vocoder import load_vocoder
+    with Phase("train_vocoder cli") as f:
+        shutil.rmtree(VOC_CLI_DIR, ignore_errors=True)
+        wav_dir = os.path.join(VOC_CLI_DIR, "wavs")
+        out_dir = os.path.join(VOC_CLI_DIR, "out")
+        os.makedirs(wav_dir)
+        for i in range(wav.shape[0]):
+            n = int(mel_lens[i]) * synth.hop_length
+            save_wav(os.path.join(wav_dir, f"e2e{i}.wav"),
+                     wav[i, :n].float().cpu().numpy(), synth.sampling_rate)
+        argv = ["--wav_dir", wav_dir, "--steps", str(VOC_CLI_STEPS),
+                "--batch_size", str(VOC_B), "--segment_size", str(VOC_SEG),
+                "--restore_generator", cli["vocoder"], "--save_every", "2",
+                "--log_every", "2", "--out_dir", out_dir]
+        printed = io.StringIO()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            train_vocoder.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**kernels.launches(), **kernels.route_launches()}
+        want = {k: 0 for k in counts}
+        want["fused_log_mel"] = PER_GAN_STEP["fused_log_mel"] * VOC_CLI_STEPS
+        if counts != want:
+            raise AssertionError(f"train_vocoder launches {counts}, "
+                                 f"expected {want}")
+        files = sorted(os.listdir(out_dir))
+        if files != ["config.json", "generator_2.pth.tar",
+                     "generator_4.pth.tar", "meta.json"]:
+            raise AssertionError(f"train_vocoder wrote {files}")
+        with open(os.path.join(out_dir, "meta.json")) as fh:
+            meta = json.load(fh)
+        if meta["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"meta.json device {meta['device']}")
+        ckpt = os.path.join(out_dir, "generator_4.pth.tar")
+        gen = load_vocoder(ckpt).cuda()
+        n = int(mel_lens[0])
+        with torch.inference_mode():
+            voiced = gen(short.postnet_mel[:1, :n].float())
+        if voiced.shape != (1, n * synth.hop_length) or not torch.isfinite(
+                voiced).all():
+            raise AssertionError("the trained generator's waveform is not "
+                                 "finite or has the wrong shape")
+        paths, step = cli["configs"], cli["step"]
+        utts = synthesize.main(["-p", paths[0], "-m", paths[1], "-t",
+                                paths[2], "--restore_step", str(step),
+                                "--text", CLI_TEXT, "--vocoder_ckpt", ckpt])
+        if not (os.path.getsize(utts[0].base + ".wav") > 44
+                and np.isfinite(utts[0].wav).all()):
+            raise AssertionError("synthesize --vocoder_ckpt wrote no audio")
+        lines = printed.getvalue().splitlines()
+        rates = [float(r) for r in re.findall(r"\(([\d.]+) steps/s\)",
+                                              printed.getvalue())]
+        f.update(launches=counts, wall_seconds=wall,
+                 gan_steps_per_second_cli=VOC_CLI_STEPS / wall,
+                 printed_steps_per_second=rates,
+                 gan_step_ms_vocoder_train_phase=gan_step_ms,
+                 printed=lines, meta=meta,
+                 waveform_samples=int(voiced.shape[1]),
+                 synthesize_wav=os.path.relpath(utts[0].base + ".wav", REPO),
+                 nvidia_smi=nvidia_smi())
+    return counts
 
 
 def bench_inputs(np):
@@ -2447,14 +2962,20 @@ def main() -> int:
         replaces="smart_nar_fast_tts_tpu/ops/pallas/stft.py:46",
         **kernel_fused_log_mel(torch, np, kernels, segments, compiled))
     reference_phase(torch, np, synth, inv)
-    cli_counts, cli_errs = cli_phase(torch, np, kernels)
+    cli_counts, cli_errs, cli = cli_phase(torch, np, kernels)
 
-    train_counts = train_phase(torch, np, kernels, synth, inv)
+    train_counts, train_step_ms = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
+    trainer_runs, val_losses, trainer_argv = trainer_cli_phase(
+        torch, np, kernels, synth, inv, train_step_ms, cli)
+    trainer_reference_phase(torch, kernels, val_losses, trainer_argv)
     fs_serving, fs_train = fastspeech_phase(torch, np, kernels, synth, inv,
                                             texts, src_lens)
-    gan_counts = vocoder_train_phase(torch, kernels, synth, segments)
+    gan_counts, gan_step_ms = vocoder_train_phase(torch, kernels, synth,
+                                                  segments)
     vocoder_train_reference_phase(torch, np)
+    voc_cli_counts = train_vocoder_cli_phase(
+        torch, np, kernels, synth, short, wav, mel_lens, cli, gan_step_ms)
 
     # each kernel's launches on its path's run: flash attention on the
     # cap-4096 serving batch, upsampling and alignment attention over the
@@ -2479,7 +3000,10 @@ def main() -> int:
             launches_fastspeech_width=fs_serving[name] + fs_train[name],
             launches_fastspeech_width_runs={
                 "serving stage A at cap 4096": fs_serving[name],
-                f"{FS_TRAIN_STEPS} train steps": fs_train[name]})
+                f"{FS_TRAIN_STEPS} train steps": fs_train[name]},
+            launches_cli_train={run: r["launches"][name]
+                                for run, r in trainer_runs.items()},
+            launches_cli_train_vocoder=voc_cli_counts[name])
     entries["flash_attention"]["fastspeech_width_path"] = (
         "FastSpeech widths (head dim 192), serving stage A at cap 4096")
     entries["alignment_attention"]["fastspeech_width_path"] = (
@@ -2505,6 +3029,9 @@ def main() -> int:
         entries[name] = dict(
             route="cuda", source=source, replaces=replaces,
             launches=launched["long"], launches_cli=launched,
+            launches_cli_train={run: r["launches"][name]
+                                for run, r in trainer_runs.items()},
+            launches_cli_train_vocoder=voc_cli_counts[name],
             launches_fastspeech_width=fs_serving[name] + fs_train[name],
             path="none: the driven paths have head dims 128 and 192 and "
                  "n_fft 1024", **entry)

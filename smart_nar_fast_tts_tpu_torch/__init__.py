@@ -8,8 +8,9 @@ the JAX package.
 What is ported so far: text → waveform through the synthesize CLI
 (``python -m smart_nar_fast_tts_tpu_torch.cli.synthesize``), serving
 synthesis (token ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 →
-waveform), the acoustic model's train step and the vocoder's GAN train
-step, through CUDA kernels written by hand for ``sm_90a`` (``csrc/``), one
+waveform), the acoustic model's fit loop and the vocoder's GAN training
+through the ``train``, ``evaluate`` and ``train_vocoder`` CLIs, through
+CUDA kernels written by hand for ``sm_90a`` (``csrc/``), one
 for each Pallas kernel of the JAX package, with second kernels for the
 widths the first ones do not take:
 
@@ -28,13 +29,17 @@ widths the first ones do not take:
                  losses
     vocoder    — HiFi-GAN V1 generator, its discriminators and GAN losses,
                  the loader of upstream torch checkpoints
-    training   — the acoustic train and eval steps, the vocoder GAN step,
-                 the port's checkpoints, the mel PNG writer
-    data       — the training batch, synthesis metadata items, wav IO
+    training   — the acoustic train and eval steps, the fit loop
+                 (``Trainer``), validation, the vocoder GAN step, the port's
+                 checkpoints, TensorBoard event files and figures written
+                 without tensorboard, the profiler window
+    data       — the training batch, the bucketed corpus pipeline,
+                 synthesis metadata items, wav IO
     weights    — the committed ``.npz`` checkpoints and JAX trees → PyTorch
                  state dicts
     serving    — ``Synthesizer``: two-stage bucketed text → mel → waveform
-    cli        — ``synthesize``: the JAX package's CLI, on the card
+    cli        — ``synthesize``, ``train``, ``evaluate``, ``train_vocoder``:
+                 the JAX package's CLIs, on the card
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

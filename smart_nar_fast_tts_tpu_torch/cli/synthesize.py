@@ -127,25 +127,16 @@ def main(argv=None) -> list[Utterance]:
     return utts
 
 
-def _check_ported(cfg) -> None:
-    if cfg.model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.model.compute_dtype!r} is not ported yet "
-            "(ROADMAP §A.3); the port computes in float32")
-    if cfg.model.sequence_parallel:
-        raise NotImplementedError("sequence_parallel is not ported "
-                                  "(ROADMAP §A.8)")
-
-
 def load_model(cfg, restore_step: Optional[int], device: torch.device):
     """``FastSpeech2Align`` of ``cfg`` on ``device`` in eval mode, restored
     from ``cfg.train.ckpt_path`` (the latest step when ``restore_step`` is
     None); returns (model, the step restored, 0 when there was none)."""
+    from ..config import check_ported
     from ..models import FastSpeech2Align
     from ..training.checkpoint import CheckpointManager
     from ..training.state import create_train_state
 
-    _check_ported(cfg)
+    check_ported(cfg.model)
     state = create_train_state(FastSpeech2Align(cfg.model, cfg.preprocess),
                                cfg.train.optimizer, device)
     state, _ = CheckpointManager(cfg.train.ckpt_path).restore(

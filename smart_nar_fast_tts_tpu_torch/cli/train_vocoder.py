@@ -1,0 +1,180 @@
+"""HiFi-GAN vocoder (fine-)tuning CLI of the port, with the flags of
+``python -m smart_nar_fast_tts_tpu.cli.train_vocoder`` plus ``--device``::
+
+    python -m smart_nar_fast_tts_tpu_torch.cli.train_vocoder \\
+        --wav_dir /path/to/wavs --steps 10000 [--batch_size 16] \\
+        [--segment_size 8192] [--restore_generator generator.pth.tar] \\
+        [--out_dir ./output/vocoder] [--device cpu]
+
+The GAN step is ``training/vocoder.py``'s on one device: the input mel and
+the real branch of the mel loss come from the ``fused_log_mel`` kernel on
+the raw segments.  It runs on CUDA unless ``--device cpu`` is given.
+Checkpoints are ``generator_<step>.pth.tar`` holding ``{"generator":
+state_dict}``, the upstream layout that both packages' ``load_hifigan``
+read (not the JAX CLI's flax ``.msgpack``), with ``config.json`` (``{"family":
+"hifigan", ...}``) and ``meta.json`` beside them.  ``--steps_per_dispatch``
+K runs K single GAN steps between the host's log and save checks (PyTorch
+has no ``lax.scan``).  ``--generator vocos|melgan`` and a ``.msgpack``
+``--restore_generator`` are not ported yet (ROADMAP §A.5, §A.7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported (ROADMAP §A.5: the Vocos and MelGAN "
+        "generators; §A.7: the JAX package's .msgpack checkpoints); train "
+        "--generator hifigan from an upstream torch checkpoint")
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--wav_dir", type=str, required=True)
+    parser.add_argument("--steps", type=int, default=10000)
+    parser.add_argument("--batch_size", type=int, default=16)
+    parser.add_argument("--segment_size", type=int, default=8192)
+    parser.add_argument("--learning_rate", type=float, default=2e-4)
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="GAN steps between the host's log and save "
+                             "checks")
+    parser.add_argument("--generator",
+                        choices=("hifigan", "vocos", "melgan"),
+                        default="hifigan",
+                        help="generator family; only HiFi-GAN V1 is ported")
+    parser.add_argument("--restore_generator", type=str, default=None,
+                        help="HiFi-GAN torch checkpoint to warm-start the "
+                             "generator")
+    parser.add_argument("--out_dir", type=str, default="./output/vocoder")
+    parser.add_argument("--save_every", type=int, default=1000)
+    parser.add_argument("--log_every", type=int, default=100)
+    parser.add_argument("--sampling_rate", type=int, default=22050)
+    parser.add_argument("--seed", type=int, default=1234)
+    parser.add_argument("--debug_tiny", action="store_true",
+                        help="tiny model/mel configs (CI smoke tests)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default cuda; 'cpu' runs the "
+                             "kernels' plain versions on the CPU)")
+    args = parser.parse_args(argv)
+    if args.generator != "hifigan":
+        raise _not_ported(f"--generator {args.generator}")
+    if args.restore_generator and args.restore_generator.endswith(
+            ".msgpack"):
+        raise _not_ported("a .msgpack --restore_generator")
+
+    from ..audio.stft import MelSpectrogramConfig
+    from ..data.wavio import load_wav
+    from ..training.vocoder import (VocoderOptimizer, create_vocoder_state,
+                                    make_vocoder_train_step,
+                                    sample_segments)
+    from ..vocoder import (HiFiGANConfig, HiFiGANDiscriminator,
+                           HiFiGANGenerator, load_hifigan)
+
+    paths = sorted(glob.glob(os.path.join(args.wav_dir, "**", "*.wav"),
+                             recursive=True))
+    if not paths:
+        raise SystemExit(f"no .wav files under {args.wav_dir}")
+    wavs = [load_wav(p, args.sampling_rate)[0].astype(np.float32)
+            for p in paths]
+    audio_s = sum(len(w) for w in wavs) / args.sampling_rate
+    print(f"{len(wavs)} wavs, {audio_s:.1f}s audio")
+
+    if args.debug_tiny:
+        gen_cfg = HiFiGANConfig(
+            upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+            upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+            resblock_dilation_sizes=((1, 2),), n_mels=8,
+            sampling_rate=args.sampling_rate)
+        discriminator = HiFiGANDiscriminator(
+            periods=(2, 3), period_channels=(4, 8), n_scales=2,
+            scale_layers=((8, 15, 1, 1), (16, 41, 4, 4), (16, 5, 1, 1)),
+            seed=args.seed)
+        mel_cfg = MelSpectrogramConfig(
+            sampling_rate=args.sampling_rate, n_fft=32, hop_length=8,
+            win_length=32, n_mels=8, mel_fmax=None)
+    else:
+        gen_cfg = HiFiGANConfig(sampling_rate=args.sampling_rate)
+        discriminator = HiFiGANDiscriminator(seed=args.seed)
+        mel_cfg = MelSpectrogramConfig(sampling_rate=args.sampling_rate)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(args.seed)
+        generator = HiFiGANGenerator(gen_cfg)
+    if args.restore_generator:
+        # the checkpoint's topology must be this run's
+        generator.load_state_dict(
+            load_hifigan(args.restore_generator).state_dict())
+
+    tx = VocoderOptimizer(learning_rate=args.learning_rate)
+    state = create_vocoder_state(generator, discriminator, tx, tx,
+                                 device=args.device)
+    step_fn = make_vocoder_train_step(mel_cfg)
+    device_name = (torch.cuda.get_device_name(state.device)
+                   if state.device.type == "cuda" else state.device.type)
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    k = max(1, args.steps_per_dispatch)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    step, last_log, saved = 0, 0, []
+    while step < args.steps:
+        for _ in range(k):
+            batch = sample_segments(wavs, args.batch_size,
+                                    args.segment_size, rng)
+            metrics = step_fn(state, torch.from_numpy(batch))
+        step += k
+        if step - last_log >= args.log_every or step >= args.steps:
+            disc, gen_total, mel = (float(metrics.disc),
+                                    float(metrics.gen_total),
+                                    float(metrics.mel))
+            dt = time.perf_counter() - t0
+            print(f"step {step}: disc={disc:.4f} gen={gen_total:.4f} "
+                  f"mel={mel:.4f} ({(step - last_log) / dt:.2f} steps/s)",
+                  flush=True)
+            if not np.isfinite(gen_total):
+                raise FloatingPointError(f"non-finite loss at step {step}")
+            last_log, t0 = step, time.perf_counter()
+        if step % args.save_every < k or step >= args.steps:
+            path = os.path.join(args.out_dir, f"generator_{step}.pth.tar")
+            torch.save({"generator": {
+                n: v.detach().cpu()
+                for n, v in state.generator.state_dict().items()}}, path)
+            # the config beside the checkpoint rebuilds the topology in
+            # load_hifigan (and synthesize --vocoder_ckpt); always rewritten
+            with open(os.path.join(args.out_dir, "config.json"), "w") as f:
+                json.dump({"family": "hifigan", **gen_cfg.to_dict()}, f,
+                          indent=1)
+            with open(os.path.join(args.out_dir, "meta.json"), "w") as f:
+                json.dump({
+                    "family": "hifigan",
+                    "steps_completed": step,
+                    "steps_planned": args.steps,
+                    "batch_size": args.batch_size,
+                    "segment_size": args.segment_size,
+                    "learning_rate": args.learning_rate,
+                    "corpus": f"{args.wav_dir}: {len(wavs)} wavs, "
+                              f"{audio_s:.1f}s",
+                    "device": device_name,
+                    "final_losses": {
+                        "disc": round(float(metrics.disc), 4),
+                        "gen_total": round(float(metrics.gen_total), 4),
+                        "mel": round(float(metrics.mel), 4)},
+                    "trainer": "smart_nar_fast_tts_tpu_torch.cli."
+                               "train_vocoder (MPD+MSD, fused log-mel "
+                               "kernel for the mel loss)",
+                }, f, indent=1)
+            saved.append(path)
+            print(f"saved {path}", flush=True)
+    return {"state": state, "saved": saved}
+
+
+if __name__ == "__main__":
+    main()

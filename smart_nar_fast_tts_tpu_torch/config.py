@@ -242,14 +242,15 @@ class TrainConfig:
     mesh_shape: tuple[int, ...] = (-1, 1)          # (data, model)
     mesh_axis_names: tuple[str, ...] = ("data", "model")
     seed: int = 1234
-    # the JAX trainer's profiler window (0 = off); not read by the port
+    # the trainer's profiler window: steps after this one are traced
+    # (0 = off)
     profile_start_step: int = 0
     profile_num_steps: int = 5
     # HiFi-GAN generator checkpoint for in-training audio logging
     # (reference synth_one_sample vocodes the sample, utils/tools.py:96-150)
     vocoder_ckpt: str | None = None
-    # the JAX trainer's optimizer steps per compiled dispatch; not read by
-    # the port
+    # the JAX trainer's optimizer steps per compiled dispatch; the port's
+    # trainer runs them as single steps, with the cadences after each group
     steps_per_dispatch: int = 1
 
 
@@ -410,3 +411,16 @@ class Config:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+
+def check_ported(model: ModelConfig) -> None:
+    """Raise for the model fields that choose machinery the port does not
+    run yet."""
+    if model.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {model.compute_dtype!r} is not ported yet "
+            "(ROADMAP §A.3); the port computes in float32")
+    if model.sequence_parallel:
+        raise NotImplementedError(
+            "sequence_parallel needs a device mesh, which the port does not "
+            "have yet (ROADMAP §A.8)")

@@ -11,6 +11,15 @@ steps, and ``restore`` has the JAX manager's shape: ``(state, data_state)``,
 the state unchanged and ``None`` when there is no checkpoint.  A step is
 written under a temporary name and renamed, so a reader never sees half of
 one.
+
+``save`` decides as the JAX manager's orbax ``CheckpointManager`` does with
+``save_interval_steps`` (orbax 0.11: ``FixedIntervalPolicy`` or
+``InitialSavePolicy``, after the latest-step check): a step at or below the
+latest one on disk is never saved; otherwise the step is saved when it is a
+multiple of the interval or when the directory holds no step yet.
+``force`` saves regardless.  So a trainer's saves land on the JAX
+trainer's steps.  Saves are synchronous: the JAX manager's ``wait`` and
+``close`` have nothing to do here.
 """
 
 from __future__ import annotations
@@ -33,9 +42,11 @@ class CheckpointManager:
     """Save and restore :class:`~.state.TrainState` under ``directory``;
     ``max_to_keep`` None keeps every step."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = 5):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 5,
+                 save_interval_steps: int = 1):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.save_interval_steps = save_interval_steps
 
     def all_steps(self) -> list[int]:
         """The steps saved, ascending."""
@@ -49,10 +60,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def save(self, state: TrainState, data_state: Optional[dict] = None
-             ) -> str:
-        """Write step ``state.step`` (replacing one of the same step) and
-        drop the oldest beyond ``max_to_keep``.  Returns its directory."""
+    def should_save(self, step: int) -> bool:
+        latest = self.latest_step()
+        if latest is not None and latest >= step:
+            return False
+        return step % self.save_interval_steps == 0 or latest is None
+
+    def save(self, state: TrainState, data_state: Optional[dict] = None,
+             force: bool = False) -> bool:
+        """Write step ``state.step`` when :meth:`should_save` (or ``force``:
+        then replacing a step of the same number) and drop the oldest
+        beyond ``max_to_keep``.  Returns whether it was written."""
+        if not (force or self.should_save(state.step)):
+            return False
         os.makedirs(self.directory, exist_ok=True)
         final = os.path.join(self.directory, str(state.step))
         tmp = tempfile.mkdtemp(prefix=f".{state.step}-", dir=self.directory)
@@ -72,7 +92,7 @@ class CheckpointManager:
         if self.max_to_keep:
             for step in self.all_steps()[:-self.max_to_keep]:
                 shutil.rmtree(os.path.join(self.directory, str(step)))
-        return final
+        return True
 
     def restore(self, state: TrainState, step: Optional[int] = None
                 ) -> tuple[TrainState, Optional[dict]]:

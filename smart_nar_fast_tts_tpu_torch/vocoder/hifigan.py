@@ -53,6 +53,23 @@ class HiFiGANConfig:
             out *= u
         return out
 
+    def to_dict(self) -> dict:
+        """The upstream ``config.json`` keys (``num_mels`` for ``n_mels``);
+        ``from_dict(to_dict())`` round-trips.  The JAX package's
+        ``HiFiGANConfig.to_dict`` adds its TPU lowering keys, which its
+        ``from_dict`` defaults when absent."""
+        return {
+            "resblock": self.resblock,
+            "upsample_rates": list(self.upsample_rates),
+            "upsample_kernel_sizes": list(self.upsample_kernel_sizes),
+            "upsample_initial_channel": self.upsample_initial_channel,
+            "resblock_kernel_sizes": list(self.resblock_kernel_sizes),
+            "resblock_dilation_sizes": [
+                list(d) for d in self.resblock_dilation_sizes],
+            "num_mels": self.n_mels,
+            "sampling_rate": self.sampling_rate,
+        }
+
     @classmethod
     def from_dict(cls, d: dict) -> "HiFiGANConfig":
         """From the ``config`` dict of ``vocoder_meta.json`` or an upstream

@@ -4,7 +4,10 @@
   ``<dir>/<step>/state.pt`` + ``data.json``): a save and restore round trip
   of the model, the optimizer after an update, the step and the data state
   (exact), retention, the latest step, and the JAX manager's return shape
-  when nothing is saved.
+  when nothing is saved; which saves ``save_interval_steps`` and ``force``
+  let through, step for step as orbax's ``CheckpointManager`` (the JAX
+  manager's) decides them, on a fresh directory and on one that holds a
+  step.
 - ``vocoder.convert``: ``fold_weight_norm`` against the JAX package's
   (float64 on both sides: exact), and ``load_hifigan`` of an upstream-layout
   torch file against the JAX package's ``load_hifigan`` of the same file:
@@ -18,6 +21,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import orbax.checkpoint as ocp
 import pytest
 import torch
 
@@ -61,8 +65,8 @@ def test_save_and_restore_round_trip(tmp_path):
     _step(state)
     _step(state)
     mngr = CheckpointManager(str(tmp_path / "ckpt"))
-    path = mngr.save(state, {"epoch": 3, "position": 17})
-    assert os.path.basename(path) == "2"
+    assert mngr.save(state, {"epoch": 3, "position": 17}) is True
+    assert mngr.all_steps() == [2]
     fresh = _tiny_state(1)
     got, data = mngr.restore(fresh)
     assert got is fresh and got.step == 2 and data == {"epoch": 3,
@@ -98,6 +102,44 @@ def test_retention_latest_and_empty(tmp_path):
     assert got.step == 3
     with pytest.raises(FileNotFoundError, match="step 1"):
         mngr.restore(_tiny_state(1), step=1)
+
+
+# (step, force) in the order a trainer asks: every step's cadence, a resume
+# past the last save, a step below the latest, the final forced save
+SAVE_CALLS = [(1, False), (2, False), (3, False), (4, False), (5, False),
+              (6, False), (7, False), (7, True), (5, False), (9, False),
+              (10, False), (11, True)]
+
+
+def _orbax_saved(directory, interval, first):
+    mngr = ocp.CheckpointManager(
+        directory, options=ocp.CheckpointManagerOptions(
+            max_to_keep=None, save_interval_steps=interval, create=True))
+    out = []
+    for step, force in [(first, True)] * (first is not None) + SAVE_CALLS:
+        if mngr.latest_step() == step and force:
+            continue            # orbax refuses to overwrite; no trainer asks
+        out.append(mngr.save(step, args=ocp.args.StandardSave(
+            {"x": np.zeros(2, np.float32)}), force=force))
+        mngr.wait_until_finished()
+    mngr.close()
+    return out, sorted(int(n) for n in os.listdir(directory) if n.isdigit())
+
+
+@pytest.mark.parametrize("interval, first", [(3, None), (3, 0), (1, None),
+                                             (4, 2)])
+def test_save_interval_matches_orbax(tmp_path, interval, first):
+    expect = _orbax_saved(str(tmp_path / "orbax"), interval, first)
+    state = _tiny_state(0)
+    mngr = CheckpointManager(str(tmp_path / "port"), max_to_keep=None,
+                             save_interval_steps=interval)
+    got = []
+    for step, force in [(first, True)] * (first is not None) + SAVE_CALLS:
+        if mngr.latest_step() == step and force:
+            continue
+        state.step = step
+        got.append(mngr.save(state, force=force))
+    assert (got, mngr.all_steps()) == expect
 
 
 def test_fold_weight_norm_matches_jax():

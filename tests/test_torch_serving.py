@@ -23,7 +23,8 @@ from torch_port_util import REPO
 
 PORT = os.path.join(REPO, "smart_nar_fast_tts_tpu_torch")
 CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
-PROFILE = os.path.join(REPO, "profile_train_step.py")
+PROFILES = [os.path.join(REPO, f"{name}.py")
+            for name in ("profile_train_step", "profile_trainer")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "smart_nar_fast_tts_tpu")
 
 TINY = """
@@ -124,13 +125,22 @@ def _imports(path):
 
 
 def test_no_jax_import_in_port_or_chip_smoke():
-    files = [CHIP_SMOKE, PROFILE] + [os.path.join(d, f)
+    files = [CHIP_SMOKE, *PROFILES] + [os.path.join(d, f)
                             for d, _, fs in os.walk(PORT) for f in fs
                             if f.endswith(".py")]
     assert len(files) > 10
     bad = [(f, m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad
+
+
+def test_profile_trainer_fails_without_a_card():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    res = subprocess.run([sys.executable, PROFILES[1]], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode != 0 and "no CUDA card" in res.stderr
+    assert not os.path.exists(os.path.join(REPO, "build", "trainer_profile"))
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -9,6 +9,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULTS = os.path.join(REPO, "benchmarks", "results")
@@ -157,3 +158,73 @@ def write_upstream_hifigan(directory, config: dict = TINY_HIFIGAN,
     with open(os.path.join(str(directory), "config.json"), "w") as f:
         json.dump(config, f)
     return path
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the module's torch work (a test module
+    imports this fixture to use it): a tiny model's ops are too small to
+    share, and with a test worker on every core extra threads only
+    contend."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+TINY_TRANSFORMER = {"encoder_layer": 1, "encoder_head": 2,
+                    "encoder_hidden": 32, "decoder_layer": 1,
+                    "decoder_head": 2, "decoder_hidden": 32,
+                    "conv_filter_size": 64}
+
+
+def make_trainer_corpus(root, n_utts: int = 6, val_size: int = 2) -> str:
+    """``tests/test_data._make_corpus``'s synthetic speaker run through the
+    JAX ``Preprocessor`` (as ``tests/test_trainer.py`` builds its corpus):
+    ``n_utts - val_size`` train and ``val_size`` val utterances.  Returns
+    the preprocessed directory (``train.txt``, ``val.txt``, features,
+    ``speakers.json``, ``stats.json``)."""
+    from smart_nar_fast_tts_tpu.config import AudioConfig, PreprocessConfig
+    from smart_nar_fast_tts_tpu.data.preprocessor import Preprocessor
+    from test_data import _make_corpus
+    in_dir, out_dir = _make_corpus(root, n_utts=n_utts)
+    Preprocessor(PreprocessConfig(
+        data_path=str(in_dir), preprocessed_path=str(out_dir),
+        val_size=val_size, audio=AudioConfig())).build_from_path(seed=7)
+    return str(out_dir)
+
+
+def write_trainer_triplet(root, name: str, preprocessed: str,
+                          step: dict | None = None,
+                          tpu: dict | None = None,
+                          model: dict | None = None) -> list[str]:
+    """The YAML triplet of a tiny trainer run on ``preprocessed``, its
+    checkpoint, log and result paths under ``root/name``: batch 2, text
+    bucket 16, mel bucket 256, the TINY_TRANSFORMER widths.  Both
+    packages' ``Config.from_yaml_triplet`` read it (with
+    ``<preprocessed>/stats.json``)."""
+    import yaml
+    out = os.path.join(str(root), name)
+    pre = {"dataset": "Synthetic",
+           "path": {"data_path": "", "lexicon_path": "",
+                    "preprocessed_path": preprocessed},
+           "preprocessing": {"val_size": 2}}
+    mdl = {"transformer": dict(TINY_TRANSFORMER),
+           "variance_predictor": {"filter_size": 32},
+           "max_seq_len": 256, **(model or {})}
+    train = {"path": {"ckpt_path": os.path.join(out, "ckpt"),
+                      "log_path": os.path.join(out, "log"),
+                      "result_path": os.path.join(out, "result")},
+             "optimizer": {"batch_size": 2},
+             "step": {"total_step": 3, "log_step": 1, "synth_step": 2,
+                      "val_step": 2, "save_step": 2, **(step or {})},
+             "tpu": {"text_buckets": [16], "mel_buckets": [256],
+                     **(tpu or {})}}
+    os.makedirs(out, exist_ok=True)
+    paths = []
+    for kind, d in (("preprocess", pre), ("model", mdl), ("train", train)):
+        paths.append(os.path.join(out, f"{kind}.yaml"))
+        with open(paths[-1], "w") as f:
+            yaml.safe_dump(d, f)
+    return paths
