@@ -88,9 +88,24 @@ any failure raises (exit code 1):
             just before and read just after; every .wav and .png checked;
             durations exact and postnet mel within 1e-3 against the CPU
             (in (b) with the card's flash outputs replayed, each held to
-            ``attention_bf16_reference`` of its own inputs); then the four
-            CLIs (synthesize, train, evaluate, train_vocoder) imported
-            where yaml, matplotlib, tensorboard and JAX cannot be
+            ``attention_bf16_reference`` of its own inputs); then the five
+            CLIs (synthesize, train, evaluate, train_vocoder, preprocess)
+            imported where yaml, matplotlib, tensorboard and JAX cannot be
+  preprocess cli  the preprocessing CLI from a raw corpus to training: the
+            first 240 utterances (8 speakers, seed 0) of
+            ``benchmarks/corpus.py``'s scaled corpus with ground-truth
+            TextGrids under the git-ignored ``build/preprocess_smoke/``;
+            ``cli.preprocess`` on a copy of ``configs/scaled/preprocess.yaml``
+            on the card (the mel on the card, F0 by the host's native DIO +
+            StoneMask, built with g++), its launch counts set to 0 just
+            before and read just after (0 for every kernel), its time split
+            into F0, mel, reads and writes; the same corpus with ``--device
+            cpu --workers 4`` in a subprocess: lists, splits and speakers
+            equal, pitch exact, mel within 1e-3, energy and its statistics
+            within 1e-5 relative; ``cli.train`` for 2 steps on the card's
+            store from a copy of the cli phase's flagship checkpoint
+            (finite losses, a checkpoint written, one upsampling launch a
+            step); the cli imports check covers ``cli.preprocess``
   train     the training slice's main path: ``make_train_step`` on the
             committed flagship with ``intended``/``first`` duration
             extraction (the alignment kernel's path) at the flagship training
@@ -2152,6 +2167,24 @@ def write_hifigan(torch, voc_dir):
     return voc_path
 
 
+def scaled_configs(out_dir, moved, names=("preprocess", "model", "train")):
+    """Copies of ``configs/scaled/<name>.yaml`` in ``out_dir`` with each
+    path key of ``moved`` set to its value.  Returns their paths."""
+    import re
+    paths = []
+    for name in names:
+        with open(os.path.join(REPO, "configs", "scaled",
+                               f"{name}.yaml")) as f:
+            text = f.read()
+        for key, value in moved.items():
+            text = re.sub(rf'(\n\s*{key}:\s*)"[^"]*"',
+                          lambda m, v=value: f'{m.group(1)}"{v}"', text)
+        paths.append(os.path.join(out_dir, f"{name}.yaml"))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    return paths
+
+
 def cli_workspace(torch, np):
     """``build/cli_smoke/``: copies of ``configs/scaled/*.yaml`` whose paths
     point there, ``stats.json`` from ``scaled_flagship_meta.json``, a port
@@ -2159,7 +2192,6 @@ def cli_workspace(torch, np):
     HiFi-GAN V1 as ``{"generator": state_dict}`` (weight norm written out)
     with its ``config.json``, and the metadata file of the source run.
     Returns (config paths, step, vocoder path, metadata path)."""
-    import re
     import shutil
 
     from smart_nar_fast_tts_tpu_torch.config import Config
@@ -2170,20 +2202,11 @@ def cli_workspace(torch, np):
                                                        create_train_state)
     shutil.rmtree(CLI_DIR, ignore_errors=True)
     os.makedirs(os.path.join(CLI_DIR, "preprocessed"))
-    moved = {"preprocessed_path": "preprocessed", "data_path": "raw",
-             "ckpt_path": "ckpt", "log_path": "log", "result_path": "result"}
-    paths = []
-    for name in ("preprocess", "model", "train"):
-        with open(os.path.join(REPO, "configs", "scaled",
-                               f"{name}.yaml")) as f:
-            text = f.read()
-        for key, sub in moved.items():
-            text = re.sub(rf'(\n\s*{key}:\s*)"[^"]*"',
-                          lambda m, s=sub: f'{m.group(1)}"'
-                          f'{os.path.join(CLI_DIR, s)}"', text)
-        paths.append(os.path.join(CLI_DIR, f"{name}.yaml"))
-        with open(paths[-1], "w") as f:
-            f.write(text)
+    paths = scaled_configs(CLI_DIR, {
+        key: os.path.join(CLI_DIR, sub) for key, sub in (
+            ("preprocessed_path", "preprocessed"), ("data_path", "raw"),
+            ("ckpt_path", "ckpt"), ("log_path", "log"),
+            ("result_path", "result"))})
     results = os.path.join(REPO, "benchmarks", "results")
     with open(os.path.join(results, "scaled_flagship_meta.json")) as f:
         meta = json.load(f)
@@ -2397,7 +2420,8 @@ def cli_phase(torch, np, kernels):
     with Phase("cli imports") as f:
         blocked = ("yaml", "matplotlib", "tensorboard", "jax", "flax",
                    "smart_nar_fast_tts_tpu")
-        clis = ("synthesize", "train", "evaluate", "train_vocoder")
+        clis = ("synthesize", "train", "evaluate", "train_vocoder",
+                "preprocess")
         code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
                 f"None\nfor c in {clis!r}:\n    __import__("
                 "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n")
@@ -2408,6 +2432,279 @@ def cli_phase(torch, np, kernels):
                                  f"{res.stderr[-2000:]}")
         f.update(blocked=list(blocked), clis=list(clis))
     return entry, report, dict(configs=paths, step=step, vocoder=voc)
+
+
+# the preprocess CLI's raw corpus (build/preprocess_smoke/): the first 240
+# utterances of benchmarks/corpus.py's scaled corpus (seed 0, 8 speakers,
+# ground-truth TextGrids), on which configs/scaled/ and the committed
+# 8-speaker flagship were built; preprocessed on the card, then again by 4
+# CPU workers; then 2 train steps of the flagship on the card's store
+PRE_DIR = os.path.join(REPO, "build", "preprocess_smoke")
+PRE_UTTS, PRE_SPEAKERS, PRE_SEED = 240, 8, 0
+PRE_WORKERS = 4
+PRE_TRAIN_STEPS = 2
+STORE_ENERGY_RTOL = 1e-5   # the store's energy, card against CPU, in its
+# own units (z · std + mean), and the energy statistics
+
+
+def preprocess_corpus(np, root):
+    """``benchmarks/corpus.py``'s ``make_scaled_corpus`` for its first
+    PRE_UTTS utterances, with the port's ``save_wav`` (that function
+    imports the JAX package's): ``raw/<spk>/uttNNNNN.{wav,lab}`` and
+    ``TextGrid/<spk>/uttNNNNN.TextGrid`` under ``root``.  Returns the
+    seconds of audio written."""
+    from benchmarks import corpus
+
+    from smart_nar_fast_tts_tpu_torch.data import save_wav
+    rng = np.random.default_rng(PRE_SEED)
+    speakers = {f"spk{s}": corpus.speaker_params(s, rng)
+                for s in range(PRE_SPEAKERS)}
+    seconds = 0.0
+    for u in range(PRE_UTTS):
+        name = f"spk{u % PRE_SPEAKERS}"
+        spk_dir = os.path.join(root, "raw", name)
+        tg_dir = os.path.join(root, "TextGrid", name)
+        os.makedirs(spk_dir, exist_ok=True)
+        os.makedirs(tg_dir, exist_ok=True)
+        entries = corpus.sample_entries(speakers[name], rng)
+        wav = corpus.synth_utterance(entries, speakers[name], rng)
+        seconds += len(wav) / corpus.SR
+        base = f"utt{u:05d}"
+        save_wav(os.path.join(spk_dir, f"{base}.wav"), wav, corpus.SR)
+        with open(os.path.join(spk_dir, f"{base}.lab"), "w") as f:
+            f.write(f"scaled synthetic utterance {u} ({name})")
+        corpus._write_textgrid(os.path.join(tg_dir, f"{base}.TextGrid"),
+                               entries, entries[-1][1])
+    return seconds
+
+
+def npy_header(np, path):
+    """(shape, fortran order, dtype) of a ``.npy`` file."""
+    fmt = np.lib.format
+    with open(path, "rb") as f:
+        version = fmt.read_magic(f)
+        return (fmt.read_array_header_1_0 if version == (1, 0)
+                else fmt.read_array_header_2_0)(f)
+
+
+def store_errors(np, a, b):
+    """Store ``a`` against store ``b``: the file lists, every ``.npy``
+    header, ``speakers.json``, ``train.txt`` and ``val.txt`` equal; pitch
+    and its statistics exact; mel within MEL_TOL; energy in its own units
+    and its statistics within STORE_ENERGY_RTOL.  Returns the max errors."""
+    for name in ("speakers.json", "train.txt", "val.txt"):
+        with open(os.path.join(a, name)) as fa, \
+                open(os.path.join(b, name)) as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{name} differs")
+    stats = []
+    for d in (a, b):
+        with open(os.path.join(d, "stats.json")) as f:
+            stats.append(json.load(f))
+    if stats[0]["pitch"] != stats[1]["pitch"]:
+        raise AssertionError(f"pitch stats {stats}")
+    ea, eb = (np.asarray(st["energy"]) for st in stats)
+    errs = {"energy_stats_rel": float((abs(ea - eb) / abs(eb)).max()),
+            "mel_max_abs": 0.0, "energy_max_rel": 0.0, "pitch_max_abs": 0.0}
+    for kind in ("mel", "pitch", "energy"):
+        names = sorted(os.listdir(os.path.join(a, kind)))
+        if names != sorted(os.listdir(os.path.join(b, kind))):
+            raise AssertionError(f"{kind}/ file lists differ")
+        for name in names:
+            pa, pb = (os.path.join(d, kind, name) for d in (a, b))
+            if npy_header(np, pa) != npy_header(np, pb):
+                raise AssertionError(f"{kind}/{name}: headers differ")
+            x, y = np.load(pa), np.load(pb)
+            if kind == "mel":
+                errs["mel_max_abs"] = max(errs["mel_max_abs"],
+                                          float(abs(x - y).max()))
+            elif kind == "pitch":
+                errs["pitch_max_abs"] = max(errs["pitch_max_abs"],
+                                            float(abs(x - y).max()))
+            else:
+                x, y = x * ea[3] + ea[2], y * eb[3] + eb[2]
+                errs["energy_max_rel"] = max(errs["energy_max_rel"], float(
+                    (abs(x - y) / abs(y)).max()))
+    errs["utterances"] = len(names)
+    if not (errs["pitch_max_abs"] == 0.0 and errs["mel_max_abs"] <= MEL_TOL
+            and errs["energy_max_rel"] <= STORE_ENERGY_RTOL
+            and errs["energy_stats_rel"] <= STORE_ENERGY_RTOL):
+        raise AssertionError(f"stores differ beyond the gates: {errs}")
+    return errs
+
+
+def preprocess_phase(torch, np, kernels, cli):
+    """The preprocessing CLI from a raw corpus to training: PRE_UTTS
+    utterances written under ``build/preprocess_smoke/``; ``python -m
+    smart_nar_fast_tts_tpu_torch.cli.preprocess`` as ``main(argv)`` on a
+    copy of ``configs/scaled/preprocess.yaml`` (the card's mel, the host's
+    native F0), the launch counts set to 0 just before and read just after
+    (0 for every kernel), its time split into F0, mel (host and CUDA
+    events), reads and writes; the same corpus by ``python -m ...
+    --device cpu --workers 4`` in a subprocess, into a second store held to
+    the first (:func:`store_errors`); then ``cli.train`` for
+    PRE_TRAIN_STEPS steps on the card's store from a copy of the cli
+    phase's checkpoint of the 8-speaker flagship: finite losses, a
+    checkpoint written, one upsampling launch a step.  Returns the launch
+    counts of the preprocessing run and of the training run."""
+    import contextlib
+    import io
+    import shutil
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.cli import preprocess as preprocess_cli
+    from smart_nar_fast_tts_tpu_torch.cli import train as train_cli
+    from smart_nar_fast_tts_tpu_torch.data import native_f0
+    from smart_nar_fast_tts_tpu_torch.data import preprocessor
+    from smart_nar_fast_tts_tpu_torch.training import CheckpointManager
+    from smart_nar_fast_tts_tpu_torch.training import trainer as trainer_mod
+    raw = os.path.join(PRE_DIR, "raw")
+    stores = {run: os.path.join(PRE_DIR, run, "preprocessed")
+              for run in ("card", "cpu")}
+    with Phase("preprocess setup") as f:
+        shutil.rmtree(PRE_DIR, ignore_errors=True)
+        audio_s = preprocess_corpus(np, PRE_DIR)
+        for store in stores.values():
+            shutil.copytree(os.path.join(PRE_DIR, "TextGrid"),
+                            os.path.join(store, "TextGrid"))
+        card = os.path.join(PRE_DIR, "card")
+        paths = scaled_configs(card, {
+            "data_path": raw, "preprocessed_path": stores["card"],
+            **{key: os.path.join(card, key.split("_")[0])
+               for key in ("ckpt_path", "log_path", "result_path")}})
+        cpu_config, = scaled_configs(
+            os.path.join(PRE_DIR, "cpu"), {
+                "data_path": raw, "preprocessed_path": stores["cpu"]},
+            names=("preprocess",))
+        t0 = time.perf_counter()
+        if not native_f0.native_available():
+            raise AssertionError("the native F0 library does not build")
+        f.update(utterances=PRE_UTTS, speakers=PRE_SPEAKERS,
+                 audio_seconds=audio_s, configs=[*paths, cpu_config],
+                 native_f0_build_seconds=time.perf_counter() - t0,
+                 native_f0_library=os.path.relpath(native_f0.lib_path(),
+                                                   REPO))
+
+    with Phase("preprocess cli") as f:
+        split = {"f0": 0.0, "mel_host": 0.0, "reads": 0.0, "writes": 0.0}
+        events = []
+
+        def timed(key, fn):
+            def wrapper(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    split[key] += time.perf_counter() - t0
+            return wrapper
+
+        mel_fn = preprocessor.mel_spectrogram
+
+        def mel_events(y, cfg):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = mel_fn(y, cfg)
+            ev[1].record()
+            events.append(ev)
+            return out
+
+        spies = [(native_f0, "estimate_f0_native", "f0"),
+                 (preprocessor.Preprocessor, "mel_energy", "mel_host"),
+                 (preprocessor, "load_wav", "reads"),
+                 (preprocessor, "read_textgrid", "reads"),
+                 (np, "load", "reads"), (np, "save", "writes")]
+        printed = io.StringIO()
+        with contextlib.ExitStack() as stack:
+            for owner, name, key in spies:
+                stack.enter_context(mock.patch.object(
+                    owner, name, timed(key, getattr(owner, name))))
+            stack.enter_context(mock.patch.object(
+                preprocessor, "mel_spectrogram", mel_events))
+            stack.enter_context(contextlib.redirect_stdout(printed))
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = preprocess_cli.main([paths[0]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {**kernels.launches(), **kernels.route_launches()}
+        line = printed.getvalue().strip().splitlines()[-1]
+        if line != f"preprocessed {PRE_UTTS} utterances → {stores['card']}":
+            raise AssertionError(f"cli.preprocess printed {line!r}")
+        if len(out) != PRE_UTTS or any(counts.values()):
+            raise AssertionError(f"{len(out)} utterances, launches {counts}")
+        mel_device_s = sum(a.elapsed_time(b) for a, b in events) / 1e3
+        split = {f"{k}_seconds": v for k, v in split.items()}
+        split["other_seconds"] = wall - sum(split.values())
+        f.update(utterances=len(out), launches=counts, wall_seconds=wall,
+                 audio_seconds=audio_s,
+                 audio_seconds_per_wall_second=audio_s / wall,
+                 split=split, mel_device_seconds=mel_device_s,
+                 mel_calls=len(events), nvidia_smi=nvidia_smi())
+
+    with Phase("preprocess cli cpu") as f:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "smart_nar_fast_tts_tpu_torch.cli."
+             "preprocess", cpu_config, "--device", "cpu", "--workers",
+             str(PRE_WORKERS)], cwd=REPO, capture_output=True, text=True,
+            timeout=900)
+        cpu_wall = time.perf_counter() - t0
+        if res.returncode != 0 or res.stdout.strip().splitlines()[-1] != (
+                f"preprocessed {PRE_UTTS} utterances → {stores['cpu']}"):
+            raise AssertionError(f"cli.preprocess --device cpu: rc "
+                                 f"{res.returncode}\n{res.stdout[-1000:]}"
+                                 f"\n{res.stderr[-3000:]}")
+        errs = store_errors(np, stores["card"], stores["cpu"])
+        f.update(workers=PRE_WORKERS, wall_seconds=cpu_wall,
+                 audio_seconds_per_wall_second=audio_s / cpu_wall,
+                 card_against_cpu=errs, mel_tol=MEL_TOL,
+                 energy_rtol=STORE_ENERGY_RTOL)
+
+    with Phase("preprocess train") as f:
+        step = cli["step"]
+        shutil.copytree(os.path.join(CLI_DIR, "ckpt", str(step)),
+                        os.path.join(card, "ckpt", str(step)))
+        make = trainer_mod.make_train_step
+        losses = []
+
+        def recording_make(*args, **kwargs):
+            train_step = make(*args, **kwargs)
+
+            def spy(*a, **k):
+                out = train_step(*a, **k)
+                losses.append(out)
+                return out
+            return spy
+
+        p, m, t = paths
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "make_train_step",
+                               recording_make):
+            trainer = train_cli.main(["-p", p, "-m", m, "-t", t,
+                                      "--total_step",
+                                      str(step + PRE_TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_counts = {**kernels.launches(), **kernels.route_launches()}
+        if len(losses) != PRE_TRAIN_STEPS:
+            raise AssertionError(f"{len(losses)} train steps")
+        for i, lo in enumerate(losses):
+            check_finite_losses(torch, lo, f"train step {step + i + 1}")
+        saved = CheckpointManager(trainer.cfg.train.ckpt_path).all_steps()
+        if saved != [step, step + PRE_TRAIN_STEPS]:
+            raise AssertionError(f"checkpoints {saved}")
+        want = {k: 0 for k in train_counts}
+        want["gaussian_upsample_banded"] = PRE_TRAIN_STEPS
+        if train_counts != want:
+            raise AssertionError(f"train launches {train_counts}, expected "
+                                 f"{want}")
+        f.update(launches=train_counts, checkpoints=saved,
+                 wall_seconds=train_wall,
+                 losses=[{k: float(v) for k, v in lo._asdict().items()}
+                         for lo in losses])
+    return counts, train_counts
 
 
 # the trainer CLI's corpus and run (build/trainer_smoke/): 96 train
@@ -2963,6 +3260,7 @@ def main() -> int:
         **kernel_fused_log_mel(torch, np, kernels, segments, compiled))
     reference_phase(torch, np, synth, inv)
     cli_counts, cli_errs, cli = cli_phase(torch, np, kernels)
+    pre_counts, pre_train_counts = preprocess_phase(torch, np, kernels, cli)
 
     train_counts, train_step_ms = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
@@ -3003,7 +3301,9 @@ def main() -> int:
                 f"{FS_TRAIN_STEPS} train steps": fs_train[name]},
             launches_cli_train={run: r["launches"][name]
                                 for run, r in trainer_runs.items()},
-            launches_cli_train_vocoder=voc_cli_counts[name])
+            launches_cli_train_vocoder=voc_cli_counts[name],
+            launches_cli_preprocess=pre_counts[name],
+            launches_cli_preprocess_train=pre_train_counts[name])
     entries["flash_attention"]["fastspeech_width_path"] = (
         "FastSpeech widths (head dim 192), serving stage A at cap 4096")
     entries["alignment_attention"]["fastspeech_width_path"] = (
@@ -3032,6 +3332,8 @@ def main() -> int:
             launches_cli_train={run: r["launches"][name]
                                 for run, r in trainer_runs.items()},
             launches_cli_train_vocoder=voc_cli_counts[name],
+            launches_cli_preprocess=pre_counts[name],
+            launches_cli_preprocess_train=pre_train_counts[name],
             launches_fastspeech_width=fs_serving[name] + fs_train[name],
             path="none: the driven paths have head dims 128 and 192 and "
                  "n_fft 1024", **entry)

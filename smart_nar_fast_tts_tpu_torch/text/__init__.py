@@ -24,6 +24,7 @@ from .symbols import SYMBOLS, SYMBOL_TO_ID, ID_TO_SYMBOL, PAD_ID, VOCAB_SIZE
 __all__ = [
     "SYMBOLS", "SYMBOL_TO_ID", "ID_TO_SYMBOL", "PAD_ID", "VOCAB_SIZE",
     "text_to_sequence", "sequence_to_text", "phonemes_to_sequence",
+    "clean_text",
 ]
 
 _curly_re = re.compile(r"(.*?)\{(.+?)\}(.*)")
@@ -68,6 +69,12 @@ def text_to_sequence(text: str, cleaner_names) -> list[int]:
         sequence += phonemes_to_sequence(m.group(2))
         text = m.group(3)
     return sequence
+
+
+def clean_text(text: str, cleaner_names) -> str:
+    """Run the cleaner pipeline only (reference ``text/__init__.py:61-68``
+    ``_clean_text``, used by corpus prep)."""
+    return _clean(text, cleaner_names)
 
 
 def sequence_to_text(sequence) -> str:
