@@ -156,12 +156,44 @@ any failure raises (exit code 1):
             meta; ``load_vocoder`` of step 4 vocodes the e2e mel, and the
             synthesize CLI runs with it as ``--vocoder_ckpt``
 
+  streaming the streaming vocoder (``vocoder.StreamingVocoder``, chunk 64,
+            halo 14) on the committed HiFi-GAN V1 over item 0 of the e2e
+            mel: the chunks against the full forward within 1e-4 (both
+            also against a float64 run), the online mode fed in pieces of
+            37 frames, its buffer's high water, time to first audio (CUDA
+            events and a synchronise) and a window's device time; then
+            ``cli.synthesize --stream_chunk 64`` on the cli phase's
+            sentence (a), its waveform within 1e-4 of run (a)'s
+  bf16 serving  the committed flagship and V1 under
+            ``compute_dtype="bfloat16"`` on bench.py's inputs: stage A at
+            cap 1000 and at cap 4096 (4 flash launches on bf16 operands,
+            each held to ``attention_bf16_reference`` of its own inputs),
+            launches counted; durations within one frame of the f32 run
+            and of the CPU's bf16 run; the bf16 vocoder on the f32 mel
+            within 0.08 mean relative error; the postnet mel's distance
+            reported; stage A and B times in turns with the f32 ones
+  hifigan v3  a seeded HiFi-GAN V3 generator (ResBlock2, upstream V3
+            widths) on item 0 of the e2e mel, the card against the CPU
+            within 1e-4
+  export    ``cli.export`` of the cli phase's checkpoint and HiFi-GAN V1
+            with text buckets 64 and 384 and frame capacities 1000 and 4096
+            (12 ``torch.export`` programs under the git-ignored
+            ``build/export_smoke/``; the programs under 5 % of
+            ``params.npz``); ``serving.ExportedTTS`` on the card serves
+            sentence (a) and passage (b) (cap 4096) with ``synthesize`` and
+            ``stream``, the launch counts set to 0 just before and read just
+            after each served call and held to the registered operators'
+            calls in the programs it ran; durations exact and postnet mel
+            within 1e-3 of the live model at the same capacity; ``stream``
+            within 1e-4 of ``synthesize``
+
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the rest
 of the repository, it exits non-zero before printing any result.
 """
 
+import copy
 import json
 import math
 import os
@@ -2431,7 +2463,8 @@ def cli_phase(torch, np, kernels):
             raise AssertionError(f"a CLI needs a blocked module:\n"
                                  f"{res.stderr[-2000:]}")
         f.update(blocked=list(blocked), clis=list(clis))
-    return entry, report, dict(configs=paths, step=step, vocoder=voc)
+    return entry, report, dict(configs=paths, step=step, vocoder=voc,
+                               text_wav=runs["text"][0][0].wav)
 
 
 # the preprocess CLI's raw corpus (build/preprocess_smoke/): the first 240
@@ -3186,6 +3219,462 @@ def train_vocoder_cli_phase(torch, np, kernels, synth, short, wav, mel_lens,
     return counts
 
 
+# the streaming vocoder (vocoder/streaming.py): windows of STREAM_CHUNK + 2
+# halo frames over item 0 of the e2e mel; the online mode fed in pieces of
+# STREAM_PIECE frames; the synthesize CLI's --stream_chunk on sentence (a)
+STREAM_CHUNK, STREAM_PIECE = 64, 37
+STREAM_TOL = 1e-4   # chunks against the full forward on the card: f32, no
+                    # TF32, but cuDNN may pick another algorithm per shape
+# the bf16 compute policy (ModelConfig.compute_dtype, HiFiGANConfig's):
+# stage A of bench.py's inputs at caps 1000 and 4096 against the f32 run
+# The postnet mel under bf16 is reported, not held: the JAX package's bar
+# (0.25 against f32, tests/test_properties.py::TestBF16ComputePath) is set
+# on a random init, whose attention logits are small; the committed
+# flagship's reach 1e3 (tests/test_torch_model.py::
+# test_flagship_attention_logits_outrun_bf16), where bf16 q and k move them
+# by units and reorder the softmax, so any two bf16 runs (JAX's too) part
+# by units of mel.  Held: durations within one frame, the bf16 vocoder,
+# the flash kernel's outputs on their own inputs.
+BF16_DURATION_TOL = 1
+BF16_WAV_REL = 0.08  # vocoder mean relative error, bf16 against f32 on one
+                     # mel (tests/test_vocoder.py::test_bfloat16_compute_path)
+# HiFi-GAN V3 (upstream config_v3.json): ResBlock2, rates 8, 8, 4
+V3_CONFIG = dict(resblock="2", upsample_rates=(8, 8, 4),
+                 upsample_kernel_sizes=(16, 16, 8),
+                 upsample_initial_channel=256,
+                 resblock_kernel_sizes=(3, 5, 7),
+                 resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+V3_SEED = 0
+V3_TOL = 1e-4       # the V3 generator on the card against the CPU, f32
+# exported serving artifacts (cli.export, serving.ExportedTTS) of the cli
+# phase's checkpoint: text buckets that hold sentence (a) and passage (b)
+EXPORT_DIR = os.path.join(REPO, "build", "export_smoke")
+EXPORT_TEXT_BUCKETS = (64, 384)
+EXPORT_MEL_CAPS = (1000, 4096)
+EXPORT_MEL_TOL = 1e-3     # the exported programs against the live model
+EXPORT_STREAM_TOL = 1e-4  # stream against synthesize (two window shapes)
+EXPORT_SHARE = 0.05       # program files against params.npz: weights as data
+
+
+def launch_counts(kernels):
+    """Every kernel's launch count, the further kernels' included."""
+    return {**kernels.launches(), **kernels.route_launches()}
+
+
+def main_counts(counts):
+    """The four wrappers' counts of :func:`launch_counts`."""
+    return {k: counts[k] for k in PER_SERVING_BATCH}
+
+
+def first_chunk_ms(torch, chunks):
+    """Milliseconds to the first chunk of the iterator ``chunks()``: CUDA
+    events around it and a synchronise (the chunk is on the host by
+    then)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    first = next(iter(chunks()))
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), first
+
+
+def streaming_phase(torch, np, kernels, synth, short, cli):
+    """The streaming vocoder on the committed HiFi-GAN V1 over item 0 of the
+    e2e mel: the chunks against the full forward, the online mode in pieces
+    of 37 frames, time to first audio; then ``cli.synthesize
+    --stream_chunk 64`` on sentence (a) against run (a)'s waveform."""
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.vocoder import StreamingVocoder
+    with Phase("streaming") as f:
+        n = int(short.mel_lens[0])
+        mel = short.postnet_mel[0, :n].float().cpu().numpy()
+        sv = StreamingVocoder(synth.vocoder, chunk_frames=STREAM_CHUNK)
+        kernels.reset_launches()
+        chunks = list(sv.synthesize_chunks(mel))
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        with torch.inference_mode():
+            full = synth.vocoder(torch.from_numpy(mel[None]).to(
+                synth.device))[0].cpu().numpy()
+        got = np.concatenate(chunks)
+        if got.shape != full.shape or len(chunks) != -(-n // STREAM_CHUNK):
+            raise AssertionError(f"streaming: {len(chunks)} chunks, "
+                                 f"{got.shape} against {full.shape}")
+        err = float(np.abs(got - full).max())
+        if not err <= STREAM_TOL:
+            raise AssertionError(f"streaming: chunks {err} from the full "
+                                 f"forward, over {STREAM_TOL}")
+        online = np.concatenate(list(sv.stream(
+            mel[i:i + STREAM_PIECE] for i in range(0, n, STREAM_PIECE))))
+        online_err = float(np.abs(online - full).max())
+        if online.shape != full.shape or not online_err <= STREAM_TOL:
+            raise AssertionError(f"online stream: {online_err} from the "
+                                 "full forward")
+        # both f32 runs against a float64 one: the window shapes' own
+        # rounding (the halo itself is exact in float64)
+        with torch.inference_mode():
+            f64 = copy.deepcopy(synth.vocoder).double()(
+                torch.from_numpy(mel[None]).double().to(synth.device))[0]
+        f64 = f64.cpu().numpy()
+        ttfa = [first_chunk_ms(torch, lambda: sv.synthesize_chunks(mel))[0]
+                for _ in range(5)]
+        window = torch.from_numpy(mel[None, :sv.window_frames]).to(
+            synth.device)
+        with torch.inference_mode():
+            window_ms = device_ms(lambda: synth.vocoder(window), torch)
+            full_ms = wall_ms(lambda: synth.vocoder(
+                torch.from_numpy(mel[None]).to(synth.device)), torch)
+        f.update(launches=counts, frames=n, chunk_frames=STREAM_CHUNK,
+                 halo_frames=sv.halo, window_frames=sv.window_frames,
+                 chunks=len(chunks), max_abs_err=err,
+                 online_piece_frames=STREAM_PIECE,
+                 online_max_abs_err=online_err,
+                 online_vs_chunks_max=float(np.abs(online - got).max()),
+                 full_vs_float64_max=float(np.abs(full - f64).max()),
+                 chunks_vs_float64_max=float(np.abs(got - f64).max()),
+                 buffered_frames_high_water=sv.buffered_frames_high_water,
+                 time_to_first_audio_ms=statistics.median(ttfa),
+                 time_to_first_audio_ms_runs=ttfa,
+                 window_device_ms=window_ms, full_forward_ms=full_ms,
+                 nvidia_smi=nvidia_smi())
+    with Phase("streaming cli") as f:
+        argv = ["-p", cli["configs"][0], "-m", cli["configs"][1],
+                "-t", cli["configs"][2], "--restore_step", str(cli["step"]),
+                "--vocoder_ckpt", cli["vocoder"], "--text", CLI_TEXT,
+                "--speaker_id", str(CLI_SPEAKER),
+                "--stream_chunk", str(STREAM_CHUNK)]
+        utts, cli_counts, wall, seconds = cli_run(torch, np, kernels,
+                                                  synthesize, argv)
+        wav, ref = utts[0].wav, cli["text_wav"]
+        # both scaled by max_wav_value (32768): compared at full scale 1
+        cli_err = float(np.abs(wav - ref).max()) / 32768.0 \
+            if wav.shape == ref.shape else float("inf")
+        if not cli_err <= STREAM_TOL:
+            raise AssertionError(f"--stream_chunk: wav {cli_err} from run "
+                                 f"(a)'s, over {STREAM_TOL}")
+        if cli_counts["flash_attention"] or cli_counts[
+                "gaussian_upsample_banded"] != 1:
+            raise AssertionError(f"--stream_chunk launches {cli_counts}")
+        f.update(launches=cli_counts, wall_seconds=wall,
+                 audio_seconds=seconds, max_abs_err_vs_run_a=cli_err)
+    return counts, {"cli": cli_counts}
+
+
+def bf16_serving_phase(torch, np, kernels, synth, short, wav, texts,
+                       src_lens):
+    """The committed flagship and HiFi-GAN V1 under
+    ``compute_dtype="bfloat16"`` on bench.py's inputs: stage A at cap 1000
+    and at cap 4096 (the decoder's four flash launches on bf16 operands,
+    each held to ``attention_bf16_reference`` of its own inputs), each with
+    the launch counts set to 0 just before and read just after; against
+    the f32 run: durations within one frame, the bf16 vocoder on the f32
+    mel within 0.08 mean relative error, the postnet mel's distance over
+    the frames both hold reported; the card's bf16 stage A against the
+    CPU's on two items; stage times in turns with the f32 ones."""
+    import dataclasses
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.config import ModelConfig
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    from smart_nar_fast_tts_tpu_torch.serving import (Synthesizer, bucket,
+                                                      committed_flagship)
+    from smart_nar_fast_tts_tpu_torch.vocoder import HiFiGANGenerator
+    bf16 = torch.bfloat16
+
+    def bf16_models():
+        model = committed_flagship(ModelConfig(compute_dtype="bfloat16"))
+        vocoder = HiFiGANGenerator(dataclasses.replace(
+            synth.vocoder.config, compute_dtype="bfloat16"))
+        vocoder.load_state_dict(synth.vocoder.state_dict())
+        return model, vocoder
+
+    def common_mel_err(a, b):
+        n = torch.minimum(a.mel_lens.cpu(), b.mel_lens.cpu())
+        return max(float((a.postnet_mel[j, :n[j]].float().cpu()
+                          - b.postnet_mel[j, :n[j]].float().cpu()).abs()
+                         .max()) for j in range(len(n)))
+
+    tx, sl = torch.from_numpy(texts), torch.from_numpy(src_lens)
+    with Phase("bf16 serving") as f:
+        model, vocoder = bf16_models()
+        synth16 = Synthesizer(model, vocoder)
+        kernels.reset_launches()
+        wav16, lens16 = synth16.synthesize(texts, src_lens)
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        if main_counts(counts) != PER_SERVING_BATCH:
+            raise AssertionError(f"bf16 serving launches {counts}")
+        out = synth16.stage_a(tx, sl)
+        if out.postnet_mel.dtype != torch.float32 or not torch.isfinite(
+                out.postnet_mel).all() or not torch.isfinite(wav16).all():
+            raise AssertionError("bf16 serving: not f32 or non-finite")
+        d_err = int((out.duration_rounded - short.duration_rounded).abs()
+                    .max())
+        mel_err = common_mel_err(out, short)
+        mel_mean = float((out.postnet_mel - short.postnet_mel).abs().mean())
+        cap = bucket(int(short.mel_lens.max()))
+        mel32 = short.postnet_mel[:, :cap].contiguous()
+        with torch.inference_mode():
+            w16 = synth16.stage_b(mel32)
+            w32 = synth.stage_b(mel32)
+        wav_rel = float((w16 - w32).abs().mean() / w32.abs().mean())
+        e2e_rel = (float((wav16 - wav).abs().mean() / wav.abs().mean())
+                   if wav16.shape == wav.shape else None)
+        f.update(launches=counts, mel_lens=out.mel_lens.tolist(),
+                 mel_lens_f32=short.mel_lens.tolist(),
+                 duration_max_diff=d_err, postnet_mel_vs_f32_max=mel_err,
+                 postnet_mel_vs_f32_mean=mel_mean,
+                 vocoder_vs_f32_mean_rel=wav_rel,
+                 e2e_wav_vs_f32_mean_rel=e2e_rel)
+        if d_err > BF16_DURATION_TOL:
+            raise AssertionError(f"bf16 stage A against f32: durations "
+                                 f"{d_err} frames apart")
+        if wav16.dtype != torch.float32 or not wav_rel < BF16_WAV_REL:
+            raise AssertionError(f"bf16 vocoder: mean relative {wav_rel}")
+        # the card against the CPU, both bf16, on two items
+        cpu = Synthesizer(*bf16_models(), device="cpu")
+        got = synth16.stage_a(tx[:2], sl[:2])
+        expect = cpu.stage_a(tx[:2], sl[:2])
+        cpu_err = common_mel_err(got, expect)
+        cpu_d = int((got.duration_rounded.cpu() - expect.duration_rounded)
+                    .abs().max())
+        f.update(card_vs_cpu_postnet_mel_max=cpu_err,
+                 card_vs_cpu_duration_max_diff=cpu_d)
+        if cpu_d > BF16_DURATION_TOL or not torch.isfinite(
+                got.postnet_mel).all():
+            raise AssertionError(f"bf16 card against CPU: durations "
+                                 f"{cpu_d} frames apart")
+        mel16 = out.postnet_mel[:, :cap].contiguous()
+        times = {}
+        for name, s, m in (("f32", synth, mel32), ("bf16", synth16, mel16),
+                           ("bf16 again", synth16, mel16),
+                           ("f32 again", synth, mel32)):
+            times[name] = dict(
+                stage_a_ms=wall_ms(lambda s=s: s.stage_a(tx, sl), torch),
+                stage_b_ms=wall_ms(lambda s=s, m=m: s.stage_b(m), torch))
+        f.update(times=times, nvidia_smi=nvidia_smi())
+    with Phase("bf16 serving cap 4096") as f:
+        long16 = Synthesizer(model, vocoder, t_cap=T_CAP_LONG)
+        calls, flash = [], layers.flash_attention
+
+        def spy(q, k, v, key_valid):
+            o = flash(q, k, v, key_valid)
+            calls.append((q, k, v, key_valid, o))
+            return o
+
+        kernels.reset_launches()
+        with mock.patch.object(layers, "flash_attention", spy):
+            lout = long16.stage_a(tx, sl)
+        torch.cuda.synchronize()
+        long_counts = launch_counts(kernels)
+        if main_counts(long_counts) != PER_SERVING_BATCH_LONG or any(
+                c[0].dtype != bf16 for c in calls):
+            raise AssertionError(f"bf16 cap-4096 launches {long_counts}, "
+                                 f"dtypes {[c[0].dtype for c in calls]}")
+        if not torch.equal(lout.duration_rounded, out.duration_rounded):
+            raise AssertionError("bf16 cap-4096 durations differ from cap "
+                                 "1000")
+        shares = []
+        for q, k, v, valid, o in calls:
+            ref = kernels.attention_bf16_reference(q, k, v, valid)
+            tol = kernels.attention_bf16_tolerance(q, k, v, valid, ref)
+            shares.append(((o.float() - ref.float()).abs() / tol).max()
+                          .item())
+        if not max(shares) <= 1.0:
+            raise AssertionError(f"bf16 cap-4096 flash outputs beyond "
+                                 f"attention_bf16_tolerance: {shares}")
+        f32_long = Synthesizer(synth.model, synth.vocoder, t_cap=T_CAP_LONG)
+        f.update(launches=long_counts,
+                 flash_shapes=[list(c[0].shape) for c in calls],
+                 flash_dtype=str(calls[0][0].dtype),
+                 flash_bf16_tolerance_share=shares,
+                 mel_lens=lout.mel_lens.tolist(),
+                 stage_a_ms=wall_ms(lambda: long16.stage_a(tx, sl), torch),
+                 stage_a_ms_f32=wall_ms(lambda: f32_long.stage_a(tx, sl),
+                                        torch))
+    return counts, long_counts
+
+
+def v3_phase(torch, np, kernels, short):
+    """A seeded HiFi-GAN V3 generator (ResBlock2, upstream V3 widths) on
+    item 0 of the e2e mel, the card against the CPU."""
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
+                                                      HiFiGANGenerator)
+    with Phase("hifigan v3") as f:
+        torch.manual_seed(V3_SEED)
+        gen = HiFiGANGenerator(HiFiGANConfig(**V3_CONFIG)).eval()
+        n = int(short.mel_lens[0])
+        mel = short.postnet_mel[:1, :n].float().cpu()
+        with torch.inference_mode():
+            expect = gen(mel)
+            gen.cuda()
+            kernels.reset_launches()
+            got = gen(mel.cuda())
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+            ms = wall_ms(lambda: gen(mel.cuda()), torch)
+        if got.shape != (1, n * gen.config.hop_length):
+            raise AssertionError(f"V3 wav shape {tuple(got.shape)}")
+        err = check_close("HiFi-GAN V3", got.cpu(), expect, V3_TOL, torch)
+        f.update(launches=counts, frames=n, hop=gen.config.hop_length,
+                 parameters=sum(p.numel() for p in gen.parameters()),
+                 max_abs_err=err, card_ms=ms,
+                 max_abs_wav=float(got.abs().max()))
+    return counts
+
+
+def program_op_counts(tts):
+    """{program: {kernel: calls in its graph}} of a loaded ExportedTTS."""
+    ops = {"smart_tts.flash_attention": "flash_attention",
+           "smart_tts.gaussian_upsample_banded": "gaussian_upsample_banded"}
+
+    def count(module):
+        out = dict.fromkeys(ops.values(), 0)
+        for node in module.graph.nodes:
+            for op, name in ops.items():
+                out[name] += str(node.target).startswith(op)
+        return out
+    return {"probe": {p.bucket: count(p.call) for p in tts._probe},
+            "acoustic": {(p.bucket, p.mel_cap): count(p.call)
+                         for p in tts._acoustic}}
+
+
+def export_phase(torch, np, kernels, cli):
+    """``cli.export`` of the cli phase's checkpoint (the 8-speaker
+    flagship) and HiFi-GAN V1 with text buckets 64 and 384 and frame
+    capacities 1000 and 4096; then ``ExportedTTS`` on the card serves
+    sentence (a) and passage (b) (336 phonemes: cap 4096, flash) with
+    ``synthesize`` and ``stream``, the launch counts set to 0 just before
+    and read just after each served call and held to the registered
+    operators' calls in the programs run; durations exact and postnet mel
+    within 1e-3 of the live model at the same capacity; ``stream`` equal
+    to ``synthesize``; the program files under 5 % of ``params.npz``."""
+    import argparse
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli import export, synthesize
+    from smart_nar_fast_tts_tpu_torch.cli._args import load_config
+    from smart_nar_fast_tts_tpu_torch.serving import ExportedTTS
+    from smart_nar_fast_tts_tpu_torch.text import text_to_sequence
+    from smart_nar_fast_tts_tpu_torch.text.g2p import G2P
+    with Phase("export cli") as f:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+        os.makedirs(EXPORT_DIR)
+        with open(cli["configs"][2]) as fh:
+            text = fh.read()
+        text = text.replace(
+            "  text_buckets: [24]\n",
+            f"  text_buckets: {list(EXPORT_TEXT_BUCKETS)}\n"
+            f"  serving_mel_caps: {list(EXPORT_MEL_CAPS)}\n")
+        train_yaml = os.path.join(EXPORT_DIR, "train.yaml")
+        with open(train_yaml, "w") as fh:
+            fh.write(text)
+        paths = [cli["configs"][0], cli["configs"][1], train_yaml]
+        cfg = load_config(argparse.Namespace(
+            preprocess_config=paths[0], model_config=paths[1],
+            train_config=paths[2]))
+        if (tuple(cfg.train.text_buckets) != EXPORT_TEXT_BUCKETS
+                or tuple(cfg.train.serving_mel_caps) != EXPORT_MEL_CAPS):
+            raise AssertionError(f"export config: {cfg.train}")
+        out_dir = os.path.join(EXPORT_DIR, "artifact")
+        t0 = time.perf_counter()
+        manifest = export.main(
+            ["-p", paths[0], "-m", paths[1], "-t", paths[2],
+             "--restore_step", str(cli["step"]), "--out_dir", out_dir,
+             "--vocoder_ckpt", cli["vocoder"],
+             "--stream_chunk", str(STREAM_CHUNK)])
+        export_s = time.perf_counter() - t0
+        sizes = {name: os.path.getsize(os.path.join(out_dir, name))
+                 for name in os.listdir(out_dir)}
+        params = sizes["params.npz"]
+        programs = sum(v for k, v in sizes.items() if k.endswith(".pt2"))
+        f.update(export_seconds=export_s, device=manifest["device"],
+                 programs=sum(k.endswith(".pt2") for k in sizes),
+                 artifact_mb=sum(sizes.values()) / 2**20,
+                 params_mb=params / 2**20, programs_mb=programs / 2**20,
+                 programs_share=programs / params, files=sizes)
+        if not programs < EXPORT_SHARE * params:
+            raise AssertionError(f"export: programs {programs} B against "
+                                 f"params {params} B")
+    with Phase("export serve") as f:
+        t0 = time.perf_counter()
+        tts = ExportedTTS(out_dir)           # on the card, as exported
+        load_s = time.perf_counter() - t0
+        if tts.device.type != manifest["device"]:
+            raise AssertionError(f"served on {tts.device}, exported for "
+                                 f"{manifest['device']}")
+        ops = program_op_counts(tts)
+        model, restored = synthesize.load_model(cfg, cli["step"],
+                                                tts.device)
+        g2p = G2P(cfg.preprocess.lexicon_path)
+        served, counts_by_text = {}, {}
+        for name, sentence in (("a", CLI_TEXT), ("b", CLI_LONG)):
+            ids = np.asarray(text_to_sequence(
+                g2p(sentence), list(cfg.preprocess.text_cleaners)), np.int64)
+            kernels.reset_launches()
+            wav = tts.synthesize(ids, speaker=CLI_SPEAKER)
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+            out = tts.acoustic(ids, speaker=CLI_SPEAKER)
+            L = next(b for b in EXPORT_TEXT_BUCKETS if len(ids) <= b)
+            cap = out["postnet_mel"].shape[1]
+            expect = {k: ops["probe"][L][k] + ops["acoustic"][(L, cap)][k]
+                      for k in ops["probe"][L]}
+            others = {k: v for k, v in counts.items() if k not in expect}
+            if {k: counts[k] for k in expect} != expect or any(
+                    others.values()):
+                raise AssertionError(f"({name}) exported launches {counts}, "
+                                     f"expected {expect}")
+            texts = np.zeros((1, L), np.int64)
+            texts[0, :len(ids)] = ids
+            with torch.inference_mode():
+                live = model(torch.from_numpy(texts).to(tts.device),
+                             torch.tensor([len(ids)], device=tts.device),
+                             max_mel_len=cap,
+                             speakers=torch.tensor([CLI_SPEAKER],
+                                                   device=tts.device))
+            if not np.array_equal(out["duration_rounded"],
+                                  live.duration_rounded.cpu().numpy()):
+                raise AssertionError(f"({name}) exported durations differ "
+                                     "from the live model")
+            mel_err = float(np.abs(out["postnet_mel"]
+                                   - live.postnet_mel.cpu().numpy()).max())
+            if not mel_err <= EXPORT_MEL_TOL:
+                raise AssertionError(f"({name}) exported postnet mel "
+                                     f"{mel_err} from the live model")
+            stream_ms, _ = first_chunk_ms(
+                torch, lambda: tts.stream(ids, speaker=CLI_SPEAKER))
+            chunks = list(tts.stream(ids, speaker=CLI_SPEAKER))
+            streamed = np.concatenate(chunks)
+            stream_err = float(np.abs(streamed - wav).max()) \
+                if streamed.shape == wav.shape else float("inf")
+            if not stream_err <= EXPORT_STREAM_TOL:
+                raise AssertionError(f"({name}) stream {stream_err} from "
+                                     "synthesize")
+            if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1.0
+                    and wav.shape[0] == int(out["mel_lens"][0]) * tts.hop):
+                raise AssertionError(f"({name}) exported wav: bad")
+            served[name] = dict(
+                phonemes=len(ids), text_bucket=L, cap=cap,
+                mel_len=int(out["mel_lens"][0]), launches=counts,
+                postnet_mel_vs_live_max=mel_err,
+                stream_vs_synthesize_max=stream_err, chunks=len(chunks),
+                time_to_first_audio_ms=stream_ms,
+                synthesize_ms=wall_ms(lambda i=ids: tts.synthesize(
+                    i, speaker=CLI_SPEAKER), torch, reps=3))
+            counts_by_text[name] = counts
+        if served["b"]["cap"] != EXPORT_MEL_CAPS[-1] or not counts_by_text[
+                "b"]["flash_attention"]:
+            raise AssertionError(f"(b) did not escalate to flash: {served}")
+        f.update(load_seconds=load_s, restored=restored, served=served,
+                 program_ops={k: {str(b): c for b, c in v.items()}
+                              for k, v in ops.items()},
+                 nvidia_smi=nvidia_smi())
+    return counts_by_text
+
+
 def bench_inputs(np):
     """bench.py's serving inputs: the same generator, draws and order."""
     with open(os.path.join(REPO, "benchmarks", "results",
@@ -3260,6 +3749,12 @@ def main() -> int:
         **kernel_fused_log_mel(torch, np, kernels, segments, compiled))
     reference_phase(torch, np, synth, inv)
     cli_counts, cli_errs, cli = cli_phase(torch, np, kernels)
+    stream_counts, stream_cli = streaming_phase(torch, np, kernels, synth,
+                                                short, cli)
+    bf16_counts, bf16_long_counts = bf16_serving_phase(
+        torch, np, kernels, synth, short, wav, texts, src_lens)
+    v3_counts = v3_phase(torch, np, kernels, short)
+    exported_counts = export_phase(torch, np, kernels, cli)
     pre_counts, pre_train_counts = preprocess_phase(torch, np, kernels, cli)
 
     train_counts, train_step_ms = train_phase(torch, np, kernels, synth, inv)
@@ -3274,6 +3769,22 @@ def main() -> int:
     vocoder_train_reference_phase(torch, np)
     voc_cli_counts = train_vocoder_cli_phase(
         torch, np, kernels, synth, short, wav, mel_lens, cli, gan_step_ms)
+
+    def later_launches(name):
+        """A kernel's launches on the streaming vocoder's path (its
+        windows and the CLI's --stream_chunk run), bf16 serving (cap 1000
+        / cap 4096), the HiFi-GAN V3 forward and one served call of the
+        exported artifacts per text."""
+        def get(counts):
+            return counts.get(name, 0)
+        return dict(
+            launches_streaming={"windows": get(stream_counts),
+                                "cli": get(stream_cli["cli"])},
+            launches_bf16_serving={"cap1000": get(bf16_counts),
+                                   "cap4096": get(bf16_long_counts)},
+            launches_hifigan_v3=get(v3_counts),
+            launches_exported={f"synthesize ({k})": get(c)
+                               for k, c in exported_counts.items()})
 
     # each kernel's launches on its path's run: flash attention on the
     # cap-4096 serving batch, upsampling and alignment attention over the
@@ -3303,7 +3814,8 @@ def main() -> int:
                                 for run, r in trainer_runs.items()},
             launches_cli_train_vocoder=voc_cli_counts[name],
             launches_cli_preprocess=pre_counts[name],
-            launches_cli_preprocess_train=pre_train_counts[name])
+            launches_cli_preprocess_train=pre_train_counts[name],
+            **later_launches(name))
     entries["flash_attention"]["fastspeech_width_path"] = (
         "FastSpeech widths (head dim 192), serving stage A at cap 4096")
     entries["alignment_attention"]["fastspeech_width_path"] = (
@@ -3335,6 +3847,7 @@ def main() -> int:
             launches_cli_preprocess=pre_counts[name],
             launches_cli_preprocess_train=pre_train_counts[name],
             launches_fastspeech_width=fs_serving[name] + fs_train[name],
+            **later_launches(name),
             path="none: the driven paths have head dims 128 and 192 and "
                  "n_fft 1024", **entry)
     entries["flash_attention"]["cli_long_path"] = (

@@ -6,10 +6,13 @@ This package imports ``torch`` and numpy only; it never imports JAX, flax or
 the JAX package.
 
 What is ported so far: text → waveform through the synthesize CLI
-(``python -m smart_nar_fast_tts_tpu_torch.cli.synthesize``), serving
-synthesis (token ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 →
-waveform), the acoustic model's fit loop and the vocoder's GAN training
-through the ``train``, ``evaluate`` and ``train_vocoder`` CLIs, through
+(``python -m smart_nar_fast_tts_tpu_torch.cli.synthesize``, with
+``--stream_chunk`` for the streaming vocoder), serving synthesis (token
+ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 or V3 → waveform, in f32
+or under the bf16 compute policy), exported serving artifacts
+(``cli.export``, ``serving.ExportedTTS``), the acoustic model's fit loop and
+the vocoder's GAN training through the ``train``, ``evaluate`` and
+``train_vocoder`` CLIs, corpus preprocessing (``cli.preprocess``), through
 CUDA kernels written by hand for ``sm_90a`` (``csrc/``), one
 for each Pallas kernel of the JAX package, with second kernels for the
 widths the first ones do not take:
@@ -22,13 +25,17 @@ widths the first ones do not take:
                  duration extraction
     kernels    — flash attention, banded Gaussian upsampling, alignment
                  attention and fused STFT → log-mel: CUDA kernels with their
-                 plain PyTorch versions, and the nvcc build
+                 plain PyTorch versions, and the nvcc build; the serving
+                 kernels' forwards are registered operators
+                 (``smart_tts::flash_attention``,
+                 ``smart_tts::gaussian_upsample_banded``)
     audio      — the mel filterbank, the STFT → log-mel front end, the
                  inverse STFT and Griffin-Lim
     models     — FFT blocks, encoders, variance adaptor, FastSpeech2Align,
                  losses
-    vocoder    — HiFi-GAN V1 generator, its discriminators and GAN losses,
-                 the loader of upstream torch checkpoints
+    vocoder    — HiFi-GAN V1 and V3 generators, the streaming vocoder, the
+                 discriminators and GAN losses, the loader of upstream
+                 torch checkpoints
     training   — the acoustic train and eval steps, the fit loop
                  (``Trainer``), validation, the vocoder GAN step, the port's
                  checkpoints, TensorBoard event files and figures written
@@ -37,9 +44,12 @@ widths the first ones do not take:
                  synthesis metadata items, wav IO
     weights    — the committed ``.npz`` checkpoints and JAX trees → PyTorch
                  state dicts
-    serving    — ``Synthesizer``: two-stage bucketed text → mel → waveform
-    cli        — ``synthesize``, ``train``, ``evaluate``, ``train_vocoder``:
-                 the JAX package's CLIs, on the card
+    serving    — ``Synthesizer``: two-stage bucketed text → mel → waveform;
+                 ``export_serving_artifacts`` and ``ExportedTTS``:
+                 ``torch.export`` programs with the weights stored once
+    cli        — ``synthesize``, ``export``, ``train``, ``evaluate``,
+                 ``train_vocoder``, ``preprocess``: the JAX package's CLIs,
+                 on the card
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

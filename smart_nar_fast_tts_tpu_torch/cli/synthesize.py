@@ -23,8 +23,10 @@ smallest frame capacity, reads the predicted total duration and runs again
 at the smallest capacity that holds it; past 2048 frames the decoder's
 self-attention runs the flash kernel.  Vocoding uses an upstream-layout
 HiFi-GAN torch checkpoint when ``--vocoder_ckpt`` is given, else
-Griffin-Lim from the predicted mel.  ``--stream_chunk`` (the streaming
-vocoder) is not ported yet.
+Griffin-Lim from the predicted mel.  ``--stream_chunk N`` vocodes in windows
+of N mel frames plus the receptive-field halo on each side
+(``vocoder.StreamingVocoder``: the same samples as one full forward) and
+prints the time to the first chunk.
 """
 
 from __future__ import annotations
@@ -83,14 +85,11 @@ def main(argv=None) -> list[Utterance]:
                              "layout); Griffin-Lim if omitted")
     parser.add_argument("--stream_chunk", type=int, default=0,
                         help="vocode in fixed windows of this many mel "
-                             "frames: not ported yet")
+                             "frames (+ the receptive-field halo) and "
+                             "report time-to-first-audio")
     args = parser.parse_args(argv)
     if args.stream_chunk and not args.vocoder_ckpt:
         parser.error("--stream_chunk requires --vocoder_ckpt")
-    if args.stream_chunk:
-        raise NotImplementedError(
-            "--stream_chunk is not yet ported (the streaming vocoder, "
-            "vocoder/streaming.py: ROADMAP §A.3)")
 
     cfg = load_config(args)
     device = resolve_device(args.device)
@@ -99,7 +98,7 @@ def main(argv=None) -> list[Utterance]:
         print("WARNING: no checkpoint found; synthesizing with random init")
     fwd = make_forward(model, cfg, args.pitch_control, args.energy_control,
                        args.duration_control)
-    vocode = _make_vocoder(cfg, args.vocoder_ckpt, device)
+    vocode = _make_vocoder(cfg, args.vocoder_ckpt, device, args.stream_chunk)
     os.makedirs(cfg.train.result_path, exist_ok=True)
 
     if args.text is not None:
@@ -263,10 +262,12 @@ def _write_outputs(cfg, name: str, title: str, out, j: int,
         wav=wav, batch=batch, j=j)
 
 
-def _make_vocoder(cfg, vocoder_ckpt, device: torch.device):
+def _make_vocoder(cfg, vocoder_ckpt, device: torch.device,
+                  stream_chunk: int = 0):
     """Return ``mel (T, n_mels) tensor -> wav`` (float32 numpy): HiFi-GAN
     on ``device`` when a checkpoint is given (loaded once; the waveform
-    times ``max_wav_value``), else the
+    times ``max_wav_value``; in windows of ``stream_chunk`` frames through
+    :class:`~..vocoder.StreamingVocoder` when it is not 0), else the
     Griffin-Lim debug fallback (40 iterations, starting phase from a
     generator seeded 0)."""
     from ..audio.stft import MelSpectrogramConfig, griffin_lim
@@ -279,6 +280,8 @@ def _make_vocoder(cfg, vocoder_ckpt, device: torch.device):
         from ..vocoder.convert import load_vocoder
         gen = load_vocoder(vocoder_ckpt).to(device)
         scale = cfg.preprocess.audio.max_wav_value
+        if stream_chunk:
+            return _streaming_vocoder(gen, stream_chunk, scale)
 
         @torch.inference_mode()
         def _hifigan(mel: torch.Tensor) -> np.ndarray:
@@ -299,6 +302,29 @@ def _make_vocoder(cfg, vocoder_ckpt, device: torch.device):
         return griffin_lim(mag[None], mcfg, n_iters=40,
                            generator=gen)[0].cpu().numpy()
     return _gl
+
+
+def _streaming_vocoder(gen, stream_chunk: int, scale: float):
+    """``mel -> wav`` through :class:`~..vocoder.StreamingVocoder`, scaled
+    as the full forward's path (so that both write the same file), printing
+    the time to the first chunk as the JAX CLI does."""
+    import time
+
+    from ..vocoder import StreamingVocoder
+    sv = StreamingVocoder(gen, chunk_frames=stream_chunk)
+
+    def _stream(mel: torch.Tensor) -> np.ndarray:
+        t0 = time.perf_counter()
+        chunks = []
+        for i, c in enumerate(sv.synthesize_chunks(mel.float().cpu().numpy())):
+            if i == 0:
+                dt = time.perf_counter() - t0
+                print(f"  first audio ({c.shape[0]} samples) after "
+                      f"{dt * 1e3:.1f} ms (window={sv.window_frames} "
+                      f"frames, halo={sv.halo})")
+            chunks.append(c)
+        return np.concatenate(chunks) * scale
+    return _stream
 
 
 if __name__ == "__main__":

@@ -5,10 +5,9 @@ flagship is the default ``ModelConfig()``), the same loaders of the
 reference's YAML triplet (``Config.from_yaml_triplet``, ``from_dicts``) and
 the same validation, with ``ValueError`` where the JAX package asserts.  The
 YAML files are read by :mod:`.yaml_subset`, not PyYAML, which the card's
-machine lacks.  Fields that choose TPU-only machinery (``compute_dtype``
-other than float32, ``sequence_parallel``, the mesh) are carried so that a
-configuration reads the same; the port's entry points refuse what they do
-not run.
+machine lacks.  Fields that choose machinery the port does not run yet
+(``sequence_parallel``, the mesh) are carried so that a configuration reads
+the same; the port's entry points refuse them.
 """
 
 from __future__ import annotations
@@ -416,10 +415,9 @@ class Config:
 def check_ported(model: ModelConfig) -> None:
     """Raise for the model fields that choose machinery the port does not
     run yet."""
-    if model.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {model.compute_dtype!r} is not ported yet "
-            "(ROADMAP §A.3); the port computes in float32")
+    if model.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError("compute_dtype must be float32 or bfloat16, got "
+                         f"{model.compute_dtype!r}")
     if model.sequence_parallel:
         raise NotImplementedError(
             "sequence_parallel needs a device mesh, which the port does not "

@@ -10,6 +10,11 @@ past 256, on the tensor cores too; counted in ``.launches`` as well), and
 the log-mel mixed-radix FFT kernel (an n_fft that is not a power of two
 from 32 to 4096) and DFT kernel (an odd n_fft past the mixed-radix
 kernel's 7,263), each counted there alone.
+
+The serving kernels' forwards are registered operators,
+``smart_tts::flash_attention`` and ``smart_tts::gaussian_upsample_banded``
+(importing this package registers them), so that ``torch.export`` keeps
+them in the exported serving programs of ``serving.py``.
 """
 
 from .alignment import (alignment_attention, alignment_reference,

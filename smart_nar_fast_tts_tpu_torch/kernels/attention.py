@@ -23,9 +23,14 @@ launches, ``.wide_launches`` the wide kernel's.
 :func:`attention_wide_reference` is the wide kernel's schedule in plain
 PyTorch.
 
-Its backward, as the TPU kernel's ``custom_vjp``, recomputes the f32 plain
-version and returns that function's vector-Jacobian product: the gradient of
-the f32 function, which differs from the bf16 forward by the same rounding.
+The forward is the registered operator ``smart_tts::flash_attention``:
+the plain version on the CPU, the kernel on CUDA, and a shape rule for
+tracing, so ``torch.export`` keeps the kernel in an exported program as one
+call (the serving artifacts of ``serving.py``) and the launch count still
+counts there.  Its backward, as the TPU kernel's ``custom_vjp``, recomputes
+the f32 plain version and returns that function's vector-Jacobian product:
+the gradient of the f32 function, which differs from the bf16 forward by
+the same rounding.
 """
 
 from __future__ import annotations
@@ -269,6 +274,7 @@ def _launch_wide(q, k, v, key_valid, scale):
 
 
 def _launch(q, k, v, key_valid):
+    _check_cuda(q, k, v, key_valid)
     D = q.shape[-1]
     width = padded_head_dim(D)
     if width != D:
@@ -279,20 +285,8 @@ def _launch(q, k, v, key_valid):
     return out if width == D else out[..., :D].contiguous()
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_valid: torch.Tensor) -> torch.Tensor:
-    """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors.
-
-    A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
-    the tensor-core kernel for D ≤ 256 (zero-padded to 64, 128, 192 or 256)
-    and the wide one past it (zero-padded to a multiple of 64): q, k, v
-    contiguous and 16-byte aligned,
-    all f32 or all bf16; key_valid (B, Lk) bool.  The output has q's dtype
-    and, on CUDA, a backward through :class:`_FlashAttention`."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check_cuda(q, k, v, key_valid):
+    """What the kernels take; raises otherwise."""
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     if k.shape != (B, H, Lk, D) or v.shape != k.shape:
@@ -313,7 +307,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: inputs must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
-    return _FlashAttention.apply(q, k, v, key_valid, _launch)
+
+
+@torch.library.custom_op("smart_tts::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       key_valid: torch.Tensor) -> torch.Tensor:
+    """The registered forward: :func:`attention_reference` on the CPU, the
+    kernel on CUDA (:func:`_launch`); raises on another device."""
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return attention_reference(q, k, v, key_valid)
+
+
+flash_attention_op.register_kernel("cuda")(_launch)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, key_valid):
+    return torch.empty_like(q)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    key_valid: torch.Tensor) -> torch.Tensor:
+    """Masked attention ``softmax(QKᵀ/√D)V`` over (B, H, L, D) tensors,
+    through ``smart_tts::flash_attention``.
+
+    A CPU tensor takes :func:`attention_reference`.  A CUDA tensor launches
+    the tensor-core kernel for D ≤ 256 (zero-padded to 64, 128, 192 or 256)
+    and the wide one past it (zero-padded to a multiple of 64): q, k, v
+    contiguous and 16-byte aligned, all f32 or all bf16; key_valid (B, Lk)
+    bool.  The output has q's dtype; where a gradient is wanted, the
+    backward of :class:`_FlashAttention`."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, key_valid, flash_attention_op)
+    return flash_attention_op(q, k, v, key_valid)
 
 
 flash_attention.launches = 0

@@ -13,8 +13,11 @@ applies the tile rule in plain PyTorch, so the rule is checked without a
 card.  One launch computes the centers, the total and ``mel_len`` besides
 ``out``.
 
-Its backward, as the TPU kernel's ``custom_vjp``, is the vector-Jacobian
-product of the dense version, recomputed, for each input that needs one.
+The forward is the registered operator ``smart_tts::gaussian_upsample_banded``
+(the dense version on the CPU, the kernel on CUDA, a shape rule for
+tracing), so ``torch.export`` keeps the kernel in an exported program.  Its
+backward, as the TPU kernel's ``custom_vjp``, is the vector-Jacobian product
+of the dense version, recomputed, for each input that needs one.
 """
 
 from __future__ import annotations
@@ -102,6 +105,16 @@ class _GaussianUpsample(torch.autograd.Function):
 
 def _launch(x, durations, phon_valid, max_len, sigma):
     B, L, D = x.shape
+    if durations.shape != (B, L) or phon_valid.shape != (B, L):
+        raise ValueError(
+            f"gaussian_upsample_banded: x {tuple(x.shape)}, durations "
+            f"{tuple(durations.shape)}, phon_valid {tuple(phon_valid.shape)}")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("gaussian_upsample_banded: x must be contiguous "
+                         f"float32, got {x.dtype}")
+    if durations.device != x.device or phon_valid.device != x.device:
+        raise ValueError("gaussian_upsample_banded: inputs on different "
+                         "devices")
     d = durations.float().contiguous()
     valid = phon_valid.float().contiguous()
     lib = _build.load("gaussian_upsample", _SIGNATURES)
@@ -125,37 +138,57 @@ def _launch(x, durations, phon_valid, max_len, sigma):
     return out, mel_len
 
 
+@torch.library.custom_op("smart_tts::gaussian_upsample_banded",
+                         mutates_args=())
+def gaussian_upsample_op(x: torch.Tensor, durations: torch.Tensor,
+                         max_len: int, phon_valid: torch.Tensor,
+                         sigma: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The registered forward: the dense version on the CPU, the kernel on
+    CUDA (:func:`_launch`); raises on another device."""
+    if x.device.type != "cpu":
+        raise ValueError(f"gaussian_upsample_banded: unsupported device "
+                         f"{x.device}")
+    out, mel_len, _ = gaussian_upsample(x, durations, max_len, phon_valid,
+                                        sigma=sigma)
+    return out, mel_len
+
+
+@gaussian_upsample_op.register_kernel("cuda")
+def _cuda_impl(x, durations, max_len, phon_valid, sigma):
+    """The operator's CUDA body: its arguments in the operator's order."""
+    return _launch(x, durations, phon_valid, max_len, sigma)
+
+
+@gaussian_upsample_op.register_fake
+def _(x, durations, max_len, phon_valid, sigma):
+    B, _, D = x.shape
+    return (x.new_empty((B, max_len, D)),
+            x.new_empty((B,), dtype=torch.int32))
+
+
+def _op_launch(x, durations, phon_valid, max_len, sigma):
+    """The operator, with the launcher's argument order."""
+    return gaussian_upsample_op(x, durations, max_len, phon_valid,
+                                float(sigma))
+
+
 def gaussian_upsample_banded(x: torch.Tensor, durations: torch.Tensor,
                              max_len: int, phon_valid: torch.Tensor,
                              sigma: float = 10.0
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gaussian upsampling of x (B, L, D) by durations (B, L) to max_len
     frames; phon_valid (B, L) is 1 on real phonemes.  Returns (out
-    (B, max_len, D), mel_len (B,) int32 = min(Σd, max_len)).
+    (B, max_len, D), mel_len (B,) int32 = min(Σd, max_len)), through
+    ``smart_tts::gaussian_upsample_banded``.
 
     A CPU tensor takes the dense plain version.  A CUDA tensor launches the
-    kernel (x contiguous float32), with a backward through
-    :class:`_GaussianUpsample`."""
-    if x.device.type == "cpu":
-        out, mel_len, _ = gaussian_upsample(x, durations, max_len, phon_valid,
-                                            sigma=sigma)
-        return out, mel_len
-    if x.device.type != "cuda":
-        raise ValueError(f"gaussian_upsample_banded: unsupported device "
-                         f"{x.device}")
-    B, L, D = x.shape
-    if durations.shape != (B, L) or phon_valid.shape != (B, L):
-        raise ValueError(
-            f"gaussian_upsample_banded: x {tuple(x.shape)}, durations "
-            f"{tuple(durations.shape)}, phon_valid {tuple(phon_valid.shape)}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("gaussian_upsample_banded: x must be contiguous "
-                         f"float32, got {x.dtype}")
-    if durations.device != x.device or phon_valid.device != x.device:
-        raise ValueError("gaussian_upsample_banded: inputs on different "
-                         "devices")
-    return _GaussianUpsample.apply(x, durations, phon_valid, max_len, sigma,
-                                   _launch)
+    kernel (x contiguous float32).  Where a gradient is wanted, the
+    backward of :class:`_GaussianUpsample`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, durations, phon_valid)):
+        return _GaussianUpsample.apply(x, durations, phon_valid, max_len,
+                                       sigma, _op_launch)
+    return _op_launch(x, durations, phon_valid, max_len, sigma)
 
 
 gaussian_upsample_banded.launches = 0

@@ -6,6 +6,9 @@ aligns text and mel: prenet-projected ground-truth mels, first frame zeroed,
 attend over the text encoder's output through cross-attention FFT blocks;
 its attention maps (or, on the alignment kernel's path, their reductions)
 give the duration targets and the guided-attention loss.
+
+Under ``compute_dtype="bfloat16"`` (DESIGN.md §4) the text encoder and the
+mel decoder compute in bf16 and return f32; the MelEncoder stays f32.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from torch import nn
 
 from ..config import VOCAB_SIZE, ModelConfig
-from ..ops.positional import sinusoid_table
+from ..ops.positional import sinusoid_rows, sinusoid_table
 from .layers import FFTBlock, Prenet
 
 
@@ -29,6 +32,9 @@ class _PositionalStack(nn.Module):
         super().__init__()
         t = cfg.transformer
         self.d_model = d_model
+        # the MelEncoder (alignment) stays f32 under the bf16 policy
+        self.dtype = torch.float32 if cross else getattr(torch,
+                                                          cfg.compute_dtype)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoid_table(cfg.max_seq_len + 1,
                                                   d_model)),
@@ -40,18 +46,22 @@ class _PositionalStack(nn.Module):
             for _ in range(n_layers))
 
     def positional(self, length: int) -> torch.Tensor:
+        """The first ``length`` PE rows; past the buffer, computed on its
+        device (an exported program then holds no table of its own)."""
         if length <= self.pe.shape[0]:
             return self.pe[:length]
-        return torch.from_numpy(sinusoid_table(length, self.d_model)).to(
-            self.pe.device)
+        return sinusoid_rows(length, self.d_model, self.pe.device)
 
     def run_stack(self, x: torch.Tensor, valid: torch.Tensor,
                   cap_valid: Optional[torch.Tensor],
                   generator: Optional[torch.Generator]) -> torch.Tensor:
-        x = x + self.positional(x.shape[1])[None]
+        """The stack in ``compute_dtype`` (PE added in it too); returns
+        f32, where the variance adaptor and mel_linear take it."""
+        x = x.to(self.dtype)
+        x = x + self.positional(x.shape[1]).to(self.dtype)[None]
         for layer in self.layer_stack:
             x, _ = layer(x, valid, cap_valid, generator=generator)
-        return x
+        return x.float()
 
 
 class TxtEncoder(_PositionalStack):

@@ -12,6 +12,12 @@ Two switches, kept apart: ``module.train()`` makes BatchNorm use batch
 statistics (and update its running ones); a ``torch.Generator`` passed as
 ``generator`` turns dropout on, its masks drawn from that generator.
 ``generator=None`` means no dropout.
+
+An FFT block computes in the dtype of its input (the bf16 policy of
+``ModelConfig.compute_dtype``): its f32 parameters are rounded to a bf16
+input's dtype for each call, as flax's ``dtype=bfloat16`` modules do; the
+attention scores, softmax and the products with the probabilities are f32
+sums of bf16 operands (JAX's ``preferred_element_type=float32``).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import alignment_attention, flash_attention, masked_softmax
@@ -33,8 +40,29 @@ FLASH_MIN_LEN = 2048
 
 
 def conv_last(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a Conv1d to feature-last (B, T, C) input."""
-    return conv(x.transpose(1, 2)).transpose(1, 2)
+    """Apply a Conv1d to feature-last (B, T, C) input, in x's dtype."""
+    x = x.transpose(1, 2)
+    if conv.weight.dtype != x.dtype:
+        y = conv._conv_forward(x, conv.weight.to(x.dtype),
+                               conv.bias.to(x.dtype))
+    else:
+        y = conv(x)
+    return y.transpose(1, 2)
+
+
+def linear_in(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``lin(x)`` in x's dtype."""
+    if lin.weight.dtype == x.dtype:
+        return lin(x)
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+def layer_norm_in(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``norm(x)`` in x's dtype."""
+    if norm.weight.dtype == x.dtype:
+        return norm(x)
+    return F.layer_norm(x, norm.normalized_shape, norm.weight.to(x.dtype),
+                        norm.bias.to(x.dtype), norm.eps)
 
 
 def zero_where_not(valid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -71,8 +99,10 @@ class MultiHeadAttention(nn.Module):
     - Self-attention (``kv`` None) with ``max(Lq, Lk) > FLASH_MIN_LEN``
       runs the flash kernel on CUDA and returns no maps.
     - Shorter self-attention, and cross-attention over ``kv``, run the f32
-      einsum branch and return the full (B, H, Lq, Lk) ``masked_softmax``
-      maps (self-attention's are discarded by the caller).
+      einsum branch (on a bf16 input: f32 products of the bf16 q, k, and
+      of the bf16-rounded probabilities with v) and return the full
+      (B, H, Lq, Lk) ``masked_softmax`` maps (self-attention's are
+      discarded by the caller).
     - Given ``lens = (src_lens, mel_lens)``, the cross-attention runs the
       alignment kernel and returns only ``{"argmax": (B, Lq) int32,
       "guided_num": (B,)}`` of head 0.
@@ -101,7 +131,7 @@ class MultiHeadAttention(nn.Module):
         Lk = src.shape[1]
 
         def heads(lin, inp, L):
-            return (lin(inp).view(B, L, self.n_head, self.d_k)
+            return (linear_in(lin, inp).view(B, L, self.n_head, self.d_k)
                     .transpose(1, 2).contiguous())
 
         q = heads(self.w_qs, x, Lq)
@@ -115,12 +145,17 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, key_valid, lens[0], lens[1], self.guided_sigma)
             attn = {"argmax": idx, "guided_num": gnum}
         else:
-            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / self.d_k ** 0.5
+            # bf16 × bf16 is exact in f32: these are the f32 sums of JAX's
+            # preferred_element_type=float32 products
+            scores = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+                      / self.d_k ** 0.5)
             attn = masked_softmax(scores, key_valid[:, None, None, :])
-            out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
+            out = torch.einsum("bhqk,bhkd->bhqd",
+                               attn.to(v.dtype).float(), v.float())
         out = out.transpose(1, 2).reshape(B, Lq, self.n_head * self.d_k)
-        out = dropout(self.fc(out), self.dropout_rate, generator)
-        return self.layer_norm(out + x), attn
+        out = dropout(linear_in(self.fc, out.to(x.dtype)), self.dropout_rate,
+                      generator)
+        return layer_norm_in(self.layer_norm, out + x), attn
 
 
 class ConvFFN(nn.Module):
@@ -146,7 +181,7 @@ class ConvFFN(nn.Module):
         if cap_valid is not None and self.kernel_sizes[1] > 1:
             h = zero_where_not(cap_valid, h)
         h = dropout(conv_last(self.w_2, h), self.dropout_rate, generator)
-        return self.layer_norm(h + x)
+        return layer_norm_in(self.layer_norm, h + x)
 
 
 class FFTBlock(nn.Module):

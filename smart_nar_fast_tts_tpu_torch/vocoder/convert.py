@@ -5,7 +5,8 @@ The loading contract of ``smart_nar_fast_tts_tpu/vocoder/convert.py``
 (reference ``utils/model.py:53-65``): a torch file holding
 ``{"generator": state_dict}`` (upstream's ``generator_*.pth.tar``) or the
 state dict itself, weight norm folded on the host, and a ``config.json``
-beside the checkpoint overriding the V1 defaults.  The port's generator
+beside the checkpoint overriding the V1 defaults (``"resblock": "2"``
+for V3, whose ResBlock2s hold one ``convs`` list).  The port's generator
 keeps upstream's module names with weight norm folded, so the folded state
 dict loads as it is.  The JAX package's ``.msgpack`` flax files and its
 Vocos and MelGAN families are not ported yet (ROADMAP §A.5, §A.7).

@@ -1,13 +1,18 @@
-"""HiFi-GAN V1 generator: log-mel (B, T, n_mels) → waveform (B, T·hop).
+"""HiFi-GAN generator: log-mel (B, T, n_mels) → waveform (B, T·hop).
 
 The plain-tail, dilated-transpose math of the JAX generator (its ``grouped``
 and ``polyphase`` forms are TPU lowerings of the same function with the same
-parameters) as stock ``nn.Conv1d`` / ``nn.ConvTranspose1d``: conv_pre 80→512
-k7; four transposed-conv stages (rates 8, 8, 2, 2, kernels 16, 16, 4, 4,
-padding (k-u)//2, channels halving); multi-receptive-field ResBlock1s
+parameters) as stock ``nn.Conv1d`` / ``nn.ConvTranspose1d``.  V1: conv_pre
+80→512 k7; four transposed-conv stages (rates 8, 8, 2, 2, kernels 16, 16, 4,
+4, padding (k-u)//2, channels halving); multi-receptive-field ResBlock1s
 k ∈ {3, 7, 11} with dilations (1, 3, 5); LeakyReLU 0.1 between stages and
-0.01 before conv_post (upstream's torch default); tanh.  Module names follow
-the upstream torch generator with weight norm folded.
+0.01 before conv_post (upstream's torch default); tanh.  V3 (``resblock
+"2"``) takes ResBlock2s, one conv per dilation.  Module names follow the
+upstream torch generator with weight norm folded.
+
+``compute_dtype="bfloat16"`` runs conv_pre, the upsampling stages and the
+resblocks in bf16 (the parameters stay f32 and are rounded per call); the
+last LeakyReLU, conv_post and tanh run in f32, as the JAX generator.
 """
 
 from __future__ import annotations
@@ -38,13 +43,22 @@ class HiFiGANConfig:
         (1, 3, 5), (1, 3, 5), (1, 3, 5))
     n_mels: int = 80
     sampling_rate: int = 22050
+    compute_dtype: str = "float32"      # or "bfloat16"
 
     def __post_init__(self):
         for name in ("upsample_rates", "upsample_kernel_sizes",
                      "resblock_kernel_sizes", "resblock_dilation_sizes"):
             object.__setattr__(self, name, _as_tuple(getattr(self, name)))
-        if str(self.resblock) != "1":
-            raise ValueError("only ResBlock1 (HiFi-GAN V1) is ported")
+        if str(self.resblock) not in ("1", "2"):
+            raise ValueError(f"resblock must be \"1\" or \"2\", got "
+                             f"{self.resblock!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError("compute_dtype must be float32 or bfloat16, "
+                             f"got {self.compute_dtype!r}")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
 
     @property
     def hop_length(self) -> int:
@@ -68,6 +82,7 @@ class HiFiGANConfig:
                 list(d) for d in self.resblock_dilation_sizes],
             "num_mels": self.n_mels,
             "sampling_rate": self.sampling_rate,
+            "compute_dtype": self.compute_dtype,
         }
 
     @classmethod
@@ -78,10 +93,25 @@ class HiFiGANConfig:
         keep = {k: d[k] for k in (
             "resblock", "upsample_rates", "upsample_kernel_sizes",
             "upsample_initial_channel", "resblock_kernel_sizes",
-            "resblock_dilation_sizes", "n_mels", "sampling_rate") if k in d}
+            "resblock_dilation_sizes", "n_mels", "sampling_rate",
+            "compute_dtype") if k in d}
         if "num_mels" in d:
             keep["n_mels"] = d["num_mels"]
         return cls(**keep)
+
+
+def conv_in(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (a Conv1d or ConvTranspose1d) computed in x's dtype: its
+    f32 parameters rounded to a bf16 x's dtype for the call."""
+    w, b = conv.weight, conv.bias
+    if w.dtype == x.dtype:
+        return conv(x)
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    if isinstance(conv, nn.ConvTranspose1d):
+        return F.conv_transpose1d(x, w, b, conv.stride, conv.padding,
+                                  conv.output_padding, conv.groups,
+                                  conv.dilation)
+    return conv._conv_forward(x, w, b)
 
 
 class ResBlock1(nn.Module):
@@ -101,8 +131,26 @@ class ResBlock1(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
-            h = c1(F.leaky_relu(x, LRELU_SLOPE))
-            x = x + c2(F.leaky_relu(h, LRELU_SLOPE))
+            h = conv_in(c1, F.leaky_relu(x, LRELU_SLOPE))
+            x = x + conv_in(c2, F.leaky_relu(h, LRELU_SLOPE))
+        return x
+
+
+class ResBlock2(nn.Module):
+    """HiFi-GAN V3's resblock: per dilation d, LReLU → conv(k, dil d) →
+    +x."""
+
+    def __init__(self, channels: int, kernel_size: int,
+                 dilations: Sequence[int]):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            nn.Conv1d(channels, channels, kernel_size, dilation=d,
+                      padding=(kernel_size - 1) * d // 2)
+            for d in dilations)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.convs:
+            x = x + conv_in(conv, F.leaky_relu(x, LRELU_SLOPE))
         return x
 
 
@@ -111,6 +159,7 @@ class HiFiGANGenerator(nn.Module):
         super().__init__()
         c = self.config = config
         ch = c.upsample_initial_channel
+        block = ResBlock1 if str(c.resblock) == "1" else ResBlock2
         self.conv_pre = nn.Conv1d(c.n_mels, ch, 7, padding=3)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -121,19 +170,25 @@ class HiFiGANGenerator(nn.Module):
                                                padding=(k - u) // 2))
             for rk, rd in zip(c.resblock_kernel_sizes,
                               c.resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(ch_out, rk, rd))
+                self.resblocks.append(block(ch_out, rk, rd))
             ch = ch_out
         self.conv_post = nn.Conv1d(ch, 1, 7, padding=3)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
         n_kernels = len(self.config.resblock_kernel_sizes)
-        x = self.conv_pre(mel.transpose(1, 2))
+        x = mel.transpose(1, 2)
+        if self.config.compute_dtype != "float32":
+            x = x.to(self.config.dtype)
+        x = conv_in(self.conv_pre, x)
         for i, up in enumerate(self.ups):
-            x = up(F.leaky_relu(x, LRELU_SLOPE))
+            x = conv_in(up, F.leaky_relu(x, LRELU_SLOPE))
             blocks = self.resblocks[i * n_kernels:(i + 1) * n_kernels]
             acc = blocks[0](x)
             for block in blocks[1:]:
                 acc = acc + block(x)
             x = acc / n_kernels
-        x = self.conv_post(F.leaky_relu(x, 0.01))
+        # the waveform's last linear map in the parameters' dtype (f32),
+        # whatever the compute dtype
+        x = self.conv_post(F.leaky_relu(x.to(self.conv_post.weight.dtype),
+                                        0.01))
         return torch.tanh(x)[:, 0]

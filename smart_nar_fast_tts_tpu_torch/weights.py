@@ -133,8 +133,11 @@ def hifigan_rules(config: HiFiGANConfig = HiFiGANConfig()
             tp = f"resblocks.{i * n_kernels + j}"
             fp = f"params/resblocks_{i}_{j}"
             for m in range(len(dils)):
-                _conv(r, f"{tp}.convs1.{m}", f"{fp}/convs1_{m}/conv")
-                _conv(r, f"{tp}.convs2.{m}", f"{fp}/convs2_{m}/conv")
+                if str(config.resblock) == "1":
+                    _conv(r, f"{tp}.convs1.{m}", f"{fp}/convs1_{m}/conv")
+                    _conv(r, f"{tp}.convs2.{m}", f"{fp}/convs2_{m}/conv")
+                else:
+                    _conv(r, f"{tp}.convs.{m}", f"{fp}/convs_{m}/conv")
     return r
 
 

@@ -260,3 +260,17 @@ def test_alignment_plain_versions_agree_wide(D):
     gap = (out - e_out).abs()
     assert gap.max() <= TF32X3_ATOL and gap.mean() <= TF32X3_MEAN
     torch.testing.assert_close(gnum, e_gnum, atol=GNUM_ATOL, rtol=GNUM_RTOL)
+
+
+def test_upsampling_cuda_body_takes_the_operators_order(monkeypatch):
+    """The upsampling operator's CUDA body hands its arguments to the
+    launcher in the launcher's order (the operator takes ``max_len``
+    before ``phon_valid``, the launcher after): the launcher stubbed, the
+    body called directly."""
+    from smart_nar_fast_tts_tpu_torch.kernels import upsample
+    seen = {}
+    monkeypatch.setattr(upsample, "_launch",
+                        lambda *args: seen.setdefault("upsample", args))
+    x, d, valid = torch.zeros(1, 3, 4), torch.ones(1, 3), torch.ones(1, 3)
+    upsample._cuda_impl(x, d, 7, valid, 10.0)
+    assert seen["upsample"] == (x, d, valid, 7, 10.0)

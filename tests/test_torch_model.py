@@ -146,3 +146,159 @@ def test_flagship_attention_logits_outrun_bf16():
     assert len(logits) == 8                   # 4 encoder + 4 decoder layers
     assert max(logits) > 1e3
     assert max(shifts) > 1.0
+
+
+# --- the bf16 compute policy (ModelConfig.compute_dtype, DESIGN.md §4) ----
+
+BF16_REL = 2e-2      # the bf16 attention tolerance (ROADMAP "What counts as
+                     # done"), of the reference's largest magnitude
+BF16_MEL_ATOL = 0.25  # JAX's own bf16-against-f32 bar
+                     # (tests/test_properties.py::TestBF16ComputePath)
+
+
+@pytest.fixture(scope="module")
+def bf16_pair():
+    """The JAX model of tests/test_serving_export.py's ``_tiny_model`` in
+    bf16 with seeded weights as an init gives them (kernels and embeddings
+    drawn, biases and means 0, norm scales and variances 1; durations
+    biased to ~11 frames a phoneme), and the port's with the same
+    weights."""
+    import dataclasses
+
+    from smart_nar_fast_tts_tpu.models import FastSpeech2Align as JaxModel
+    from test_serving_export import _tiny_model
+    jax32, pre = _tiny_model()
+    cfg16 = dataclasses.replace(jax32.cfg, compute_dtype="bfloat16")
+    jax_model, shapes = init_acoustic(cfg16, pre)
+
+    def as_init(path, a):
+        name = str(path[-1].key)
+        if name in ("bias", "mean"):
+            return np.zeros_like(a)
+        return np.ones_like(a) if name in ("scale", "var") else a
+    variables = jax.tree_util.tree_map_with_path(
+        as_init, random_variables(shapes, seed=40))
+    variables["params"]["variance_adaptor"]["duration_predictor"][
+        "linear_layer"]["bias"] += np.log(12.0)
+    t = jax32.cfg.transformer
+    cfg = tcfg.ModelConfig(
+        transformer=tcfg.TransformerConfig(
+            encoder_layer=t.encoder_layer, encoder_head=t.encoder_head,
+            encoder_hidden=t.encoder_hidden, decoder_layer=t.decoder_layer,
+            decoder_head=t.decoder_head, decoder_hidden=t.decoder_hidden,
+            conv_filter_size=t.conv_filter_size),
+        variance_predictor=tcfg.VariancePredictorConfig(filter_size=16),
+        variance_embedding=tcfg.VarianceEmbeddingConfig(n_bins=16),
+        max_seq_len=128, compute_dtype="bfloat16")
+    port = FastSpeech2Align(cfg, tcfg.PreprocessConfig(
+        stats=tcfg.FeatureStats(**dataclasses.asdict(pre.stats))))
+    port.load_state_dict(jax_to_torch_acoustic(flatten(variables), cfg))
+    return jax_model, variables, port.eval()
+
+
+def _assert_rel(got, expect, what):
+    err = np.abs(got - expect).max()
+    assert err <= BF16_REL * np.abs(expect).max(), (what, err)
+
+
+def test_bf16_text_encoder(bf16_pair):
+    from smart_nar_fast_tts_tpu.models.encoders import TxtEncoder
+    jax_model, variables, port = bf16_pair
+    rng = np.random.RandomState(41)
+    texts = rng.randint(1, tcfg.VOCAB_SIZE, size=(2, 12)).astype(np.int32)
+    valid = np.arange(12)[None, :] < np.array([12, 7])[:, None]
+    expect = np.asarray(jax.jit(TxtEncoder(jax_model.cfg).apply)(
+        {"params": variables["params"]["txt_encoder"]}, jnp.asarray(texts),
+        jnp.asarray(valid), src_cap=jnp.ones(12, bool)))
+    with torch.no_grad():
+        got = port.txt_encoder(torch.from_numpy(texts).long(),
+                               torch.from_numpy(valid),
+                               torch.ones(12, dtype=torch.bool))
+    assert got.dtype == torch.float32 and expect.dtype == np.float32
+    _assert_rel(got.numpy(), expect, "txt_encoder")
+
+
+@pytest.mark.parametrize("T", [64, 2100])
+def test_bf16_mel_decoder(bf16_pair, T):
+    """At 2100 frames the decoder's self-attention takes the flash wrapper
+    (its plain version here) on bf16 q, k, v; JAX on the CPU takes the
+    einsum branch."""
+    from smart_nar_fast_tts_tpu.models.encoders import MelDecoder
+    jax_model, variables, port = bf16_pair
+    rng = np.random.RandomState(42)
+    x = rng.randn(2, T, 16).astype(np.float32)
+    valid = np.arange(T)[None, :] < np.array([T, T - 9])[:, None]
+    expect = np.asarray(jax.jit(MelDecoder(jax_model.cfg).apply)(
+        {"params": variables["params"]["mel_decoder"]}, jnp.asarray(x),
+        jnp.asarray(valid), mel_cap=jnp.ones(T, bool)))
+    with torch.no_grad():
+        got = port.mel_decoder(torch.from_numpy(x), torch.from_numpy(valid),
+                               torch.ones(T, dtype=torch.bool))
+    assert got.dtype == torch.float32
+    _assert_rel(got.numpy(), expect, "mel_decoder")
+
+
+def test_bf16_forward(bf16_pair):
+    jax_model, variables, port = bf16_pair
+    rng = np.random.RandomState(43)
+    texts = rng.randint(1, tcfg.VOCAB_SIZE, size=(2, 16)).astype(np.int32)
+    src_lens = np.array([16, 9], np.int32)
+    # op by op: jitted on the CPU, XLA keeps bf16 intermediates of a fusion
+    # in f32 (its excess precision), a run that differs from the flax
+    # modules' own rounding, and from this one, by up to 4.1 on these
+    # seeded weights; op by op JAX and the port agree within 2e-6
+    expect = jax_model.apply(variables, jnp.asarray(texts),
+                             jnp.asarray(src_lens), max_mel_len=256)
+    with torch.no_grad():
+        got = port(torch.from_numpy(texts).long(),
+                   torch.from_numpy(src_lens).long(), max_mel_len=256)
+    assert got.postnet_mel.dtype == torch.float32
+    assert np.abs(got.duration_rounded.numpy()
+                  - np.asarray(expect.duration_rounded)).max() <= 1
+    for j in range(2):
+        n = min(int(got.mel_lens[j]), int(expect.mel_lens[j]))
+        assert n > 0
+        np.testing.assert_allclose(
+            got.postnet_mel[j, :n].numpy(),
+            np.asarray(expect.postnet_mel)[j, :n], atol=BF16_MEL_ATOL,
+            rtol=0)
+
+
+@pytest.mark.parametrize("extraction", [("soft", "mean"),
+                                        ("intended", "first")])
+def test_bf16_train_step(extraction):
+    """The trainer inherits the bf16 policy: two train steps of a small
+    bf16 model (both duration extractions, the second through the
+    alignment wrapper) give finite losses, and the parameters and their
+    gradients stay f32."""
+    from smart_nar_fast_tts_tpu_torch.data.batch import Batch
+    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss
+    from smart_nar_fast_tts_tpu_torch.training import create_train_state
+    from smart_nar_fast_tts_tpu_torch.training.step import make_train_step
+    t = dict(encoder_layer=1, encoder_head=2, encoder_hidden=32,
+             decoder_layer=1, decoder_head=2, decoder_hidden=32,
+             conv_filter_size=64)
+    cfg = tcfg.ModelConfig(
+        transformer=tcfg.TransformerConfig(**t), compute_dtype="bfloat16",
+        duration_extraction=extraction[0],
+        duration_head_reduce=extraction[1])
+    pre = tcfg.PreprocessConfig(stats=tcfg.FeatureStats(
+        pitch_min=-2.0, pitch_max=8.0, pitch_mean=0.0, pitch_std=1.0,
+        energy_min=-2.0, energy_max=8.0, energy_mean=0.0, energy_std=1.0))
+    torch.manual_seed(0)
+    state = create_train_state(FastSpeech2Align(cfg, pre),
+                               tcfg.OptimizerConfig(warm_up_step=5), "cpu")
+    rng = np.random.default_rng(44)
+    B, L, T = 2, 8, 32
+    batch = Batch(
+        torch.from_numpy(rng.integers(2, 300, (B, L))), torch.full((B,), L),
+        torch.from_numpy(rng.normal(size=(B, T, 80)).astype(np.float32)),
+        torch.full((B,), T),
+        torch.from_numpy(rng.uniform(-1, 1, (B, T)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(0, 2, (B, T)).astype(np.float32)))
+    step = make_train_step(FastSpeech2Loss(pre))
+    for _ in range(2):
+        losses = step(state, batch)
+    assert all(np.isfinite(float(v)) for v in losses)
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in state.model.parameters() if p.grad is not None)

@@ -42,9 +42,11 @@ from smart_nar_fast_tts_tpu.training.schedule import make_optimizer
 from smart_nar_fast_tts_tpu.training.state import (
     create_train_state as jax_train_state)
 from smart_nar_fast_tts_tpu_torch.audio import stft as port_stft
+from smart_nar_fast_tts_tpu_torch.cli import export as port_export
 from smart_nar_fast_tts_tpu_torch.cli import synthesize as port_cli
 from smart_nar_fast_tts_tpu_torch.config import Config
 from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Align
+from smart_nar_fast_tts_tpu_torch.serving import ExportedTTS
 from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
                                                    create_train_state)
 from smart_nar_fast_tts_tpu_torch.training.logging import (colorize,
@@ -323,13 +325,83 @@ def test_cli_without_yaml_matplotlib_or_jax(workspace):
     assert "ckpt step 5" in res.stdout
 
 
-def test_cli_refuses_what_it_cannot_run(workspace):
+def test_cli_refuses_what_it_cannot_run(workspace, capsys):
     _, paths, _ = workspace
     argv = ["-p", paths[0], "-m", paths[1], "-t", paths[2], "--text", "x"]
-    with pytest.raises(NotImplementedError, match="stream_chunk"):
-        port_cli.main(argv + ["--vocoder_ckpt", "g.pth", "--stream_chunk",
-                              "32", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        port_cli.main(argv + ["--stream_chunk", "32", "--device", "cpu"])
+    assert "--stream_chunk requires --vocoder_ckpt" in capsys.readouterr().err
     if torch.cuda.is_available():
         pytest.skip("the no-card case needs a machine without a card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_cli.main(argv)
+
+
+def test_stream_chunk_writes_the_same_wav(workspace):
+    """``--stream_chunk 16`` vocodes in windows of 16 + 2·halo frames
+    (``StreamingVocoder``): the same samples as the whole-mel forward
+    within 1e-6 of full scale, and the same int16 file but at a rounding
+    boundary (one step)."""
+    root, paths, runs = workspace
+    whole = runs["text"][1][0]
+    wav_whole = _read_wav(whole.base + ".wav")
+    argv = ["-p", paths[0], "-m", paths[1], "-t", paths[2],
+            "--vocoder_ckpt", str(root / "voc" / "generator.pth.tar"),
+            "--restore_step", str(STEP), "--text", TEXT, "--speaker_id", "2",
+            "--device", "cpu", "--stream_chunk", "16"]
+    streamed = port_cli.main(argv)[0]
+    assert streamed.base == whole.base
+    assert streamed.wav.shape == whole.wav.shape
+    np.testing.assert_allclose(streamed.wav / 32768.0, whole.wav / 32768.0,
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(_read_wav(streamed.base + ".wav"), wav_whole,
+                               atol=1.0 / 32767, rtol=0)
+
+
+def test_cli_export_serves_the_checkpoint(workspace, tmp_path):
+    """``cli.export`` of the workspace's port checkpoint and HiFi-GAN file
+    (one text bucket, capacities 128 and 256, ``--device cpu``);
+    ``ExportedTTS`` serves the ``--text`` run's ids and speaker: its
+    acoustic outputs equal the checkpoint's live model on the same padded
+    text at the same capacity, bit for bit; the waveform is finite and
+    ``mel_len`` hops long."""
+    import argparse
+
+    from smart_nar_fast_tts_tpu_torch.cli._args import load_config
+    root, paths, runs = workspace
+    utt = runs["text"][1][0]
+    with open(paths[2]) as f:
+        train = yaml.safe_load(f)
+    train["tpu"] = {"text_buckets": [40], "serving_mel_caps": [128],
+                    "mel_buckets": [256]}
+    train_yaml = tmp_path / "train.yaml"
+    train_yaml.write_text(yaml.safe_dump(train))
+    out = str(tmp_path / "artifact")
+    manifest = port_export.main(
+        ["-p", paths[0], "-m", paths[1], "-t", str(train_yaml),
+         "--restore_step", str(STEP), "--out_dir", out, "--vocoder_ckpt",
+         str(root / "voc" / "generator.pth.tar"), "--stream_chunk", "16",
+         "--device", "cpu"])
+    assert manifest["device"] == "cpu" and manifest["multi_speaker"]
+    assert [e["mel_cap"] for e in manifest["acoustic"]] == [128, 256]
+    assert [e["mel_bucket"] for e in manifest["vocoder"]] == [128, 256]
+    assert manifest["provenance"]["ckpt_step"] == STEP
+    tts = ExportedTTS(out, device="cpu")
+    got = tts.acoustic(utt.ids, speaker=utt.speaker)
+    cfg = load_config(argparse.Namespace(
+        preprocess_config=paths[0], model_config=paths[1],
+        train_config=str(train_yaml)))
+    model, restored = port_cli.load_model(cfg, STEP, torch.device("cpu"))
+    assert restored == STEP
+    texts = np.zeros((1, 40), np.int64)
+    texts[0, :len(utt.ids)] = utt.ids
+    with torch.no_grad():
+        live = model(torch.from_numpy(texts), torch.tensor([len(utt.ids)]),
+                     max_mel_len=got["postnet_mel"].shape[1],
+                     speakers=torch.tensor([utt.speaker]))
+    for key in ("postnet_mel", "mel_lens", "duration_rounded"):
+        np.testing.assert_array_equal(got[key], getattr(live, key).numpy(),
+                                      key)
+    wav = tts.synthesize(utt.ids, speaker=utt.speaker)
+    assert wav.shape == (int(got["mel_lens"][0]) * 256,)
+    assert np.isfinite(wav).all()
