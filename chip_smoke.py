@@ -90,7 +90,8 @@ any failure raises (exit code 1):
             (in (b) with the card's flash outputs replayed, each held to
             ``attention_bf16_reference`` of its own inputs); then the five
             CLIs (synthesize, train, evaluate, train_vocoder, preprocess)
-            imported where yaml, matplotlib, tensorboard and JAX cannot be
+            and the vocoder package imported where yaml, matplotlib,
+            tensorboard, msgpack and JAX cannot be
   preprocess cli  the preprocessing CLI from a raw corpus to training: the
             first 240 utterances (8 speakers, seed 0) of
             ``benchmarks/corpus.py``'s scaled corpus with ground-truth
@@ -186,6 +187,28 @@ any failure raises (exit code 1):
             calls in the programs it ran; durations exact and postnet mel
             within 1e-3 of the live model at the same capacity; ``stream``
             within 1e-4 of ``synthesize``
+  vocos serving / melgan serving  ``Synthesizer.from_committed(family=
+            ...)``: the committed flagship with the committed Vocos
+            (``vocos_params.npz``) or MelGAN (``melgan_params.npz``) on
+            bench.py's inputs (cap 1000), launch counts as in e2e
+            (upsampling 1); stage A / B and RTF; item 0's waveform on the
+            card within 1e-4 of the port's CPU run on the same mel; for
+            Vocos a bf16 stage B on the f32 mel below 0.1 mean relative
+            error, timed in turns with f32
+  vocoder families streaming  ``StreamingVocoder`` (chunk 64) on both
+            over item 0: chunks within 1e-4 of the full forward, time to
+            first audio by CUDA events
+  train_vocoder cli vocos / melgan  ``cli.train_vocoder --generator
+            <family>`` at full width from the seed, 4 GAN steps of B 16 ×
+            8192 samples (8 log-mel launches, no other kernel); its files;
+            ``load_vocoder`` of step 4 vocodes item 0; ``cli.synthesize
+            --vocoder_ckpt`` on it writes a wav
+  export vocos  ``export_serving_artifacts`` of the cli phase's
+            checkpoint with the committed Vocos (text bucket 64, cap 1000,
+            under the git-ignored ``build/export_vocos_smoke/``, deleted
+            after); ``ExportedTTS.synthesize`` of sentence (a) within 1e-3
+            of the live ``Synthesizer`` with Vocos, its launches held to
+            the programs' operator calls; ``stream`` within 1e-4 of it
 
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -2451,12 +2474,13 @@ def cli_phase(torch, np, kernels):
         f.update(postnet_mel_max_err=report, mel_tol=MEL_TOL)
     with Phase("cli imports") as f:
         blocked = ("yaml", "matplotlib", "tensorboard", "jax", "flax",
-                   "smart_nar_fast_tts_tpu")
+                   "msgpack", "smart_nar_fast_tts_tpu")
         clis = ("synthesize", "train", "evaluate", "train_vocoder",
                 "preprocess")
         code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
                 f"None\nfor c in {clis!r}:\n    __import__("
-                "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n")
+                "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n"
+                "import smart_nar_fast_tts_tpu_torch.vocoder\n")
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
@@ -3675,6 +3699,324 @@ def export_phase(torch, np, kernels, cli):
     return counts_by_text
 
 
+# the other vocoder families (vocoder/vocos.py, vocoder/melgan.py): the
+# committed Vocos (13.46 M) and MelGAN (4.26 M) behind the committed
+# flagship on bench.py's inputs; their streaming, GAN CLI runs and a Vocos
+# export of the cli phase's checkpoint at one text bucket and cap 1000
+FAMILIES = ("vocos", "melgan")
+FAMILY_TOL = 1e-4       # item 0's waveform on the card against the CPU, f32
+                        # both, no TF32
+VOCOS_BF16_REL = 0.1    # bf16 Vocos against f32 on one mel, mean relative
+                        # error (tests/test_vocos.py::test_bf16_close_to_f32)
+VOCOS_EXPORT_DIR = os.path.join(REPO, "build", "export_vocos_smoke")
+VOCOS_EXPORT_TOL = 1e-3   # the exported programs against the live models
+
+
+def families_serving_phase(torch, np, kernels, texts, src_lens):
+    """``Synthesizer.from_committed(family=...)`` for Vocos and MelGAN on
+    bench.py's inputs (cap 1000), the launch counts set to 0 just before
+    and read just after; stage A / B and RTF; item 0's waveform on the card
+    against the port's CPU run on the same mel; for Vocos a bf16 stage B
+    against the f32 one, timed in turns.  Returns ({family: counts},
+    {family: (synthesizer, mel_lens, mel of the bucket)})."""
+    import dataclasses
+
+    from smart_nar_fast_tts_tpu_torch.serving import (Synthesizer, bucket,
+                                                      committed_vocoder)
+    from smart_nar_fast_tts_tpu_torch.vocoder import VocosGenerator
+    counts_by, served = {}, {}
+    tx, sl = torch.from_numpy(texts), torch.from_numpy(src_lens)
+    for family in FAMILIES:
+        with Phase(f"{family} serving") as f:
+            t0 = time.perf_counter()
+            synth = Synthesizer.from_committed(family=family)
+            load_s = time.perf_counter() - t0
+            kernels.reset_launches()
+            wav, mel_lens = synth.synthesize(texts, src_lens)
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+            if main_counts(counts) != PER_SERVING_BATCH or any(
+                    v for k, v in counts.items()
+                    if k not in PER_SERVING_BATCH):
+                raise AssertionError(f"{family} serving launches {counts}")
+            cap = bucket(int(mel_lens.max()))
+            hop = synth.hop_length
+            if wav.shape != (B, cap * hop) or not torch.isfinite(wav).all():
+                raise AssertionError(f"{family} wav {tuple(wav.shape)}, or "
+                                     "non-finite")
+            out = synth.stage_a(tx, sl)
+            mel = out.postnet_mel[:, :cap].contiguous()
+            stage_a_ms = wall_ms(lambda: synth.stage_a(tx, sl), torch)
+            stage_b_ms = wall_ms(lambda: synth.stage_b(mel), torch)
+            seconds = synth.audio_seconds(mel_lens)
+            cpu = committed_vocoder(family=family).eval()
+            with torch.inference_mode():
+                expect = cpu(mel[:1].cpu())
+                got = synth.stage_b(mel[:1])
+            err = check_close(f"{family} item 0, card against CPU",
+                              got.cpu(), expect, FAMILY_TOL, torch)
+            f.update(launches=counts, load_seconds=load_s, bucket=cap,
+                     hop=hop, mel_frames=int(mel_lens.sum()),
+                     audio_seconds=seconds, stage_a_ms=stage_a_ms,
+                     stage_b_ms=stage_b_ms,
+                     rtf=(stage_a_ms + stage_b_ms) / 1e3 / seconds,
+                     parameters=sum(p.numel()
+                                    for p in synth.vocoder.parameters()),
+                     card_vs_cpu_max_abs_err=err,
+                     max_abs_wav=float(wav.abs().max()))
+            if family == "vocos":
+                v16 = VocosGenerator(dataclasses.replace(
+                    synth.vocoder.config, compute_dtype="bfloat16"))
+                v16.load_state_dict(synth.vocoder.state_dict())
+                v16 = v16.to(synth.device).eval()
+                with torch.inference_mode():
+                    w32, w16 = synth.stage_b(mel), v16(mel)
+                rel = float((w16 - w32).abs().mean() / w32.abs().mean())
+                rel_l2 = float((w16 - w32).norm() / w32.norm())
+                if w16.dtype != torch.float32 or not rel < VOCOS_BF16_REL:
+                    raise AssertionError(f"bf16 Vocos: mean relative {rel}")
+                times = {}
+                with torch.inference_mode():
+                    for name, gen in (("f32", synth.vocoder), ("bf16", v16),
+                                      ("bf16 again", v16),
+                                      ("f32 again", synth.vocoder)):
+                        times[name] = wall_ms(lambda g=gen: g(mel), torch)
+                f.update(bf16_vs_f32_mean_rel=rel, bf16_vs_f32_rel_l2=rel_l2,
+                         stage_b_ms_in_turns=times)
+            f.update(nvidia_smi=nvidia_smi())
+        counts_by[family] = counts
+        served[family] = (synth, mel_lens, mel)
+    return counts_by, served
+
+
+def families_streaming_phase(torch, np, kernels, served):
+    """``StreamingVocoder`` (chunk 64) on the committed Vocos and MelGAN
+    over item 0 of their serving mel: the chunks against the full forward,
+    the time to first audio by CUDA events, the launch counts."""
+    from smart_nar_fast_tts_tpu_torch.vocoder import StreamingVocoder
+    out = {}
+    with Phase("vocoder families streaming") as f:
+        for family in FAMILIES:
+            synth, mel_lens, bucket_mel = served[family]
+            n = int(mel_lens[0])
+            mel = bucket_mel[0, :n].float().cpu().numpy()
+            sv = StreamingVocoder(synth.vocoder, chunk_frames=STREAM_CHUNK)
+            kernels.reset_launches()
+            chunks = list(sv.synthesize_chunks(mel))
+            torch.cuda.synchronize()
+            counts = launch_counts(kernels)
+            if any(counts.values()):
+                raise AssertionError(f"{family} streaming launches {counts}")
+            with torch.inference_mode():
+                full = synth.vocoder(torch.from_numpy(mel[None]).to(
+                    synth.device))[0].cpu().numpy()
+            got = np.concatenate(chunks)
+            err = float(np.abs(got - full).max()) \
+                if got.shape == full.shape else float("inf")
+            if not err <= STREAM_TOL:
+                raise AssertionError(f"{family} streaming: chunks {err} "
+                                     "from the full forward")
+            ttfa = [first_chunk_ms(torch,
+                                   lambda: sv.synthesize_chunks(mel))[0]
+                    for _ in range(5)]
+            f[family] = dict(launches=counts, frames=n, halo_frames=sv.halo,
+                             window_frames=sv.window_frames,
+                             chunks=len(chunks), max_abs_err=err,
+                             time_to_first_audio_ms=statistics.median(ttfa),
+                             time_to_first_audio_ms_runs=ttfa)
+            out[family] = counts
+    return out
+
+
+def train_vocoder_families_phase(torch, np, kernels, served, cli, segments):
+    """``cli.train_vocoder --generator vocos|melgan`` at full width from
+    the seed on the train_vocoder cli phase's wavs: 4 GAN steps of B 16 ×
+    8192 samples each, with the launch counts set to 0 just before and
+    read just after (``fused_log_mel`` 2 a step); the files written;
+    ``load_vocoder`` of step 4 vocodes item 0 of the family's serving mel;
+    ``cli.synthesize --vocoder_ckpt`` on it writes a wav.  Then 3 more GAN
+    steps of the CLI's state on the GAN phase's segments, each timed by
+    CUDA events and a synchronise (the CLI's own rate includes its saves
+    and logs)."""
+    import contextlib
+    import io
+    import re
+
+    from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.cli import train_vocoder
+    from smart_nar_fast_tts_tpu_torch.training import make_vocoder_train_step
+    from smart_nar_fast_tts_tpu_torch.vocoder import load_vocoder
+    out = {}
+    for family in FAMILIES:
+        with Phase(f"train_vocoder cli {family}") as f:
+            out_dir = os.path.join(VOC_CLI_DIR, f"out_{family}")
+            argv = ["--wav_dir", os.path.join(VOC_CLI_DIR, "wavs"),
+                    "--generator", family, "--steps", str(VOC_CLI_STEPS),
+                    "--batch_size", str(VOC_B), "--segment_size",
+                    str(VOC_SEG), "--save_every", "2", "--log_every", "2",
+                    "--out_dir", out_dir]
+            printed = io.StringIO()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                res = train_vocoder.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts(kernels)
+            want = {k: 0 for k in counts}
+            want["fused_log_mel"] = (PER_GAN_STEP["fused_log_mel"]
+                                     * VOC_CLI_STEPS)
+            if counts != want:
+                raise AssertionError(f"train_vocoder {family} launches "
+                                     f"{counts}, expected {want}")
+            step = make_vocoder_train_step(MelSpectrogramConfig())
+            step_ms = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(res["state"], segments)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+            files = sorted(os.listdir(out_dir))
+            if files != ["config.json", "generator_2.pth.tar",
+                         "generator_4.pth.tar", "meta.json"]:
+                raise AssertionError(f"train_vocoder {family} wrote {files}")
+            with open(os.path.join(out_dir, "config.json")) as fh:
+                config = json.load(fh)
+            if config.get("family") != family:
+                raise AssertionError(f"config.json {config}")
+            ckpt = os.path.join(out_dir, "generator_4.pth.tar")
+            synth, mel_lens, mel = served[family]
+            gen = load_vocoder(ckpt).to(synth.device)
+            n = int(mel_lens[0])
+            with torch.inference_mode():
+                voiced = gen(mel[:1, :n].float())
+            if voiced.shape != (1, n * gen.config.hop_length) or not \
+                    torch.isfinite(voiced).all():
+                raise AssertionError(f"the trained {family} generator's "
+                                     "waveform is not finite or has the "
+                                     "wrong shape")
+            paths = cli["configs"]
+            utts = synthesize.main(["-p", paths[0], "-m", paths[1], "-t",
+                                    paths[2], "--restore_step",
+                                    str(cli["step"]), "--text", CLI_TEXT,
+                                    "--vocoder_ckpt", ckpt])
+            if not (os.path.getsize(utts[0].base + ".wav") > 44
+                    and np.isfinite(utts[0].wav).all()):
+                raise AssertionError("synthesize --vocoder_ckpt wrote no "
+                                     "audio")
+            rates = [float(r) for r in re.findall(
+                r"\(([\d.]+) steps/s\)", printed.getvalue())]
+            f.update(launches=counts, wall_seconds=wall,
+                     gan_steps_per_second_cli=VOC_CLI_STEPS / wall,
+                     printed_steps_per_second=rates, gan_step_ms=step_ms,
+                     gan_step_ms_median=statistics.median(step_ms),
+                     printed=printed.getvalue().splitlines(),
+                     parameters=sum(p.numel() for p in gen.parameters()),
+                     waveform_samples=int(voiced.shape[1]),
+                     synthesize_wav=os.path.relpath(utts[0].base + ".wav",
+                                                    REPO),
+                     nvidia_smi=nvidia_smi())
+        out[family] = counts
+    return out
+
+
+def export_vocos_phase(torch, np, kernels, served, cli):
+    """``export_serving_artifacts`` of the cli phase's checkpoint with the
+    committed Vocos at text bucket 64 and cap 1000; ``ExportedTTS`` on the
+    card serves sentence (a), the launch counts set to 0 just before and
+    read just after and held to the registered operators' calls in the
+    programs it ran; within 1e-3 of the live ``Synthesizer`` with Vocos
+    (stage A at cap 1000, stage B on the zero-padded bucket mel)."""
+    import argparse
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.cli._args import load_config
+    from smart_nar_fast_tts_tpu_torch.serving import (
+        ExportedTTS, Synthesizer, export_serving_artifacts)
+    from smart_nar_fast_tts_tpu_torch.text import text_to_sequence
+    from smart_nar_fast_tts_tpu_torch.text.g2p import G2P
+    with Phase("export vocos") as f:
+        shutil.rmtree(VOCOS_EXPORT_DIR, ignore_errors=True)
+        paths = cli["configs"]
+        cfg = load_config(argparse.Namespace(
+            preprocess_config=paths[0], model_config=paths[1],
+            train_config=paths[2]))
+        device = served["vocos"][0].device
+        model, _ = synthesize.load_model(cfg, cli["step"], device)
+        vocos = served["vocos"][0].vocoder
+        t0 = time.perf_counter()
+        manifest = export_serving_artifacts(
+            VOCOS_EXPORT_DIR, model, text_buckets=[64], mel_buckets=[T_CAP],
+            mel_caps=[T_CAP], generator=vocos, stream_chunk=STREAM_CHUNK)
+        export_s = time.perf_counter() - t0
+        sizes = {name: os.path.getsize(os.path.join(VOCOS_EXPORT_DIR, name))
+                 for name in os.listdir(VOCOS_EXPORT_DIR)}
+        t0 = time.perf_counter()
+        tts = ExportedTTS(VOCOS_EXPORT_DIR)
+        load_s = time.perf_counter() - t0
+        ops = program_op_counts(tts)
+        g2p = G2P(cfg.preprocess.lexicon_path)
+        ids = np.asarray(text_to_sequence(
+            g2p(CLI_TEXT), list(cfg.preprocess.text_cleaners)), np.int64)
+        kernels.reset_launches()
+        wav = tts.synthesize(ids, speaker=CLI_SPEAKER)
+        torch.cuda.synchronize()
+        counts = launch_counts(kernels)
+        expect = {k: ops["probe"][64][k] + ops["acoustic"][(64, T_CAP)][k]
+                  for k in ops["probe"][64]}
+        if {k: counts[k] for k in expect} != expect or any(
+                v for k, v in counts.items() if k not in expect):
+            raise AssertionError(f"exported Vocos launches {counts}, "
+                                 f"expected {expect}")
+        live = Synthesizer(model, vocos)
+        texts = np.zeros((1, 64), np.int64)
+        texts[0, :len(ids)] = ids
+        with torch.inference_mode():
+            out = live.model(torch.from_numpy(texts).to(device),
+                             torch.tensor([len(ids)], device=device),
+                             max_mel_len=T_CAP,
+                             speakers=torch.tensor([CLI_SPEAKER],
+                                                   device=device))
+            t = int(out.mel_lens[0])
+            mel = torch.zeros((1, T_CAP, out.postnet_mel.shape[-1]),
+                              device=device)
+            mel[0, :t] = out.postnet_mel[0, :t]
+            ref = live.stage_b(mel)[0, :t * live.hop_length].cpu().numpy()
+        err = float(np.abs(wav - ref).max()) if wav.shape == ref.shape \
+            else float("inf")
+        if not (err <= VOCOS_EXPORT_TOL and np.isfinite(wav).all()):
+            raise AssertionError(f"exported Vocos {err} from the live "
+                                 "Synthesizer")
+        stream_ms, _ = first_chunk_ms(
+            torch, lambda: tts.stream(ids, speaker=CLI_SPEAKER))
+        streamed = np.concatenate(list(tts.stream(ids, speaker=CLI_SPEAKER)))
+        stream_err = float(np.abs(streamed - wav).max()) \
+            if streamed.shape == wav.shape else float("inf")
+        if not stream_err <= EXPORT_STREAM_TOL:
+            raise AssertionError(f"exported Vocos stream {stream_err} from "
+                                 "synthesize")
+        params = sizes["params.npz"]
+        programs = sum(v for k, v in sizes.items() if k.endswith(".pt2"))
+        f.update(launches=counts, export_seconds=export_s,
+                 load_seconds=load_s, files=sizes,
+                 programs_share=programs / params,
+                 halo_frames=manifest["streaming"]["halo_frames"],
+                 mel_len=t, max_abs_err_vs_live=err,
+                 stream_vs_synthesize_max=stream_err,
+                 time_to_first_audio_ms=stream_ms,
+                 synthesize_ms=wall_ms(lambda: tts.synthesize(
+                     ids, speaker=CLI_SPEAKER), torch, reps=3),
+                 nvidia_smi=nvidia_smi())
+    shutil.rmtree(VOCOS_EXPORT_DIR, ignore_errors=True)
+    return counts
+
+
 def bench_inputs(np):
     """bench.py's serving inputs: the same generator, draws and order."""
     with open(os.path.join(REPO, "benchmarks", "results",
@@ -3769,15 +4111,30 @@ def main() -> int:
     vocoder_train_reference_phase(torch, np)
     voc_cli_counts = train_vocoder_cli_phase(
         torch, np, kernels, synth, short, wav, mel_lens, cli, gan_step_ms)
+    fam_counts, served = families_serving_phase(torch, np, kernels, texts,
+                                                src_lens)
+    fam_stream_counts = families_streaming_phase(torch, np, kernels, served)
+    fam_cli_counts = train_vocoder_families_phase(torch, np, kernels, served,
+                                                  cli, segments)
+    vocos_export_counts = export_vocos_phase(torch, np, kernels, served, cli)
 
     def later_launches(name):
         """A kernel's launches on the streaming vocoder's path (its
         windows and the CLI's --stream_chunk run), bf16 serving (cap 1000
-        / cap 4096), the HiFi-GAN V3 forward and one served call of the
-        exported artifacts per text."""
+        / cap 4096), the HiFi-GAN V3 forward, one served call of the
+        exported artifacts per text, and the Vocos and MelGAN paths: a
+        serving batch, the streaming windows, 4 steps of cli.train_vocoder
+        and one served call of the Vocos export."""
         def get(counts):
             return counts.get(name, 0)
         return dict(
+            launches_per_serving_batch_family={
+                k: get(c) for k, c in fam_counts.items()},
+            launches_streaming_family={
+                k: get(c) for k, c in fam_stream_counts.items()},
+            launches_cli_train_vocoder_family={
+                k: get(c) for k, c in fam_cli_counts.items()},
+            launches_exported_vocos=get(vocos_export_counts),
             launches_streaming={"windows": get(stream_counts),
                                 "cli": get(stream_cli["cli"])},
             launches_bf16_serving={"cap1000": get(bf16_counts),

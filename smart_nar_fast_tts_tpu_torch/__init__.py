@@ -8,8 +8,8 @@ the JAX package.
 What is ported so far: text → waveform through the synthesize CLI
 (``python -m smart_nar_fast_tts_tpu_torch.cli.synthesize``, with
 ``--stream_chunk`` for the streaming vocoder), serving synthesis (token
-ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 or V3 → waveform, in f32
-or under the bf16 compute policy), exported serving artifacts
+ids → ``FastSpeech2Align`` inference → HiFi-GAN V1 or V3, Vocos or MelGAN →
+waveform, in f32 or under the bf16 compute policy), exported serving artifacts
 (``cli.export``, ``serving.ExportedTTS``), the acoustic model's fit loop and
 the vocoder's GAN training through the ``train``, ``evaluate`` and
 ``train_vocoder`` CLIs, corpus preprocessing (``cli.preprocess``), through
@@ -30,12 +30,14 @@ widths the first ones do not take:
                  (``smart_tts::flash_attention``,
                  ``smart_tts::gaussian_upsample_banded``)
     audio      — the mel filterbank, the STFT → log-mel front end, the
-                 inverse STFT and Griffin-Lim
+                 inverse STFT (by FFT and by matrix products) and
+                 Griffin-Lim
     models     — FFT blocks, encoders, variance adaptor, FastSpeech2Align,
                  losses
-    vocoder    — HiFi-GAN V1 and V3 generators, the streaming vocoder, the
-                 discriminators and GAN losses, the loader of upstream
-                 torch checkpoints
+    vocoder    — HiFi-GAN V1 and V3, Vocos and MelGAN generators, the
+                 streaming vocoder, the discriminators and GAN losses, the
+                 loaders of torch checkpoints and of the JAX package's
+                 flax ``.msgpack`` files
     training   — the acoustic train and eval steps, the fit loop
                  (``Trainer``), validation, the vocoder GAN step, the port's
                  checkpoints, TensorBoard event files and figures written

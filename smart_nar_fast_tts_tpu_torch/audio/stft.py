@@ -15,6 +15,10 @@ mel loss takes its gradient through :func:`mel_spectrogram`.  It is also the
 plain version of the ``fused_log_mel`` kernel (``kernels/stft.py``).  It
 computes in the waveform's dtype: a float64 waveform gives the float64
 features that measure how far an f32 run is from exact.
+
+:func:`istft_matmul` is the inverse STFT of the Vocos head: the inverse
+real DFT as two real matrix products (no complex dtype), then the same
+overlap-add as :func:`istft`.
 """
 
 from __future__ import annotations
@@ -82,9 +86,12 @@ def mel_spectrogram(y: torch.Tensor, cfg: MelSpectrogramConfig
 # reference audio/stft.py:83-124, audio/audio_processing.py:66-81)
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=32)
 def _window_sumsquare(cfg: MelSpectrogramConfig, n_frames: int) -> np.ndarray:
     """Sum-squared window envelope (reference audio/audio_processing.py:7-63):
-    the overlap-add of win² at every hop."""
+    the overlap-add of win² at every hop, cached per (config, frames): a
+    Vocos forward needs it at every call, and a streaming window at one
+    length."""
     n = cfg.n_fft + cfg.hop_length * (n_frames - 1)
     win_sq = pad_center(hann_window(cfg.win_length) ** 2, cfg.n_fft)
     out = np.zeros(n, dtype=np.float64)
@@ -121,6 +128,38 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor,
     spec = torch.polar(magnitude, phase)
     frames = torch.fft.irfft(spec.transpose(-1, -2), n=cfg.n_fft, dim=-1)
     return _overlap_add(frames, cfg)
+
+
+@functools.lru_cache(maxsize=8)
+def _irdft_bases(n_fft: int, device: torch.device = torch.device("cpu")
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The inverse real DFT as two real (n_bins, n_fft) bases, ``x = Re(X)
+    @ C + Im(X) @ S`` = ``irfft(X, n_fft)``: conjugate-symmetry weights
+    count bins 0 and n_fft/2 once and the interior bins twice.  Built in
+    float64, stored as f32 on ``device``, cached per (n_fft, device)."""
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[:, None]
+    n = np.arange(n_fft, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    w = np.full((n_fft // 2 + 1, 1), 2.0)
+    w[0, 0] = w[-1, 0] = 1.0
+    c = (w * np.cos(ang) / n_fft).astype(np.float32)
+    s = (-w * np.sin(ang) / n_fft).astype(np.float32)
+    return (torch.from_numpy(c).to(device), torch.from_numpy(s).to(device))
+
+
+def istft_matmul(magnitude: torch.Tensor, phase: torch.Tensor,
+                 cfg: MelSpectrogramConfig,
+                 bases: tuple[torch.Tensor, torch.Tensor] | None = None
+                 ) -> torch.Tensor:
+    """(B, n_bins, F) magnitude and phase → (B, hop·(F−1)): the inverse
+    rDFT as two real matrix products (``bases``, default
+    :func:`_irdft_bases` on the input's device), then :func:`istft`'s
+    overlap-add.  The serving path of the Vocos head."""
+    c, s = bases if bases is not None else _irdft_bases(
+        cfg.n_fft, magnitude.device)
+    re = (magnitude * torch.cos(phase)).transpose(-1, -2)   # (B, F, bins)
+    im = (magnitude * torch.sin(phase)).transpose(-1, -2)
+    return _overlap_add(re @ c + im @ s, cfg)
 
 
 def griffin_lim(magnitude: torch.Tensor, cfg: MelSpectrogramConfig,

@@ -14,7 +14,8 @@ the vocoder buckets and the streaming window, the weights once in
 ``params.npz``, and ``manifest.json`` (``serving.export_serving_artifacts``).
 Serve them with ``smart_nar_fast_tts_tpu_torch.serving.ExportedTTS`` on the
 same device.  The checkpoint is the port's own (``cli.synthesize`` reads it
-the same way); the vocoder an upstream-layout HiFi-GAN torch file.  It runs
+the same way); the vocoder a HiFi-GAN torch file (upstream's layout) or
+flax ``.msgpack`` (``vocoder.load_hifigan``), as the JAX CLI.  It runs
 on CUDA unless ``--device cpu`` is given.
 """
 
@@ -34,7 +35,8 @@ def main(argv=None) -> dict:
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--vocoder_ckpt", type=str, default=None,
                         help="HiFi-GAN generator checkpoint (upstream torch "
-                             "layout); acoustic-only artifact if omitted")
+                             "layout or flax .msgpack); acoustic-only "
+                             "artifact if omitted")
     parser.add_argument("--stream_chunk", type=int, default=64)
     parser.add_argument("--device", type=str, default=None,
                         help="the device the programs are exported for "

@@ -21,8 +21,9 @@ otherwise.  Checkpoints are the port's own (``training/checkpoint.py``:
 utterances escalate over ``train.serving_mel_caps``: the model runs at the
 smallest frame capacity, reads the predicted total duration and runs again
 at the smallest capacity that holds it; past 2048 frames the decoder's
-self-attention runs the flash kernel.  Vocoding uses an upstream-layout
-HiFi-GAN torch checkpoint when ``--vocoder_ckpt`` is given, else
+self-attention runs the flash kernel.  Vocoding uses the generator of
+``--vocoder_ckpt`` when given (any family through ``vocoder.load_vocoder``:
+a torch file or a flax ``.msgpack`` with its ``config.json``), else
 Griffin-Lim from the predicted mel.  ``--stream_chunk N`` vocodes in windows
 of N mel frames plus the receptive-field halo on each side
 (``vocoder.StreamingVocoder``: the same samples as one full forward) and
@@ -81,8 +82,9 @@ def main(argv=None) -> list[Utterance]:
     parser.add_argument("--energy_control", type=float, default=1.0)
     parser.add_argument("--duration_control", type=float, default=1.0)
     parser.add_argument("--vocoder_ckpt", type=str, default=None,
-                        help="HiFi-GAN generator checkpoint (upstream torch "
-                             "layout); Griffin-Lim if omitted")
+                        help="vocoder generator checkpoint (HiFi-GAN, "
+                             "Vocos or MelGAN by its config.json; torch or "
+                             "flax .msgpack); Griffin-Lim if omitted")
     parser.add_argument("--stream_chunk", type=int, default=0,
                         help="vocode in fixed windows of this many mel "
                              "frames (+ the receptive-field halo) and "
@@ -264,12 +266,15 @@ def _write_outputs(cfg, name: str, title: str, out, j: int,
 
 def _make_vocoder(cfg, vocoder_ckpt, device: torch.device,
                   stream_chunk: int = 0):
-    """Return ``mel (T, n_mels) tensor -> wav`` (float32 numpy): HiFi-GAN
-    on ``device`` when a checkpoint is given (loaded once; the waveform
-    times ``max_wav_value``; in windows of ``stream_chunk`` frames through
+    """Return ``mel (T, n_mels) tensor -> wav`` (float32 numpy): the
+    checkpoint's generator on ``device`` when one is given (loaded once;
+    the waveform times ``max_wav_value``, a Vocos one clipped to [-1, 1]
+    first as ``vocos_infer``; in windows of ``stream_chunk`` frames through
     :class:`~..vocoder.StreamingVocoder` when it is not 0), else the
     Griffin-Lim debug fallback (40 iterations, starting phase from a
-    generator seeded 0)."""
+    generator seeded 0).  A MelGAN runs on the natural-log mel as it is,
+    without ``melgan_inverse``'s rescale, as the JAX CLI: its
+    ``cli.train_vocoder`` trains it on that mel."""
     from ..audio.stft import MelSpectrogramConfig, griffin_lim
     a = cfg.preprocess.audio
     mcfg = MelSpectrogramConfig(
@@ -277,18 +282,22 @@ def _make_vocoder(cfg, vocoder_ckpt, device: torch.device,
         hop_length=a.hop_length, win_length=a.win_length, n_mels=a.n_mels,
         mel_fmin=a.mel_fmin, mel_fmax=a.mel_fmax)
     if vocoder_ckpt:
+        from ..vocoder import VocosGenerator
         from ..vocoder.convert import load_vocoder
         gen = load_vocoder(vocoder_ckpt).to(device)
         scale = cfg.preprocess.audio.max_wav_value
+        clip = isinstance(gen, VocosGenerator)
         if stream_chunk:
-            return _streaming_vocoder(gen, stream_chunk, scale)
+            return _streaming_vocoder(gen, stream_chunk, scale, clip)
 
         @torch.inference_mode()
-        def _hifigan(mel: torch.Tensor) -> np.ndarray:
-            # scaled as the JAX package's hifigan_infer; save_wav then
-            # normalises by the peak, as it does there
-            return (gen(mel[None].float())[0] * scale).cpu().numpy()
-        return _hifigan
+        def _vocode(mel: torch.Tensor) -> np.ndarray:
+            # scaled as the JAX package's hifigan_infer / vocos_infer;
+            # save_wav then normalises by the peak, as it does there
+            wav = gen(mel[None].float())[0]
+            return ((wav.clamp(-1.0, 1.0) if clip else wav)
+                    * scale).cpu().numpy()
+        return _vocode
 
     # invert log-mel → linear magnitude via the filterbank pseudo-inverse
     # (debug-quality audio)
@@ -304,10 +313,10 @@ def _make_vocoder(cfg, vocoder_ckpt, device: torch.device,
     return _gl
 
 
-def _streaming_vocoder(gen, stream_chunk: int, scale: float):
-    """``mel -> wav`` through :class:`~..vocoder.StreamingVocoder`, scaled
-    as the full forward's path (so that both write the same file), printing
-    the time to the first chunk as the JAX CLI does."""
+def _streaming_vocoder(gen, stream_chunk: int, scale: float, clip: bool):
+    """``mel -> wav`` through :class:`~..vocoder.StreamingVocoder`, clipped
+    and scaled as the full forward's path (so that both write the same
+    file), printing the time to the first chunk as the JAX CLI does."""
     import time
 
     from ..vocoder import StreamingVocoder
@@ -323,7 +332,8 @@ def _streaming_vocoder(gen, stream_chunk: int, scale: float):
                       f"{dt * 1e3:.1f} ms (window={sv.window_frames} "
                       f"frames, halo={sv.halo})")
             chunks.append(c)
-        return np.concatenate(chunks) * scale
+        wav = np.concatenate(chunks)
+        return (np.clip(wav, -1.0, 1.0) if clip else wav) * scale
     return _stream
 
 

@@ -1,21 +1,23 @@
-"""HiFi-GAN vocoder (fine-)tuning CLI of the port, with the flags of
-``python -m smart_nar_fast_tts_tpu.cli.train_vocoder`` plus ``--device``::
+"""Vocoder (fine-)tuning CLI of the port, with the flags of ``python -m
+smart_nar_fast_tts_tpu.cli.train_vocoder`` plus ``--device``::
 
     python -m smart_nar_fast_tts_tpu_torch.cli.train_vocoder \\
         --wav_dir /path/to/wavs --steps 10000 [--batch_size 16] \\
-        [--segment_size 8192] [--restore_generator generator.pth.tar] \\
+        [--segment_size 8192] [--generator hifigan|vocos|melgan] \\
+        [--restore_generator generator.pth.tar|generator.msgpack] \\
         [--out_dir ./output/vocoder] [--device cpu]
 
-The GAN step is ``training/vocoder.py``'s on one device: the input mel and
-the real branch of the mel loss come from the ``fused_log_mel`` kernel on
-the raw segments.  It runs on CUDA unless ``--device cpu`` is given.
+The GAN step is ``training/vocoder.py``'s on one device, whatever the
+generator family: the input mel and the real branch of the mel loss come
+from the ``fused_log_mel`` kernel on the raw segments.  It runs on CUDA
+unless ``--device cpu`` is given.  ``--restore_generator`` takes the port's
+``.pth.tar`` of the same family or the JAX CLI's flax ``.msgpack``.
 Checkpoints are ``generator_<step>.pth.tar`` holding ``{"generator":
-state_dict}``, the upstream layout that both packages' ``load_hifigan``
-read (not the JAX CLI's flax ``.msgpack``), with ``config.json`` (``{"family":
-"hifigan", ...}``) and ``meta.json`` beside them.  ``--steps_per_dispatch``
-K runs K single GAN steps between the host's log and save checks (PyTorch
-has no ``lax.scan``).  ``--generator vocos|melgan`` and a ``.msgpack``
-``--restore_generator`` are not ported yet (ROADMAP §A.5, §A.7).
+state_dict}`` (upstream's layout, which ``vocoder.load_vocoder`` reads; the
+JAX CLI writes ``.msgpack``), with ``config.json`` (``{"family": ...,
+**config}``) and ``meta.json`` beside them.  ``--steps_per_dispatch`` K
+runs K single GAN steps between the host's log and save checks (PyTorch
+has no ``lax.scan``).
 """
 
 from __future__ import annotations
@@ -29,12 +31,14 @@ import time
 import numpy as np
 import torch
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported (ROADMAP §A.5: the Vocos and MelGAN "
-        "generators; §A.7: the JAX package's .msgpack checkpoints); train "
-        "--generator hifigan from an upstream torch checkpoint")
+# the --debug_tiny generator configs of each family (the JAX CLI's)
+TINY_GENERATORS = {
+    "hifigan": dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                    upsample_initial_channel=16, resblock_kernel_sizes=(3,),
+                    resblock_dilation_sizes=((1, 2),), n_mels=8),
+    "vocos": dict(n_mels=8, dim=16, intermediate=32, n_layers=2, n_fft=32,
+                  hop=8, win_length=32),
+    "melgan": dict(n_mels=8, ngf=8, n_residual_layers=1, ratios=(4, 2))}
 
 
 def main(argv=None) -> dict:
@@ -49,11 +53,11 @@ def main(argv=None) -> dict:
                              "checks")
     parser.add_argument("--generator",
                         choices=("hifigan", "vocos", "melgan"),
-                        default="hifigan",
-                        help="generator family; only HiFi-GAN V1 is ported")
+                        default="hifigan", help="generator family")
     parser.add_argument("--restore_generator", type=str, default=None,
-                        help="HiFi-GAN torch checkpoint to warm-start the "
-                             "generator")
+                        help="checkpoint of the same family to warm-start "
+                             "the generator: the port's .pth.tar or a flax "
+                             ".msgpack")
     parser.add_argument("--out_dir", type=str, default="./output/vocoder")
     parser.add_argument("--save_every", type=int, default=1000)
     parser.add_argument("--log_every", type=int, default=100)
@@ -65,19 +69,14 @@ def main(argv=None) -> dict:
                         help="torch device (default cuda; 'cpu' runs the "
                              "kernels' plain versions on the CPU)")
     args = parser.parse_args(argv)
-    if args.generator != "hifigan":
-        raise _not_ported(f"--generator {args.generator}")
-    if args.restore_generator and args.restore_generator.endswith(
-            ".msgpack"):
-        raise _not_ported("a .msgpack --restore_generator")
 
     from ..audio.stft import MelSpectrogramConfig
     from ..data.wavio import load_wav
     from ..training.vocoder import (VocoderOptimizer, create_vocoder_state,
                                     make_vocoder_train_step,
                                     sample_segments)
-    from ..vocoder import (HiFiGANConfig, HiFiGANDiscriminator,
-                           HiFiGANGenerator, load_hifigan)
+    from ..vocoder import HiFiGANDiscriminator
+    from ..vocoder.convert import FAMILIES, generator_state
 
     paths = sorted(glob.glob(os.path.join(args.wav_dir, "**", "*.wav"),
                              recursive=True))
@@ -88,30 +87,28 @@ def main(argv=None) -> dict:
     audio_s = sum(len(w) for w in wavs) / args.sampling_rate
     print(f"{len(wavs)} wavs, {audio_s:.1f}s audio")
 
+    sr = args.sampling_rate
+    cfg_cls, gen_cls = FAMILIES[args.generator]
     if args.debug_tiny:
-        gen_cfg = HiFiGANConfig(
-            upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
-            upsample_initial_channel=16, resblock_kernel_sizes=(3,),
-            resblock_dilation_sizes=((1, 2),), n_mels=8,
-            sampling_rate=args.sampling_rate)
+        gen_cfg = cfg_cls(**TINY_GENERATORS[args.generator], sampling_rate=sr)
         discriminator = HiFiGANDiscriminator(
             periods=(2, 3), period_channels=(4, 8), n_scales=2,
             scale_layers=((8, 15, 1, 1), (16, 41, 4, 4), (16, 5, 1, 1)),
             seed=args.seed)
         mel_cfg = MelSpectrogramConfig(
-            sampling_rate=args.sampling_rate, n_fft=32, hop_length=8,
-            win_length=32, n_mels=8, mel_fmax=None)
+            sampling_rate=sr, n_fft=32, hop_length=8, win_length=32,
+            n_mels=8, mel_fmax=None)
     else:
-        gen_cfg = HiFiGANConfig(sampling_rate=args.sampling_rate)
+        gen_cfg = cfg_cls(sampling_rate=sr)
         discriminator = HiFiGANDiscriminator(seed=args.seed)
-        mel_cfg = MelSpectrogramConfig(sampling_rate=args.sampling_rate)
+        mel_cfg = MelSpectrogramConfig(sampling_rate=sr)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(args.seed)
-        generator = HiFiGANGenerator(gen_cfg)
+        generator = gen_cls(gen_cfg)
     if args.restore_generator:
         # the checkpoint's topology must be this run's
-        generator.load_state_dict(
-            load_hifigan(args.restore_generator).state_dict())
+        generator.load_state_dict(generator_state(
+            args.generator, args.restore_generator, gen_cfg))
 
     tx = VocoderOptimizer(learning_rate=args.learning_rate)
     state = create_vocoder_state(generator, discriminator, tx, tx,
@@ -148,13 +145,13 @@ def main(argv=None) -> dict:
                 n: v.detach().cpu()
                 for n, v in state.generator.state_dict().items()}}, path)
             # the config beside the checkpoint rebuilds the topology in
-            # load_hifigan (and synthesize --vocoder_ckpt); always rewritten
+            # load_vocoder (and synthesize --vocoder_ckpt); always rewritten
             with open(os.path.join(args.out_dir, "config.json"), "w") as f:
-                json.dump({"family": "hifigan", **gen_cfg.to_dict()}, f,
-                          indent=1)
+                json.dump({"family": args.generator, **gen_cfg.to_dict()},
+                          f, indent=1)
             with open(os.path.join(args.out_dir, "meta.json"), "w") as f:
                 json.dump({
-                    "family": "hifigan",
+                    "family": args.generator,
                     "steps_completed": step,
                     "steps_planned": args.steps,
                     "batch_size": args.batch_size,

@@ -84,25 +84,35 @@ def committed_flagship(cfg: Optional[ModelConfig] = None,
     return model
 
 
-def committed_vocoder(results_dir: str | Path = RESULTS_DIR
-                      ) -> HiFiGANGenerator:
-    """The committed HiFi-GAN V1 generator (``vocoder_params.npz``, with the
-    config of ``vocoder_meta.json``) on the CPU."""
-    from .vocoder import HiFiGANConfig, HiFiGANGenerator
-    from .weights import HIFIGAN_INDEX, jax_to_torch_hifigan, load_committed
+def committed_vocoder(results_dir: str | Path = RESULTS_DIR,
+                      family: str = "hifigan") -> torch.nn.Module:
+    """A committed vocoder generator on the CPU: HiFi-GAN V1
+    (``vocoder_params.npz`` with the config of ``vocoder_meta.json``), Vocos
+    or MelGAN (``<family>_params.npz`` with ``<family>_meta.json``), named
+    by the leaf index ``assets/<family>_leaves.json``."""
+    from . import weights
+    from .vocoder.convert import FAMILIES
+    if family not in FAMILIES:
+        raise ValueError(f"unknown vocoder family {family!r}")
+    stem = "vocoder" if family == "hifigan" else family
     results = Path(results_dir)
-    meta = json.loads((results / "vocoder_meta.json").read_text())
-    config = HiFiGANConfig.from_dict(meta["config"])
-    vocoder = HiFiGANGenerator(config)
-    vocoder.load_state_dict(jax_to_torch_hifigan(load_committed(
-        results / "vocoder_params.npz", HIFIGAN_INDEX), config))
+    meta = json.loads((results / f"{stem}_meta.json").read_text())
+    cfg_cls, gen_cls = FAMILIES[family]
+    config = cfg_cls.from_dict(meta["config"])
+    vocoder = gen_cls(config)
+    to_torch = getattr(weights, f"jax_to_torch_{family}")
+    vocoder.load_state_dict(to_torch(weights.load_committed(
+        results / f"{stem}_params.npz",
+        weights.ASSETS / f"{family}_leaves.json"), config))
     return vocoder
 
 
 class Synthesizer:
-    """Acoustic model + vocoder on one device, in eval mode."""
+    """Acoustic model + vocoder (a HiFi-GAN, Vocos or MelGAN generator) on
+    one device, in eval mode.  Stage B returns the generator's waveform as
+    it is: HiFi-GAN and MelGAN end in tanh, Vocos is not clipped."""
 
-    def __init__(self, model: FastSpeech2Align, vocoder: HiFiGANGenerator,
+    def __init__(self, model: FastSpeech2Align, vocoder: torch.nn.Module,
                  device: str | torch.device | None = None,
                  t_cap: int = T_CAP):
         self.device = resolve_device(device)
@@ -112,14 +122,15 @@ class Synthesizer:
 
     @classmethod
     def from_committed(cls, device: str | torch.device | None = None,
-                       results_dir: str | Path = RESULTS_DIR
-                       ) -> "Synthesizer":
-        """The committed flagship acoustic model and HiFi-GAN V1, read from
-        ``flagship_params.npz`` / ``vocoder_params.npz`` and their meta
-        files (feature stats, vocoder config)."""
+                       results_dir: str | Path = RESULTS_DIR,
+                       family: str = "hifigan") -> "Synthesizer":
+        """The committed flagship acoustic model and vocoder of ``family``
+        (default HiFi-GAN V1, the family ``vocoder_quality.json`` picks),
+        read from ``flagship_params.npz``, the vocoder's ``.npz`` and their
+        meta files (feature stats, vocoder config)."""
         device = resolve_device(device)
         return cls(committed_flagship(results_dir=results_dir),
-                   committed_vocoder(results_dir), device)
+                   committed_vocoder(results_dir, family), device)
 
     @property
     def hop_length(self) -> int:
@@ -147,8 +158,8 @@ class Synthesizer:
 
     def synthesize(self, token_ids, src_lens
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """token_ids (B, L) and src_lens (B,) → (waveform (B, bucket·hop)
-        in [-1, 1], mel_lens (B,) int32).  Item i's audio is its first
+        """token_ids (B, L) and src_lens (B,) → (waveform (B, bucket·hop),
+        mel_lens (B,) int32).  Item i's audio is its first
         ``mel_lens[i]·hop`` samples."""
         token_ids = torch.as_tensor(token_ids, dtype=torch.long)
         src_lens = torch.as_tensor(src_lens, dtype=torch.long)
@@ -229,7 +240,8 @@ def export_serving_artifacts(
     provenance: Optional[Mapping] = None,
 ) -> dict:
     """Export the serving surface of ``model`` (a ``FastSpeech2Align``)
-    and, when given, ``generator`` (a HiFi-GAN generator) into ``out_dir``
+    and, when given, ``generator`` (a HiFi-GAN, Vocos or MelGAN generator;
+    its program returns the waveform unclipped) into ``out_dir``
     for ``device`` (default CUDA; the modules are moved there and set to
     eval mode); returns the manifest.  ``mel_caps`` are the acoustic frame
     capacities exported per text bucket (default ``max_mel_len`` alone);
@@ -237,12 +249,6 @@ def export_serving_artifacts(
     if int(stream_chunk) < 1:
         # StreamingVocoder's rule, caught here rather than at serving time
         raise ValueError(f"stream_chunk must be >= 1, got {stream_chunk}")
-    from .vocoder import HiFiGANGenerator
-    if generator is not None and not isinstance(generator, HiFiGANGenerator):
-        raise NotImplementedError(
-            f"exporting a {type(generator).__name__} vocoder is not ported "
-            "yet (ROADMAP §A.5: the Vocos and MelGAN generators); pass a "
-            "HiFi-GAN generator")
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     B = int(batch_size)
@@ -465,7 +471,9 @@ class ExportedTTS:
         return self._vocode_program(prog.call, mel)[0, : t * self.hop]
 
     def synthesize(self, token_ids, speaker: int = 0) -> np.ndarray:
-        """(n,) int token ids → float32 waveform in [-1, 1]."""
+        """(n,) int token ids → float32 waveform: the exported generator's
+        output (in [-1, 1] for HiFi-GAN and MelGAN; a Vocos one is not
+        clipped)."""
         if not self._vocoder:
             raise ValueError("artifact was exported without a vocoder")
         return self._vocode(self.acoustic(token_ids, speaker))

@@ -1,5 +1,6 @@
-"""Vocoder (HiFi-GAN) GAN training, as ``smart_nar_fast_tts_tpu/training/
-vocoder.py``: a two-optimizer step (discriminator update, then generator
+"""Vocoder GAN training, as ``smart_nar_fast_tts_tpu/training/vocoder.py``,
+for any ``mel → wav`` generator (HiFi-GAN, Vocos, MelGAN): a two-optimizer
+step (discriminator update, then generator
 update with adversarial, feature-matching and mel losses), with the input
 mel and the real branch of the mel loss made on the device by the
 ``fused_log_mel`` kernel from raw waveform segments.
@@ -22,7 +23,6 @@ from ..audio.stft import MelSpectrogramConfig
 from ..device import resolve_device
 from ..kernels import fused_log_mel
 from ..vocoder.discriminators import HiFiGANDiscriminator
-from ..vocoder.hifigan import HiFiGANGenerator
 from ..vocoder.losses import (FM_WEIGHT, MEL_WEIGHT, discriminator_loss,
                               feature_matching_loss,
                               generator_adversarial_loss, mel_l1_loss)
@@ -71,7 +71,7 @@ class VocoderOptimizer:
 
 @dataclass
 class VocoderState:
-    generator: HiFiGANGenerator
+    generator: torch.nn.Module            # mel (B, F, n_mels) → wav (B, S)
     discriminator: HiFiGANDiscriminator
     gen_tx: VocoderOptimizer
     disc_tx: VocoderOptimizer
@@ -85,7 +85,7 @@ class VocoderState:
         opt.step()
 
 
-def create_vocoder_state(generator: HiFiGANGenerator,
+def create_vocoder_state(generator: torch.nn.Module,
                          discriminator: HiFiGANDiscriminator,
                          gen_tx: VocoderOptimizer,
                          disc_tx: VocoderOptimizer,

@@ -1,15 +1,22 @@
-"""HiFi-GAN checkpoint loading: upstream torch generator checkpoints → the
-port's :class:`~.hifigan.HiFiGANGenerator`.
+"""Vocoder checkpoint loading: the HiFi-GAN, Vocos and MelGAN generators of
+torch files and of the JAX package's flax ``.msgpack`` files.
 
 The loading contract of ``smart_nar_fast_tts_tpu/vocoder/convert.py``
-(reference ``utils/model.py:53-65``): a torch file holding
-``{"generator": state_dict}`` (upstream's ``generator_*.pth.tar``) or the
-state dict itself, weight norm folded on the host, and a ``config.json``
-beside the checkpoint overriding the V1 defaults (``"resblock": "2"``
-for V3, whose ResBlock2s hold one ``convs`` list).  The port's generator
-keeps upstream's module names with weight norm folded, so the folded state
-dict loads as it is.  The JAX package's ``.msgpack`` flax files and its
-Vocos and MelGAN families are not ported yet (ROADMAP §A.5, §A.7).
+(reference ``utils/model.py:53-65``), by the ``family`` of the
+``config.json`` beside the checkpoint (``"hifigan"`` when absent, the
+reference's layout; ``"vocos"``; ``"melgan"``), whose other keys override
+the family's default config.  Two formats per family, told apart by the
+file's name:
+
+- ``*.msgpack``: ``flax.serialization.to_bytes`` of the generator's params,
+  as the JAX CLI writes them, read with numpy (``vocoder/msgpack.py``) and
+  mapped by ``weights.<family>_rules``;
+- any other file: a torch file holding ``{"generator": state_dict}``
+  (upstream's ``generator_*.pth.tar``, which the port's
+  ``cli.train_vocoder`` writes for every family) or the state dict itself
+  (descript's torch.hub MelGAN weights), weight norm folded on the host.
+  The port's generators keep upstream's module names, so the folded state
+  dict loads as it is.
 """
 
 from __future__ import annotations
@@ -22,6 +29,12 @@ import numpy as np
 import torch
 
 from .hifigan import HiFiGANConfig, HiFiGANGenerator
+from .melgan import MelGANConfig, MelGANGenerator
+from .vocos import VocosConfig, VocosGenerator
+
+FAMILIES = {"hifigan": (HiFiGANConfig, HiFiGANGenerator),
+            "vocos": (VocosConfig, VocosGenerator),
+            "melgan": (MelGANConfig, MelGANGenerator)}
 
 
 def fold_weight_norm(sd: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
@@ -50,48 +63,71 @@ def _config_path(ckpt_path: str, config_path: str | None) -> str | None:
     return config_path
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP §A.5: the Vocos and MelGAN "
-        "generators; §A.7: importing the JAX package's checkpoints); pass an "
-        "upstream HiFi-GAN torch checkpoint")
+def _read_config(config_path: str | None) -> tuple[str, dict | None]:
+    """(family, the config's other keys or None) of a ``config.json``."""
+    if not config_path:
+        return "hifigan", None
+    with open(config_path) as f:
+        d = json.load(f)
+    return d.pop("family", "hifigan"), d
+
+
+def generator_state(family: str, ckpt_path: str, config
+                    ) -> dict[str, torch.Tensor]:
+    """The state dict of a ``family`` generator of ``config`` from a
+    checkpoint: a flax ``.msgpack`` through the family's rules, else a
+    torch file with weight norm folded."""
+    if ckpt_path.endswith(".msgpack"):
+        from .. import weights
+        from .msgpack import read_flax_msgpack
+        with open(ckpt_path, "rb") as f:
+            flat = read_flax_msgpack(f.read())
+        return getattr(weights, f"jax_to_torch_{family}")(flat, config)
+    raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    sd = raw.get("generator", raw) if isinstance(raw, dict) else raw
+    sd = fold_weight_norm({k: v.numpy() if hasattr(v, "numpy")
+                           else np.asarray(v) for k, v in sd.items()})
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            for k, v in sd.items()}
+
+
+def _load(family: str, ckpt_path: str, cfg_dict: dict | None
+          ) -> torch.nn.Module:
+    if family not in FAMILIES:
+        raise ValueError(f"unknown vocoder family {family!r}")
+    cfg_cls, gen_cls = FAMILIES[family]
+    config = cfg_cls.from_dict(cfg_dict) if cfg_dict else cfg_cls()
+    gen = gen_cls(config)
+    gen.load_state_dict(generator_state(family, ckpt_path, config))
+    return gen.eval()
 
 
 def load_hifigan(ckpt_path: str, config_path: str | None = None
                  ) -> HiFiGANGenerator:
     """The HiFi-GAN generator of a torch checkpoint (``{"generator":
-    state_dict}`` or the state dict, weight-normed or folded), on the CPU in
-    eval mode.  A ``config.json`` beside the checkpoint overrides the V1
-    defaults."""
-    if ckpt_path.endswith(".msgpack"):
-        raise _not_ported("a .msgpack (flax) vocoder checkpoint")
+    state_dict}`` or the state dict, weight-normed or folded) or of a flax
+    ``.msgpack``, on the CPU in eval mode.  A ``config.json`` beside the
+    checkpoint overrides the V1 defaults."""
     config_path = _config_path(ckpt_path, config_path)
-    config = HiFiGANConfig()
-    if config_path:
-        with open(config_path) as f:
-            config = HiFiGANConfig.from_dict(json.load(f))
-    raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    sd = raw.get("generator", raw) if isinstance(raw, dict) else raw
-    sd = fold_weight_norm({k: v.numpy() if hasattr(v, "numpy")
-                           else np.asarray(v) for k, v in sd.items()})
-    gen = HiFiGANGenerator(config)
-    gen.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(
-        v, np.float32)) for k, v in sd.items()})
-    return gen.eval()
+    return _load("hifigan", ckpt_path, _read_config(config_path)[1])
+
+
+def load_melgan(ckpt_path: str, config_path: str | None = None
+                ) -> MelGANGenerator:
+    """The MelGAN generator of descript's torch.hub weights (the state dict
+    itself, weight-normed), of a ``{"generator": state_dict}`` file or of a
+    flax ``.msgpack``, on the CPU in eval mode.  A ``config.json`` beside
+    the checkpoint overrides the defaults (descript's ngf 32, ratios 8, 8,
+    2, 2)."""
+    config_path = _config_path(ckpt_path, config_path)
+    return _load("melgan", ckpt_path, _read_config(config_path)[1])
 
 
 def load_vocoder(ckpt_path: str, config_path: str | None = None
-                 ) -> HiFiGANGenerator:
-    """Family-aware loader: the ``family`` key of the sibling
+                 ) -> torch.nn.Module:
+    """The generator of any family, by the ``family`` key of the sibling
     ``config.json`` ("hifigan" | "vocos" | "melgan"; absent → HiFi-GAN, the
-    reference's layout).  Only HiFi-GAN is ported."""
-    config_path = _config_path(ckpt_path, config_path)
-    family = "hifigan"
-    if config_path:
-        with open(config_path) as f:
-            family = json.load(f).get("family", "hifigan")
-    if family == "hifigan":
-        return load_hifigan(ckpt_path, config_path)
-    if family in ("vocos", "melgan"):
-        raise _not_ported(f"the {family} vocoder family")
-    raise ValueError(f"unknown vocoder family {family!r}")
+    reference's layout), on the CPU in eval mode.  An unknown family
+    raises."""
+    family, cfg_dict = _read_config(_config_path(ckpt_path, config_path))
+    return _load(family, ckpt_path, cfg_dict)

@@ -34,10 +34,14 @@ import torch
 from .config import ModelConfig
 from .vocoder.discriminators import HiFiGANDiscriminator
 from .vocoder.hifigan import HiFiGANConfig
+from .vocoder.melgan import MelGANConfig
+from .vocoder.vocos import VocosConfig
 
 ASSETS = Path(__file__).resolve().parent / "assets"
 FLAGSHIP_INDEX = ASSETS / "flagship_leaves.json"
 HIFIGAN_INDEX = ASSETS / "hifigan_leaves.json"
+VOCOS_INDEX = ASSETS / "vocos_leaves.json"
+MELGAN_INDEX = ASSETS / "melgan_leaves.json"
 
 Rule = tuple[str, Callable[[np.ndarray], np.ndarray]]
 
@@ -141,6 +145,50 @@ def hifigan_rules(config: HiFiGANConfig = HiFiGANConfig()
     return r
 
 
+def vocos_rules(config: VocosConfig = VocosConfig()) -> dict[str, Rule]:
+    """{port state-dict key: (flax path, layout transform)} for
+    :class:`~.vocoder.VocosGenerator`.  The depthwise kernel (k, 1, dim)
+    takes the Conv rule: (dim, 1, k)."""
+    r: dict[str, Rule] = {}
+    _conv(r, "embed", "params/embed")
+    _norm(r, "norm_in", "params/norm_in")
+    for i in range(config.n_layers):
+        tp, fp = f"blocks.{i}", f"params/block_{i}"
+        _conv(r, f"{tp}.dwconv", f"{fp}/dwconv")
+        _norm(r, f"{tp}.norm", f"{fp}/norm")
+        _dense(r, f"{tp}.pw1", f"{fp}/pw1")
+        _dense(r, f"{tp}.pw2", f"{fp}/pw2")
+        r[f"{tp}.gamma"] = (f"{fp}/gamma", _same)
+    _norm(r, "norm_out", "params/norm_out")
+    _dense(r, "head", "params/head")
+    return r
+
+
+def melgan_rules(config: MelGANConfig = MelGANConfig()) -> dict[str, Rule]:
+    """{port state-dict key: (flax path, layout transform)} for
+    :class:`~.vocoder.MelGANGenerator`, whose keys are descript's
+    ``nn.Sequential`` indices: [pad, conv7, (lrelu, convT, resnet
+    blocks)·ratios, lrelu, pad, conv7, tanh]."""
+    r: dict[str, Rule] = {}
+    _conv(r, "model.1", "params/conv_pre/conv")
+    idx = 2
+    for i in range(len(config.ratios)):
+        idx += 1                                   # LeakyReLU
+        r[f"model.{idx}.weight"] = (f"params/ups_{i}/kernel",
+                                    _conv_transpose_t)
+        r[f"model.{idx}.bias"] = (f"params/ups_{i}/bias", _same)
+        idx += 1
+        for j in range(config.n_residual_layers):
+            tp, fp = f"model.{idx}", f"params/res_{i}_{j}"
+            _conv(r, f"{tp}.block.2", f"{fp}/block_conv1/conv")
+            _conv(r, f"{tp}.block.4", f"{fp}/block_conv2/conv")
+            _conv(r, f"{tp}.shortcut", f"{fp}/shortcut/conv")
+            idx += 1
+    idx += 2                                       # LeakyReLU, pad
+    _conv(r, f"model.{idx}", "params/conv_post/conv")
+    return r
+
+
 def _conv2d_t(a):
     return a.transpose(3, 2, 0, 1)
 
@@ -226,6 +274,20 @@ def jax_to_torch_hifigan(flat: Mapping[str, np.ndarray],
                          ) -> dict[str, torch.Tensor]:
     """Flat flax params of ``HiFiGANGenerator`` → the port's state dict."""
     return _apply_rules(flat, hifigan_rules(config))
+
+
+def jax_to_torch_vocos(flat: Mapping[str, np.ndarray],
+                       config: VocosConfig = VocosConfig()
+                       ) -> dict[str, torch.Tensor]:
+    """Flat flax params of ``VocosGenerator`` → the port's state dict."""
+    return _apply_rules(flat, vocos_rules(config))
+
+
+def jax_to_torch_melgan(flat: Mapping[str, np.ndarray],
+                        config: MelGANConfig = MelGANConfig()
+                        ) -> dict[str, torch.Tensor]:
+    """Flat flax params of ``MelGANGenerator`` → the port's state dict."""
+    return _apply_rules(flat, melgan_rules(config))
 
 
 def jax_to_torch_discriminator(flat: Mapping[str, np.ndarray],

@@ -12,7 +12,9 @@
   (float64 on both sides: exact), and ``load_hifigan`` of an upstream-layout
   torch file against the JAX package's ``load_hifigan`` of the same file:
   the waveform within 1e-4 (f32 convolutions on both sides, the HiFi-GAN
-  parity tolerance of ``tests/test_torch_hifigan.py``).
+  parity tolerance of ``tests/test_torch_hifigan.py``); an unknown family
+  raises.  The other families and the ``.msgpack`` format are held in
+  ``tests/test_torch_vocoder_checkpoint.py``.
 """
 
 import json
@@ -171,12 +173,17 @@ def test_load_hifigan_matches_jax(tmp_path):
 
 
 def test_vocoders_not_ported_raise(tmp_path):
+    """No family or format is refused any longer; what still raises is an
+    unknown family (``ValueError``), and a checkpoint of another family
+    than its ``config.json`` names (a state dict that does not fit)."""
     path = write_upstream_hifigan(tmp_path / "voc")
     with open(tmp_path / "voc" / "config.json") as f:
         config = json.load(f)
     with open(tmp_path / "voc" / "config.json", "w") as f:
-        json.dump({**config, "family": "vocos"}, f)
-    with pytest.raises(NotImplementedError, match="§A.5"):
+        json.dump({**config, "family": "wavenet"}, f)
+    with pytest.raises(ValueError, match="unknown vocoder family"):
         convert.load_vocoder(path)
-    with pytest.raises(NotImplementedError, match="§A.7"):
-        convert.load_hifigan(str(tmp_path / "gen.msgpack"))
+    with open(tmp_path / "voc" / "config.json", "w") as f:
+        json.dump({"family": "vocos"}, f)
+    with pytest.raises(RuntimeError, match="state_dict"):
+        convert.load_vocoder(path)

@@ -12,7 +12,9 @@
   ``load_vocoder`` reads the checkpoint back to the trained generator, and
   the JAX package's ``load_hifigan`` reads it to the same waveform within
   1e-4 (the HiFi-GAN parity tolerance of ``tests/test_torch_hifigan.py``).
-  Vocos, MelGAN and ``.msgpack`` warm starts raise "not yet ported".
+  An unknown family, a warm start from another family's checkpoint and a
+  missing one raise (the families and ``.msgpack`` warm starts are held in
+  ``tests/test_torch_vocoder_checkpoint.py``).
 - The new modules and CLIs import, and ``cli.evaluate`` runs, in a process
   where ``tensorboard``, ``matplotlib``, ``yaml``, ``jax``, ``flax`` and the
   JAX package cannot be imported (the card's machine has none of them).
@@ -39,7 +41,7 @@ from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
                                                    weighted_average)
 from smart_nar_fast_tts_tpu_torch.vocoder import load_vocoder
 from torch_port_util import (REPO, make_trainer_corpus, one_torch_thread,
-                             write_trainer_triplet)
+                             write_trainer_triplet, write_upstream_hifigan)
 
 WAV_ATOL = 1e-4
 BLOCKED = ("tensorboard", "matplotlib", "yaml", "jax", "flax",
@@ -142,15 +144,24 @@ def test_train_vocoder_cli(tmp_path, capsys):
     np.testing.assert_allclose(got, expect, atol=WAV_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--generator", "vocos"], "vocos is not yet ported"),
-    (["--generator", "melgan"], "melgan is not yet ported"),
-    (["--restore_generator", "g.msgpack"], ".msgpack"),
+@pytest.mark.parametrize("extra, error, match", [
+    (["--generator", "wavenet"], SystemExit, "2"),
+    (["--generator", "vocos", "--restore_generator", "hifigan"],
+     RuntimeError, "state_dict"),
+    (["--restore_generator", "missing.msgpack"], FileNotFoundError,
+     "missing.msgpack"),
 ])
-def test_train_vocoder_refuses(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        vocoder_cli.main(["--wav_dir", str(tmp_path), "--debug_tiny",
-                          "--device", "cpu"] + extra)
+def test_train_vocoder_refuses(tmp_path, extra, error, match):
+    """Every family trains now; an unknown one is an argparse error, and a
+    warm start from another family's checkpoint or a missing file
+    raises."""
+    _write_wavs(tmp_path / "wavs")
+    if "hifigan" in extra:
+        extra = extra[:-1] + [write_upstream_hifigan(tmp_path / "voc")]
+    with pytest.raises(error, match=match):
+        vocoder_cli.main(["--wav_dir", str(tmp_path / "wavs"),
+                          "--debug_tiny", "--device", "cpu",
+                          "--out_dir", str(tmp_path / "out")] + extra)
 
 
 def test_without_tensorboard_yaml_or_jax(trained):

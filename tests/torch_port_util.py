@@ -3,6 +3,7 @@ reference trees and passing them to the PyTorch port as numpy arrays."""
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 
@@ -87,12 +88,40 @@ def scaled_model_config():
           for n in ("preprocess", "model", "train"))).model
 
 
+def committed_config(family: str):
+    """The JAX config of a committed vocoder (``"vocos"`` or ``"melgan"``)
+    from its ``<family>_meta.json``."""
+    from smart_nar_fast_tts_tpu.vocoder import MelGANConfig, VocosConfig
+    with open(os.path.join(RESULTS, f"{family}_meta.json")) as f:
+        config = json.load(f)["config"]
+    return {"vocos": VocosConfig, "melgan": MelGANConfig}[family].from_dict(
+        config)
+
+
+def init_vocoder(family: str, config=None):
+    """The JAX HiFi-GAN, Vocos or MelGAN generator (for the last two the
+    committed config by default) and the shapes of its variables, for the
+    config's ``n_mels``."""
+    from smart_nar_fast_tts_tpu.vocoder import (HiFiGANGenerator,
+                                                MelGANGenerator,
+                                                VocosGenerator)
+    config = config or committed_config(family)
+    gen = {"hifigan": HiFiGANGenerator, "vocos": VocosGenerator,
+           "melgan": MelGANGenerator}[family](config)
+    shapes = jax.eval_shape(lambda: gen.init(
+        jax.random.PRNGKey(1), jnp.zeros((1, 16, config.n_mels))))
+    return gen, shapes
+
+
 def jax_leaf_index(kind: str) -> list[list]:
     """[[flax path, shape], ...] in JAX flatten order for the committed
-    flagship (``"flagship"``), 8-speaker flagship (``"scaled_flagship"``)
-    or HiFi-GAN (``"hifigan"``) tree."""
+    flagship (``"flagship"``), 8-speaker flagship (``"scaled_flagship"``),
+    HiFi-GAN (``"hifigan"``), Vocos (``"vocos"``) or MelGAN (``"melgan"``)
+    tree."""
     if kind == "hifigan":
         _, shapes = init_hifigan()
+    elif kind in ("vocos", "melgan"):
+        _, shapes = init_vocoder(kind)
     else:
         _, shapes = init_acoustic(
             scaled_model_config() if kind == "scaled_flagship" else None)
@@ -107,7 +136,9 @@ def write_leaf_indexes() -> None:
                           ".npz"),
                          ("scaled_flagship", "benchmarks/results/"
                           "scaled_flagship_params.npz"),
-                         ("hifigan", "benchmarks/results/vocoder_params.npz")):
+                         ("hifigan", "benchmarks/results/vocoder_params.npz"),
+                         ("vocos", "benchmarks/results/vocos_params.npz"),
+                         ("melgan", "benchmarks/results/melgan_params.npz")):
         doc = {"source": source,
                "order": "jax.tree_util.tree_flatten_with_path of the "
                         "variables, leaf i stored as l{i:05d}",
@@ -228,3 +259,100 @@ def write_trainer_triplet(root, name: str, preprocessed: str,
         with open(paths[-1], "w") as f:
             yaml.safe_dump(d, f)
     return paths
+
+
+# one GAN step of a narrow generator, discriminator and mel configuration
+# (the train_vocoder CLI's --debug_tiny ones) in both packages
+GAN_MEL = dict(n_fft=32, hop_length=8, win_length=32, n_mels=8,
+               mel_fmax=None)
+GAN_DISC = dict(periods=(2, 3), period_channels=(4, 8), n_scales=2,
+                scale_layers=((8, 15, 1, 1), (16, 41, 4, 4), (16, 5, 1, 1)))
+GAN_B, GAN_SEG = 2, 256
+
+
+def gan_segments(n_steps: int, seed: int = 40) -> list[np.ndarray]:
+    """Seeded segments, one batch per step: a decaying tone plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(GAN_SEG) / 22050.0
+    tone = np.sin(2 * np.pi * 440.0 * t) * np.exp(-4.0 * t / t[-1])
+    return [(0.3 * tone + 0.05 * rng.standard_normal((GAN_B, GAN_SEG))
+             ).astype(np.float32) for _ in range(n_steps)]
+
+
+def jax_gan_run(jax_gen, n_steps: int = 1):
+    """JAX's ``make_vocoder_train_step`` on ``jax_gen`` from its seed-0
+    init: the (generator params, discriminator params, spectral-norm
+    stats) before the first step, after each step, and each step's
+    metrics, as numpy.  Its log-mel Pallas kernel runs in interpret
+    mode."""
+    from smart_nar_fast_tts_tpu.audio.stft import (
+        MelSpectrogramConfig as JaxMelConfig)
+    from smart_nar_fast_tts_tpu.training import vocoder as jax_training
+    from smart_nar_fast_tts_tpu.vocoder.discriminators import (
+        HiFiGANDiscriminator as JaxDiscriminator)
+    disc = JaxDiscriminator(**GAN_DISC)
+    tx = jax_training.make_vocoder_optimizer(2e-4)
+    # jitted: an eager init compiles each of its many small ops
+    state = jax.jit(functools.partial(
+        jax_training.create_vocoder_state, jax_gen, disc, tx, tx,
+        segment_size=GAN_SEG, seed=0))()
+    snap = lambda s: jax.tree_util.tree_map(  # noqa: E731
+        np.asarray, (s.gen_params, s.disc_params, s.disc_stats))
+    initial, after, metrics = snap(state), [], []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SMART_TTS_PALLAS", "interpret")
+        step = jax_training.make_vocoder_train_step(
+            jax_gen, disc, JaxMelConfig(**GAN_MEL), tx, tx)
+        for wavs in gan_segments(n_steps):
+            state, m = step(state, jnp.asarray(wavs))
+            after.append(snap(state))
+            metrics.append({k: float(getattr(m, k)) for k in (
+                "disc", "gen_adv", "feature", "mel", "gen_total")})
+    return initial, after, metrics
+
+
+def check_gan_steps(jax_run, make_generator, gen_to_torch, n_steps: int = 1,
+                    metric_rtol: float = 1e-4, param_atol: float = 1e-5):
+    """The port's GAN step from JAX's initial trees, against JAX's metrics
+    and updated trees.  ``make_generator()`` builds the port's generator;
+    ``gen_to_torch(flat)`` maps JAX generator params to its state dict."""
+    import torch
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
+    from smart_nar_fast_tts_tpu_torch.training import (
+        VocoderOptimizer, create_vocoder_state, make_vocoder_train_step)
+    from smart_nar_fast_tts_tpu_torch.vocoder import HiFiGANDiscriminator
+    from smart_nar_fast_tts_tpu_torch.weights import (
+        jax_to_torch_discriminator)
+    initial, after, metrics = jax_run
+
+    def trees(gen_params, disc_params, disc_stats, disc):
+        return (gen_to_torch(flatten({"params": gen_params})),
+                jax_to_torch_discriminator(flatten(
+                    {"params": disc_params, "batch_stats": disc_stats}),
+                    disc))
+
+    gen, disc = make_generator(), HiFiGANDiscriminator(**GAN_DISC)
+    g, d = trees(*initial, disc)
+    gen.load_state_dict(g)
+    disc.load_state_dict(d)
+    tx = VocoderOptimizer(2e-4)
+    state = create_vocoder_state(gen, disc, tx, tx, device="cpu")
+    step = make_vocoder_train_step(MelSpectrogramConfig(**GAN_MEL))
+    kernels.reset_launches()
+    for i, wavs in enumerate(gan_segments(n_steps)):
+        got = step(state, torch.from_numpy(wavs))
+        for k, want in metrics[i].items():
+            np.testing.assert_allclose(float(getattr(got, k)), want,
+                                       rtol=metric_rtol,
+                                       err_msg=f"step {i + 1} {k}")
+    assert state.step == n_steps
+    assert kernels.launches()["fused_log_mel"] == 0      # CPU: plain version
+    want_g, want_d = trees(*after[n_steps - 1], disc)
+    for module, want in ((state.generator, want_g),
+                         (state.discriminator, want_d)):
+        got = module.state_dict()
+        assert got.keys() == want.keys()
+        for name in want:
+            np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                       atol=param_atol, err_msg=name)
