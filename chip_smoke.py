@@ -88,9 +88,9 @@ any failure raises (exit code 1):
             just before and read just after; every .wav and .png checked;
             durations exact and postnet mel within 1e-3 against the CPU
             (in (b) with the card's flash outputs replayed, each held to
-            ``attention_bf16_reference`` of its own inputs); then the five
-            CLIs (synthesize, train, evaluate, train_vocoder, preprocess)
-            and the vocoder package imported where yaml, matplotlib,
+            ``attention_bf16_reference`` of its own inputs); then the seven
+            CLIs (synthesize, train, evaluate, train_vocoder, preprocess,
+            import_checkpoint, train_g2p) and the vocoder package imported where yaml, matplotlib,
             tensorboard, msgpack and JAX cannot be
   preprocess cli  the preprocessing CLI from a raw corpus to training: the
             first 240 utterances (8 speakers, seed 0) of
@@ -107,6 +107,33 @@ any failure raises (exit code 1):
             store from a copy of the cli phase's flagship checkpoint
             (finite losses, a checkpoint written, one upsampling launch a
             step); the cli imports check covers ``cli.preprocess``
+  import checkpoint  the cli phase's checkpoint of the 8-speaker flagship
+            written as a reference ``20184.pth.tar`` (``{"model": ...,
+            "optimizer": ...}`` with the ``position_enc`` tables, bins and
+            ``num_batches_tracked`` only a reference state dict holds) under
+            the git-ignored ``build/import_smoke/``; ``cli.import_checkpoint``
+            on the card (no launch; the imported model bit-equal to the
+            saved one, ``data.json``); ``cli.synthesize --restore_step``
+            from it on sentence (a) and passage (b) (cap 4096: 4 flash and
+            2 upsampling launches), durations exact, postnet mel within
+            1e-3 and waveform within 1e-3 of the cli phase's runs
+  import resume  on the preprocess phase's card store with
+            ``intended``/``first`` extraction: ``cli.evaluate`` of the
+            imported and of the saved checkpoint (equal val losses, 4
+            alignment and 1 upsampling launch a batch), 2 resumed
+            ``cli.train`` steps from the imported one (updates 20185 and
+            20186 at their Noam rates, finite losses, 8 alignment and 2
+            upsampling launches, step 20186 saved); the file with a key
+            removed through ``python -m ...cli.import_checkpoint`` exits
+            non-zero naming it and writes nothing
+  train g2p ``cli.train_g2p --epochs 2`` on the committed seed lexicon on
+            the card and with ``--device cpu``: epoch 0's loss within 1e-4
+            relative (epoch 1's and the weights' distance reported: the
+            training amplifies rounding past its first epoch), seconds per
+            epoch, the card's held-out PER through the numpy ``G2PModel``;
+            on a 150-word slice (batch 16) both losses within 1e-4
+            relative and the weights within 1e-4; the cli imports check
+            covers ``cli.import_checkpoint`` and ``cli.train_g2p``
   train     the training slice's main path: ``make_train_step`` on the
             committed flagship with ``intended``/``first`` duration
             extraction (the alignment kernel's path) at the flagship training
@@ -217,6 +244,7 @@ of the repository, it exits non-zero before printing any result.
 """
 
 import copy
+import io
 import json
 import math
 import os
@@ -2476,7 +2504,7 @@ def cli_phase(torch, np, kernels):
         blocked = ("yaml", "matplotlib", "tensorboard", "jax", "flax",
                    "msgpack", "smart_nar_fast_tts_tpu")
         clis = ("synthesize", "train", "evaluate", "train_vocoder",
-                "preprocess")
+                "preprocess", "import_checkpoint", "train_g2p")
         code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
                 f"None\nfor c in {clis!r}:\n    __import__("
                 "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n"
@@ -2488,7 +2516,9 @@ def cli_phase(torch, np, kernels):
                                  f"{res.stderr[-2000:]}")
         f.update(blocked=list(blocked), clis=list(clis))
     return entry, report, dict(configs=paths, step=step, vocoder=voc,
-                               text_wav=runs["text"][0][0].wav)
+                               text_wav=runs["text"][0][0].wav,
+                               utts={name: runs[name][0]
+                                     for name in IMPORT_RUNS})
 
 
 # the preprocess CLI's raw corpus (build/preprocess_smoke/): the first 240
@@ -2762,6 +2792,424 @@ def preprocess_phase(torch, np, kernels, cli):
                  losses=[{k: float(v) for k, v in lo._asdict().items()}
                          for lo in losses])
     return counts, train_counts
+
+
+# the import phases (build/import_smoke/): the cli phase's checkpoint of the
+# committed 8-speaker flagship written as a reference <step>.pth.tar (with
+# the reference-only entries), imported by cli.import_checkpoint, served by
+# cli.synthesize; then evaluated and trained on the preprocess phase's card
+# store with intended/first extraction (configs/scaled/'s soft/mean runs no
+# alignment kernel), beside the directly saved checkpoint
+IMPORT_DIR = os.path.join(REPO, "build", "import_smoke")
+IMPORT_TRAIN_STEPS = 2
+IMPORT_RUNS = ("text", "long")     # the cli phase's runs served again
+
+
+def noam(step, d_model, warm_up):
+    """The Noam rate of 1-based update ``step`` without annealing
+    (reference ``model/optimizer.py``), written out apart from the port's
+    schedule."""
+    return d_model ** -0.5 * min(step ** -0.5, step * warm_up ** -1.5)
+
+
+def reference_file(torch, cfg, state_path, out_path):
+    """The model of the port checkpoint ``state_path`` in the reference's
+    layout, ``{"model": state_dict, "optimizer": ...}`` as reference
+    ``train.py`` saves it, the ``position_enc`` tables, quantization bins
+    and ``num_batches_tracked`` counters included.  Returns (the port's
+    state dict, the number of reference-only entries)."""
+    from smart_nar_fast_tts_tpu_torch.models.convert import (
+        port_state_dict_to_reference, reference_buffers)
+    saved = torch.load(state_path, map_location="cpu", weights_only=True)
+    extra = reference_buffers(cfg.model, cfg.preprocess)
+    sd = {**port_state_dict_to_reference(saved["model"], cfg.model),
+          **extra}
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()},
+                "optimizer": saved["optimizer"]}, out_path)
+    return saved["model"], len(extra)
+
+
+def import_phase(torch, np, kernels, cli):
+    """``cli.import_checkpoint`` on a reference-layout ``<step>.pth.tar`` of
+    the cli phase's checkpoint (the same weights and step), on the card:
+    the imported model bit-equal to the saved one, ``data.json``; then
+    ``cli.synthesize --restore_step <step>`` from it on the cli phase's runs
+    (a) and (b) (cap 4096: 4 flash and 2 upsampling launches), each with the
+    launch counts set to 0 just before and read just after, durations and
+    mel lengths exact, postnet mel within MEL_TOL and waveform within
+    WAV_TOL of the cli phase's run (the same weights and kernels: 0
+    expected).  Returns (the launches of each run, the reference file)."""
+    import contextlib
+    import io
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli import import_checkpoint
+    from smart_nar_fast_tts_tpu_torch.cli import synthesize
+    from smart_nar_fast_tts_tpu_torch.config import Config
+    from smart_nar_fast_tts_tpu_torch.training.checkpoint import (DATA_FILE,
+                                                                  STATE_FILE)
+    step = cli["step"]
+    with Phase("import setup") as f:
+        shutil.rmtree(IMPORT_DIR, ignore_errors=True)
+        os.makedirs(IMPORT_DIR)
+        paths = scaled_configs(IMPORT_DIR, {
+            "preprocessed_path": os.path.join(CLI_DIR, "preprocessed"),
+            **{key: os.path.join(IMPORT_DIR, key.split("_")[0])
+               for key in ("ckpt_path", "log_path", "result_path")}})
+        cfg = Config.from_yaml_triplet(*paths)
+        ref_path = os.path.join(IMPORT_DIR, f"{step}.pth.tar")
+        direct, n_extra = reference_file(
+            torch, cfg, os.path.join(CLI_DIR, "ckpt", str(step), STATE_FILE),
+            ref_path)
+        f.update(reference_file=os.path.relpath(ref_path, REPO),
+                 bytes=os.path.getsize(ref_path), reference_only=n_extra)
+    with Phase("import checkpoint") as f:
+        printed = io.StringIO()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            got = import_checkpoint.main(["--torch_ckpt", ref_path, "-p",
+                                          paths[0], "-m", paths[1], "-t",
+                                          paths[2]])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts(kernels)
+        line = printed.getvalue().strip()
+        if got != step or line != (f"imported step {step} -> "
+                                   f"{cfg.train.ckpt_path}"):
+            raise AssertionError(f"cli.import_checkpoint: {got}, {line!r}")
+        if any(counts.values()):
+            raise AssertionError(f"the import launched {counts}")
+        out_dir = os.path.join(cfg.train.ckpt_path, str(step))
+        saved = torch.load(os.path.join(out_dir, STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        if saved["step"] != step or saved["optimizer"]["state"]:
+            raise AssertionError("the imported step or optimizer state")
+        if saved["model"].keys() != direct.keys() or not all(
+                torch.equal(saved["model"][k], direct[k]) for k in direct):
+            raise AssertionError("the imported model differs from the "
+                                 "saved one")
+        with open(os.path.join(out_dir, DATA_FILE)) as fh:
+            data = json.load(fh)
+        if data != {"epoch": 0, "in_epoch": 0, "imported": True}:
+            raise AssertionError(f"data.json {data}")
+        f.update(step=step, wall_seconds=wall, launches=counts,
+                 tensors=len(direct), data_json=data,
+                 nvidia_smi=nvidia_smi())
+    base = ["-p", paths[0], "-m", paths[1], "-t", paths[2],
+            "--restore_step", str(step), "--vocoder_ckpt", cli["vocoder"]]
+    texts = {"text": ["--text", CLI_TEXT], "long": ["--text", CLI_LONG]}
+    entry = {}
+    for name in IMPORT_RUNS:
+        with Phase(f"import synthesize {name}") as f:
+            utts, counts, wall, seconds = cli_run(
+                torch, np, kernels, synthesize,
+                base + texts[name] + ["--speaker_id", str(CLI_SPEAKER)])
+            want = cli["utts"][name]
+            long = name == "long"
+            if counts["flash_attention"] != 4 * long or counts[
+                    "gaussian_upsample_banded"] != 1 + long:
+                raise AssertionError(f"import {name}: launches {counts}")
+            mel_err = wav_err = 0.0
+            for u, w in zip(utts, want, strict=True):
+                if (u.cap, u.mel_len) != (w.cap, w.mel_len) or \
+                        not np.array_equal(u.duration, w.duration):
+                    raise AssertionError(f"import {name} {u.name}: "
+                                         "capacity, mel_len or durations")
+                mel_err = max(mel_err, float(np.abs(u.postnet_mel
+                                                    - w.postnet_mel).max()))
+                wav_err = max(wav_err, float(np.abs(u.wav - w.wav).max()))
+            if not (mel_err <= MEL_TOL and wav_err <= WAV_TOL):
+                raise AssertionError(f"import {name}: postnet mel {mel_err}"
+                                     f", wav {wav_err} from the cli phase")
+            f.update(launches=counts, caps=sorted({u.cap for u in utts}),
+                     mel_lens=[u.mel_len for u in utts],
+                     postnet_mel_max_abs_err=mel_err, mel_tol=MEL_TOL,
+                     wav_max_abs_err=wav_err, wav_tol=WAV_TOL,
+                     wall_seconds=wall, rtf=wall / seconds)
+            entry[f"synthesize ({name})"] = counts
+    return entry, ref_path
+
+
+def import_resume_phase(torch, np, kernels, cli, ref_path):
+    """The imported checkpoint through the training CLIs on the preprocess
+    phase's card store, with ``intended``/``first`` extraction:
+    ``cli.evaluate --restore_step <step>`` from it and from the directly
+    saved checkpoint (the same val losses, exactly); ``cli.train
+    --restore_step <step> --total_step <step + 2>`` from it (updates
+    step + 1 and + 2 at the Noam rates of those steps, finite losses,
+    step + 2 saved); each with the launch counts set to 0 just before and
+    read just after.  Then ``python -m ...cli.import_checkpoint`` on the
+    file with one key removed exits non-zero, naming it, and writes
+    nothing.  Returns the launches of each run."""
+    import shutil
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.cli import evaluate as evaluate_cli
+    from smart_nar_fast_tts_tpu_torch.cli import train as train_cli
+    from smart_nar_fast_tts_tpu_torch.config import Config
+    from smart_nar_fast_tts_tpu_torch.training import (CheckpointManager,
+                                                       TrainState)
+    from smart_nar_fast_tts_tpu_torch.training import trainer as trainer_mod
+    step = cli["step"]
+    store = os.path.join(PRE_DIR, "card", "preprocessed")
+    sources = {"imported": os.path.join(IMPORT_DIR, "ckpt", str(step)),
+               "direct": os.path.join(CLI_DIR, "ckpt", str(step))}
+    with Phase("import resume setup") as f:
+        argv = {}
+        for run, source in sources.items():
+            root = os.path.join(IMPORT_DIR, run)
+            os.makedirs(root)
+            paths = scaled_configs(root, {
+                "preprocessed_path": store, "duration_extraction": "intended",
+                "duration_head_reduce": "first",
+                **{key: os.path.join(root, key.split("_")[0])
+                   for key in ("ckpt_path", "log_path", "result_path")}})
+            cfg = Config.from_yaml_triplet(*paths)
+            if (cfg.model.duration_extraction, cfg.model.duration_head_reduce
+                    ) != ("intended", "first"):
+                raise AssertionError(f"model config {cfg.model}")
+            shutil.copytree(source, os.path.join(cfg.train.ckpt_path,
+                                                 str(step)))
+            argv[run] = ["-p", paths[0], "-m", paths[1], "-t", paths[2]]
+        f.update(store=os.path.relpath(store, REPO), configs=argv)
+    runs = {}
+    with Phase("import resume") as f:
+        losses = {}
+        for run in sources:
+            kernels.reset_launches()
+            losses[run] = evaluate_cli.main(argv[run] + [
+                "--restore_step", str(step)])
+            torch.cuda.synchronize()
+            runs[f"evaluate ({run})"] = launch_counts(kernels)
+        if losses["imported"] != losses["direct"] or not all(
+                math.isfinite(v) for v in losses["imported"]):
+            raise AssertionError(f"val losses {losses}")
+        ev = runs["evaluate (imported)"]
+        if not ev["alignment_attention"] or ev["alignment_attention"] != \
+                4 * ev["gaussian_upsample_banded"]:
+            raise AssertionError(f"evaluate launches {ev}")
+
+        apply, updates, train_losses = TrainState.apply_gradients, [], []
+
+        def recording_apply(self):
+            norm = apply(self)
+            updates.append((self.step,
+                            self.optimizer.param_groups[0]["lr"]))
+            return norm
+
+        make = trainer_mod.make_train_step
+
+        def recording_make(*args, **kwargs):
+            train_step = make(*args, **kwargs)
+
+            def spy(*a, **k):
+                out = train_step(*a, **k)
+                train_losses.append(out)
+                return out
+            return spy
+
+        total = step + IMPORT_TRAIN_STEPS
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(TrainState, "apply_gradients",
+                               recording_apply), \
+                mock.patch.object(trainer_mod, "make_train_step",
+                                  recording_make):
+            trainer = train_cli.main(argv["imported"] + [
+                "--restore_step", str(step), "--total_step", str(total)])
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        runs["train resume"] = counts = launch_counts(kernels)
+        cfg = trainer.cfg
+        opt = cfg.train.optimizer
+        d_model = cfg.model.transformer.encoder_hidden
+        if opt.anneal_steps or [s for s, _ in updates] != list(
+                range(step + 1, total + 1)):
+            raise AssertionError(f"updates {updates}")
+        for s, lr in updates:
+            if not math.isclose(lr, noam(s, d_model, opt.warm_up_step),
+                                rel_tol=1e-12):
+                raise AssertionError(f"step {s}: lr {lr}")
+        for s, lo in zip(range(step + 1, total + 1), train_losses,
+                         strict=True):
+            check_finite_losses(torch, lo, f"resumed step {s}")
+        saved = CheckpointManager(cfg.train.ckpt_path).all_steps()
+        if saved != [step, total]:
+            raise AssertionError(f"checkpoints {saved}")
+        want = {k: 0 for k in counts}
+        want.update({k: v * IMPORT_TRAIN_STEPS
+                     for k, v in PER_TRAIN_STEP.items()})
+        if counts != want:
+            raise AssertionError(f"resumed launches {counts}, expected "
+                                 f"{want}")
+
+        bad_path = os.path.join(IMPORT_DIR, f"{step}_missing.pth.tar")
+        raw = torch.load(ref_path, map_location="cpu", weights_only=True)
+        removed = "mel_linear.bias"
+        del raw["model"][removed]
+        torch.save(raw, bad_path)
+        bad_ckpt = os.path.join(IMPORT_DIR, "refused")
+        os.makedirs(bad_ckpt)
+        bad_paths = scaled_configs(bad_ckpt, {
+            "preprocessed_path": os.path.join(CLI_DIR, "preprocessed"),
+            "ckpt_path": os.path.join(bad_ckpt, "ckpt")})
+        res = subprocess.run(
+            [sys.executable, "-m",
+             "smart_nar_fast_tts_tpu_torch.cli.import_checkpoint",
+             "--torch_ckpt", bad_path, "--step", str(step), "-p",
+             bad_paths[0], "-m", bad_paths[1], "-t", bad_paths[2]],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        message = res.stderr.strip().splitlines()[-1] if res.stderr else ""
+        if res.returncode == 0 or message != (
+                f"param tree mismatch: missing=['{removed}'] extra=[]") \
+                or os.path.exists(os.path.join(bad_ckpt, "ckpt")):
+            raise AssertionError(f"the mismatched file: rc {res.returncode}"
+                                 f"\n{res.stderr[-2000:]}")
+        f.update(launches=runs, val_losses=dict(losses["imported"]._asdict()),
+                 val_losses_equal=True,
+                 updates=[{"step": s, "lr": lr} for s, lr in updates],
+                 train_losses=[{k: float(v) for k, v in lo._asdict().items()}
+                               for lo in train_losses],
+                 train_wall_seconds=train_wall, checkpoints=saved,
+                 mismatched_exit_code=res.returncode,
+                 mismatched_message=message, nvidia_smi=nvidia_smi())
+    return runs
+
+
+# cli.train_g2p (build/g2p_smoke/) on the card and on the CPU from the same
+# seed: on the committed seed lexicon for 2 epochs, and on every 13th word
+# of it (150 words, batch 16, 2 epochs; tests/test_torch_train_g2p.py's
+# slice).  The full run's second epoch is reported, not held: the training
+# amplifies rounding, and past its first epoch two runs whose products
+# round apart (another device, or the CPU at another thread count) no
+# longer agree to 1e-4; so the gates hold its first epoch and the slice
+G2P_DIR = os.path.join(REPO, "build", "g2p_smoke")
+G2P_EPOCHS = 2
+G2P_SLICE_STEP, G2P_SLICE_BATCH = 13, 16
+G2P_LOSS_RTOL = 1e-4   # an epoch's loss, card against CPU
+G2P_ATOL = 1e-4        # the slice's saved arrays, card against CPU
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout that keeps each printed line with the ``perf_counter`` time
+    it was completed at."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, s):
+        *done, self._part = (self._part + s).split("\n")
+        now = time.perf_counter()
+        self.lines += [(now, line) for line in done]
+        return len(s)
+
+
+def run_train_g2p(argv):
+    """``cli.train_g2p.main(argv)`` with its printed lines timed.  Returns
+    (the report, [(seconds since the call, line)], wall seconds)."""
+    import contextlib
+
+    from smart_nar_fast_tts_tpu_torch.cli import train_g2p
+    out = TimedLines()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        report = train_g2p.main(argv)
+    wall = time.perf_counter() - t0
+    return report, [(t - t0, line) for t, line in out.lines], wall
+
+
+def epoch_lines(lines):
+    """{epoch: (seconds, loss)} of the trainer's ``epoch N  loss L``
+    lines."""
+    return {int(line.split()[1]): (t, float(line.split()[-1]))
+            for t, line in lines if line.startswith("epoch")}
+
+
+def g2p_runs(np, name, argv):
+    """``argv`` through :func:`run_train_g2p` on the card and with
+    ``--device cpu``, each into its own file: {device: run}, and the
+    largest difference of the saved arrays."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(G2P_DIR, f"{name}_{device}.npz")
+        report, lines, wall = run_train_g2p(
+            argv + ["--out", out]
+            + (["--device", "cpu"] if device == "cpu" else []))
+        epochs = epoch_lines(lines)
+        if sorted(epochs) != list(range(G2P_EPOCHS)):
+            raise AssertionError(f"{name} {device}: printed {lines}")
+        runs[device] = dict(
+            report=report, out=out, wall_seconds=wall,
+            first_epoch_seconds=epochs[0][0],
+            seconds_per_epoch=(epochs[G2P_EPOCHS - 1][0] - epochs[0][0])
+            / (G2P_EPOCHS - 1),
+            losses=[epochs[e][1] for e in range(G2P_EPOCHS)],
+            other_lines=[line for _, line in lines
+                         if not line.startswith(("epoch", "{"))])
+    card, cpu = runs["cuda"], runs["cpu"]
+    if card["other_lines"] != cpu["other_lines"]:
+        raise AssertionError(f"{name}: the augmentation lines differ")
+    with np.load(card["out"]) as a, np.load(cpu["out"]) as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError(f"{name}: the saved arrays' names differ")
+        err = max(float(np.abs(a[k] - b[k]).max()) for k in a.files)
+    return runs, err
+
+
+def loss_rel(runs):
+    """Each epoch's printed loss, card against CPU, relative."""
+    return [abs(a - b) / abs(b) for a, b in zip(runs["cuda"]["losses"],
+                                               runs["cpu"]["losses"])]
+
+
+def train_g2p_phase(torch, np):
+    """``cli.train_g2p --epochs 2`` on the card and with ``--device cpu``
+    from the same seed: on the committed seed lexicon, the same
+    augmentation line, epoch 0's loss within G2P_LOSS_RTOL (epoch 1's and
+    the arrays' distance reported), the card's file through the port's
+    ``G2PModel``, its held-out PER (the report's), seconds per epoch
+    (between the epochs' lines) and the first epoch's; on the 150-word
+    slice, both epochs' losses within G2P_LOSS_RTOL and every saved array
+    within G2P_ATOL."""
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli.train_g2p import load_pairs
+    from smart_nar_fast_tts_tpu_torch.text import g2p_model
+    shutil.rmtree(G2P_DIR, ignore_errors=True)
+    os.makedirs(G2P_DIR)
+    with Phase("train g2p") as f:
+        runs, arr_err = g2p_runs(np, "seed", ["--epochs", str(G2P_EPOCHS)])
+        rel = loss_rel(runs)
+        if not rel[0] <= G2P_LOSS_RTOL:
+            raise AssertionError(f"train_g2p epoch 0 loss, card against "
+                                 f"CPU: {rel[0]}")
+        model = g2p_model.G2PModel(runs["cuda"]["out"])
+        words = ("hello", "zorblax", "quixotic")
+        if not all(model.predict(w) for w in words):
+            raise AssertionError("the card's model predicts nothing")
+        f.update(runs=runs, loss_rel_err=rel, loss_rtol=G2P_LOSS_RTOL,
+                 arrays_max_abs_err=arr_err,
+                 card_heldout_per=runs["cuda"]["report"]["per"],
+                 card_predictions={w: model.predict(w) for w in words},
+                 nvidia_smi=nvidia_smi())
+    with Phase("train g2p slice") as f:
+        pairs = load_pairs(g2p_model.DEFAULT_SEED_LEXICON)
+        words = sorted(pairs)[::G2P_SLICE_STEP]
+        lexicon = os.path.join(G2P_DIR, "slice.txt")
+        with open(lexicon, "w") as fh:
+            fh.writelines(f"{w.upper()}  {' '.join(pairs[w])}\n"
+                          for w in words)
+        runs, arr_err = g2p_runs(np, "slice", [
+            "--lexicon", lexicon, "--epochs", str(G2P_EPOCHS),
+            "--batch_size", str(G2P_SLICE_BATCH)])
+        rel = loss_rel(runs)
+        if not (max(rel) <= G2P_LOSS_RTOL and arr_err <= G2P_ATOL):
+            raise AssertionError(f"train_g2p slice, card against CPU: loss "
+                                 f"{rel}, arrays {arr_err}")
+        f.update(words=len(words), runs=runs, loss_rel_err=rel,
+                 loss_rtol=G2P_LOSS_RTOL, arrays_max_abs_err=arr_err,
+                 arrays_atol=G2P_ATOL)
 
 
 # the trainer CLI's corpus and run (build/trainer_smoke/): 96 train
@@ -4098,6 +4546,10 @@ def main() -> int:
     v3_counts = v3_phase(torch, np, kernels, short)
     exported_counts = export_phase(torch, np, kernels, cli)
     pre_counts, pre_train_counts = preprocess_phase(torch, np, kernels, cli)
+    import_counts, ref_path = import_phase(torch, np, kernels, cli)
+    import_counts.update(import_resume_phase(torch, np, kernels, cli,
+                                             ref_path))
+    train_g2p_phase(torch, np)
 
     train_counts, train_step_ms = train_phase(torch, np, kernels, synth, inv)
     train_reference_phase(torch, np, inv)
@@ -4122,9 +4574,11 @@ def main() -> int:
         """A kernel's launches on the streaming vocoder's path (its
         windows and the CLI's --stream_chunk run), bf16 serving (cap 1000
         / cap 4096), the HiFi-GAN V3 forward, one served call of the
-        exported artifacts per text, and the Vocos and MelGAN paths: a
+        exported artifacts per text, the Vocos and MelGAN paths (a
         serving batch, the streaming windows, 4 steps of cli.train_vocoder
-        and one served call of the Vocos export."""
+        and one served call of the Vocos export), and the imported
+        checkpoint's runs: cli.synthesize (a) and (b), cli.evaluate (from
+        it and from the directly saved one) and the resumed cli.train."""
         def get(counts):
             return counts.get(name, 0)
         return dict(
@@ -4135,6 +4589,7 @@ def main() -> int:
             launches_cli_train_vocoder_family={
                 k: get(c) for k, c in fam_cli_counts.items()},
             launches_exported_vocos=get(vocos_export_counts),
+            launches_cli_import={k: get(c) for k, c in import_counts.items()},
             launches_streaming={"windows": get(stream_counts),
                                 "cli": get(stream_cli["cli"])},
             launches_bf16_serving={"cap1000": get(bf16_counts),

@@ -4,14 +4,19 @@ Replaces the reference's ``g2p_en`` neural OOV fallback
 (``synthesize.py:36,43`` — a trained seq2seq run per out-of-lexicon word)
 with an in-repo equivalent (VERDICT.md Missing #2): a character-level
 encoder/decoder GRU with Luong attention, trained by
-``cli/train_g2p.py`` (JAX) on any CMUdict-style lexicon and executed here
-in pure numpy — host-side text frontend work, never on the TPU path, and
-free of any framework dependency at synthesis time.
+``cli/train_g2p.py`` (the JAX package's, or the port's on the card) on any
+CMUdict-style lexicon and executed here in pure numpy — host-side text
+frontend work, never on the device path, and free of any framework
+dependency at synthesis time.
 
 A default model trained on the committed seed lexicon
-(``text/data/seed_lexicon.txt``) ships as ``text/data/g2p_weights.npz``;
-``G2P`` (``text/g2p.py``) uses it automatically for OOV words, lexicon
-lookups first, exactly like the reference.
+(``text/data/seed_lexicon.txt``) ships with the JAX package as
+``text/data/g2p_weights.npz``.  The port's ``cli.train_g2p`` writes its
+model into the port's own package (:data:`TRAINED_WEIGHTS`), never into the
+JAX package; :func:`load_default` reads that file when it exists and the
+JAX package's otherwise.  ``G2P`` (``text/g2p.py``) uses the default model
+automatically for OOV words, lexicon lookups first, exactly like the
+reference.
 
 Cell math (shared contract with the JAX trainer — both implement these
 formulas directly so the exported weights mean the same thing):
@@ -58,6 +63,9 @@ _DATA_DIR = os.path.join(
         __file__)))), "smart_nar_fast_tts_tpu", "text", "data")
 DEFAULT_WEIGHTS = os.path.join(_DATA_DIR, "g2p_weights.npz")
 DEFAULT_SEED_LEXICON = os.path.join(_DATA_DIR, "seed_lexicon.txt")
+# what the port's cli.train_g2p writes by default (not committed)
+TRAINED_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "data", "g2p_weights.npz")
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:
@@ -134,11 +142,15 @@ _default_missing = False
 
 
 def load_default() -> Optional[G2PModel]:
-    """The committed default model, or None when no weights are present."""
+    """The model of :data:`TRAINED_WEIGHTS` when the port's trainer wrote
+    one, else the JAX package's committed model; None when neither file is
+    present."""
     global _default_model, _default_missing
     if _default_model is None and not _default_missing:
-        if os.path.exists(DEFAULT_WEIGHTS):
-            _default_model = G2PModel(DEFAULT_WEIGHTS)
+        for path in (TRAINED_WEIGHTS, DEFAULT_WEIGHTS):
+            if os.path.exists(path):
+                _default_model = G2PModel(path)
+                break
         else:
             _default_missing = True
     return _default_model

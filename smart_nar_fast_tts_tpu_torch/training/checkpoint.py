@@ -2,8 +2,9 @@
 format.
 
 The JAX package saves with orbax (``training/checkpoint.py``), which the
-card's machine cannot read; converting such a checkpoint waits for the
-port's ``cli/import_checkpoint``.  Here a step is the directory
+card's machine cannot read, and the port does not read those; a reference
+``<step>.pth.tar`` comes in through ``cli/import_checkpoint.py``.  Here a
+step is the directory
 ``<directory>/<step>/`` holding ``state.pt`` (``torch.save`` of the model's
 state dict, the optimizer's state dict and the step) and ``data.json`` (the
 data iterator's position).  The manager keeps the newest ``max_to_keep``
