@@ -236,6 +236,34 @@ any failure raises (exit code 1):
             after); ``ExportedTTS.synthesize`` of sentence (a) within 1e-3
             of the live ``Synthesizer`` with Vocos, its launches held to
             the programs' operator calls; ``stream`` within 1e-4 of it
+  multi_device  the multi-device axes (``parallel/``) on WORLD ranks, one
+            per card over NCCL (WORLD the largest power of two up to
+            min(4, cards): 1 on a one-card machine, a one-rank
+            communicator), spawned by ``torch.multiprocessing``; each rank
+            holds its launch counts and rank 0 each path against the single
+            card: the DP step (the committed flagship, intended/first, on
+            the train phase's batch B 48 × T 896, mesh (WORLD,), 3 steps:
+            losses and the step-1 gradient norm within 1e-4, parameters
+            after step 1 within 2·lr(1), the same on every rank); the SP
+            step (the decoder's self-attention ringed over the world, B 8,
+            T 2048, where the dense step takes the f32 einsum: losses 1e-4,
+            gradients at JAX's bar, the same on every rank), with WORLD ≥ 4
+            the hybrid (2, WORLD/2) step, then one SP step at T 8192 beside
+            the dense single-card one (flash), ms and peak memory reported;
+            the committed HiFi-GAN V1 channel-sharded over mesh (1, WORLD)
+            (and (2, WORLD/2)) on the serving batch's mel within 2e-4, stage
+            B ms; the DP GAN step (B 16 × 8192, 2 steps, metrics within
+            1e-3); prints the world and the cards on lines of their own
+  multi_device cli  the training CLIs under ``torch.distributed.run
+            --standalone --nproc_per_node WORLD`` (this script's
+            ``--rank-cli`` mode, one rank a card) on the trainer phase's
+            corpus, from a copy of its step-0 checkpoint under the
+            git-ignored ``build/multi_device_smoke/``: ``cli.train
+            --distributed`` to step 2, resumed to step 3 (one validation),
+            only rank 0 writing checkpoints, logs and event files;
+            ``cli.evaluate`` of step 3 within 1e-4 of the same CLI in one
+            process; ``cli.train_vocoder`` for 2 GAN steps; each rank's
+            launches held
 
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -2508,7 +2536,9 @@ def cli_phase(torch, np, kernels):
         code = (f"import sys\nfor n in {blocked!r}:\n    sys.modules[n] = "
                 f"None\nfor c in {clis!r}:\n    __import__("
                 "'smart_nar_fast_tts_tpu_torch.cli.' + c)\n"
-                "import smart_nar_fast_tts_tpu_torch.vocoder\n")
+                "import smart_nar_fast_tts_tpu_torch.vocoder\n"
+                "import smart_nar_fast_tts_tpu_torch.vocoder.sharding\n"
+                "import smart_nar_fast_tts_tpu_torch.parallel\n")
         res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
@@ -4465,6 +4495,697 @@ def export_vocos_phase(torch, np, kernels, served, cli):
     return counts
 
 
+# the multi-device phases (smart_nar_fast_tts_tpu_torch/parallel/): WORLD
+# ranks, one per card, over NCCL; WORLD is the largest power of two up to
+# min(4, cards), so 1 on a one-card machine (a one-rank communicator: NCCL
+# refuses two ranks on one card)
+MD_DIR = os.path.join(REPO, "build", "multi_device_smoke")
+MD_WORLD_MAX = 4
+MD_TRAIN_STEPS = 3
+MD_DEADLINE_S = 300
+# the SP step (decoder self-attention ringed over the world): T 2048, where
+# the dense step takes the f32 einsum (layers.FLASH_MIN_LEN), then T 8192
+SP_B, SP_L, SP_T, SP_T_LONG = 8, 128, 2048, 8192
+# JAX's SP gradient bar (tests/test_sequence_parallel.py:209-211)
+SP_GRAD_ATOL, SP_GRAD_RTOL = 2e-5, 2e-3
+# the channel-sharded HiFi-GAN against one card (tests/test_vocoder.py:
+# 226-246)
+TP_TOL = 2e-4
+MD_GAN_STEPS = 2
+MD_GAN_RTOL = 1e-3
+MD_CLI_STEPS = (2, 3)       # cli.train --distributed to step 2, resumed to 3
+
+
+def md_world(torch):
+    n = min(MD_WORLD_MAX, torch.cuda.device_count())
+    return 1 << (n.bit_length() - 1)
+
+
+def md_counts(kernels):
+    return {**kernels.launches(), **kernels.route_launches()}
+
+
+def md_expect(kernels, per, n):
+    want = {k: 0 for k in md_counts(kernels)}
+    want.update({k: v * n for k, v in per.items()})
+    return want
+
+
+def md_check_counts(kernels, what, per, n):
+    counts = md_counts(kernels)
+    want = md_expect(kernels, per, n)
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+    return counts
+
+
+def md_timed(torch, fn):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def md_grads(state):
+    return [p.grad.detach().clone() if p.grad is not None else
+            p.detach().new_zeros(p.shape) for p in state.params]
+
+
+def md_same_on_every_rank(torch, tensors):
+    """Whether ``tensors`` equal rank 0's, bit for bit, on this rank."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    ref = flat.clone()
+    torch.distributed.broadcast(ref, 0)
+    return bool(torch.equal(flat, ref))
+
+
+def md_grad_check(torch, name, got, want, names, gate=True):
+    """JAX's SP bar: atol SP_GRAD_ATOL·max(scale, 1), rtol SP_GRAD_RTOL.
+    Returns the largest |got − want| and each gradient's worst share of
+    its bar (the five largest, by name); raises past it with ``gate``."""
+    scale = max(float(g.abs().max()) for g in want)
+    atol = SP_GRAD_ATOL * max(scale, 1.0)
+    worst, share = 0.0, {}
+    for n, g, w in zip(names, got, want):
+        err = (g - w).abs()
+        worst = max(worst, float(err.max()))
+        share[n] = float((err / (atol + SP_GRAD_RTOL * w.abs())).max())
+    top = dict(sorted(share.items(), key=lambda kv: -kv[1])[:5])
+    bad = {n: v for n, v in top.items() if not v <= 1.0}
+    if bad and gate:
+        raise AssertionError(f"{name}: gradients beyond atol {SP_GRAD_ATOL}"
+                             f"·max(scale, 1) rtol {SP_GRAD_RTOL} (share "
+                             f"of the bar): {bad}, scale {scale}")
+    return worst, scale, top
+
+
+def md_losses(torch, name, got, want):
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items()}
+    bad = {k: e for k, e in rel.items() if not e <= TRAIN_RTOL}
+    if bad:
+        raise AssertionError(f"{name}: losses beyond rtol {TRAIN_RTOL}: "
+                             f"{bad}")
+    return max(rel.values())
+
+
+def md_floats(losses):
+    return {k: float(v) for k, v in losses._asdict().items()}
+
+
+_MD_FLAGSHIP = {}
+
+
+def md_flagship(cfg):
+    """The committed flagship built with ``cfg`` (any duration extraction,
+    sequence parallel or not), its weights read once a process."""
+    from smart_nar_fast_tts_tpu_torch.config import (FeatureStats,
+                                                     PreprocessConfig)
+    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Align
+    from smart_nar_fast_tts_tpu_torch.serving import committed_flagship
+    if not _MD_FLAGSHIP:
+        _MD_FLAGSHIP["state"] = committed_flagship(cfg).state_dict()
+        with open(os.path.join(REPO, "benchmarks", "results",
+                               "flagship_meta.json")) as f:
+            _MD_FLAGSHIP["stats"] = FeatureStats(**json.load(f)["stats"])
+    model = FastSpeech2Align(cfg,
+                             PreprocessConfig(stats=_MD_FLAGSHIP["stats"]))
+    model.load_state_dict(_MD_FLAGSHIP["state"])
+    return model
+
+
+def md_dp(torch, kernels, inputs, world, rank):
+    """DP: the committed flagship (intended/first) on train_phase's batch,
+    mesh (world,), MD_TRAIN_STEPS steps.  Before each step every rank
+    copies the state and takes the single-card step of the whole batch on
+    its own card from the same parameters and Adam moments: its losses and
+    gradient norm within TRAIN_RTOL, its parameters after step 1 within
+    2·lr(1) (two runs of one step part by rounding; Adam's first update
+    moves an element whose gradient is rounding noise by ±lr(1)).  From
+    one update on the argmax durations settle near-ties their own way, so
+    a run is never held to a second run of several steps."""
+    import copy
+
+    from smart_nar_fast_tts_tpu_torch.config import ModelConfig
+    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss
+    from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
+    from smart_nar_fast_tts_tpu_torch.training import (compute_gradients,
+                                                       create_train_state)
+    cfg = ModelConfig(duration_extraction="intended",
+                      duration_head_reduce="first")
+    batch, loss_fn = inputs["train_batch"], FastSpeech2Loss()
+    mesh = make_mesh((world,), ("data",))
+    state = create_train_state(md_flagship(cfg))
+
+    def step(st, m):
+        lb, _ = compute_gradients(st, loss_fn, batch, mesh=m)
+        return md_floats(lb), float(st.apply_gradients())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = {k: 0 for k in md_counts(kernels)}
+    res = dict(mesh=mesh.shape, rows_per_rank=TRAIN_B // world, step_ms=[],
+               losses=[], grad_norms=[], single_card_step_ms=[],
+               losses_max_relative_err=[], grad_norm_relative_err=[])
+    for i in range(MD_TRAIN_STEPS):
+        ref = copy.deepcopy(state)
+        (ref_losses, ref_norm), ref_ms = md_timed(
+            torch, lambda: step(ref, None))
+        # the main path's launches: the DP steps only
+        kernels.reset_launches()
+        (losses, norm), ms = md_timed(torch, lambda: step(state, mesh))
+        counts = {k: counts[k] + v for k, v in md_counts(kernels).items()}
+        res["step_ms"].append(ms)
+        res["losses"].append(losses)
+        res["grad_norms"].append(norm)
+        res["single_card_step_ms"].append(ref_ms)
+        res["losses_max_relative_err"].append(
+            md_losses(torch, f"DP step {i + 1}", losses, ref_losses))
+        rel = abs(norm - ref_norm) / ref_norm
+        res["grad_norm_relative_err"].append(rel)
+        if not rel <= TRAIN_RTOL:
+            raise AssertionError(f"DP step {i + 1}: gradient norm off by "
+                                 f"{rel}")
+        if i == 0:
+            diff = max(float((a - b).detach().abs().max())
+                       for a, b in zip(state.params, ref.params))
+            res.update(params_step1_max_abs_diff=diff,
+                       params_step1_bound=2 * state.lr(1),
+                       params_same_on_every_rank=md_same_on_every_rank(
+                           torch, state.params))
+            if not diff <= 2 * state.lr(1):
+                raise AssertionError(f"DP: parameters after step 1 differ "
+                                     f"by {diff} > 2·lr(1)")
+            if not res["params_same_on_every_rank"]:
+                raise AssertionError("DP: the ranks' parameters differ")
+        del ref
+    want = md_expect(kernels, PER_TRAIN_STEP, MD_TRAIN_STEPS)
+    if counts != want:
+        raise AssertionError(f"DP train steps: launches {counts}, expected "
+                             f"{want}")
+    res.update(launches=counts,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return res
+
+
+def md_sp(torch, kernels, inputs, world, rank):
+    """SP: the flagship with its decoder self-attention ringed over the
+    world, mesh (world,), at T SP_T against the dense single-card step of
+    the same weights (rank 0): on the committed weights losses within
+    TRAIN_RTOL and the gradients' share of JAX's bar reported; on
+    seeded-init weights of the same widths (JAX's own SP test: fresh
+    weights, hidden 256, T 2048) losses and gradients at JAX's bar.  The
+    committed weights' attention logits run to ~1e3: there two correct
+    f32 paths (the ring's online softmax and the einsum's) part by several
+    times that bar, as each parts from float64.  With world ≥ 4 the hybrid
+    (2, world/2) step on the seeded weights; then one SP step at SP_T_LONG
+    beside the dense single-card one."""
+    from smart_nar_fast_tts_tpu_torch.config import ModelConfig
+    from smart_nar_fast_tts_tpu_torch.models import (FastSpeech2Align,
+                                                     FastSpeech2Loss)
+    from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
+    from smart_nar_fast_tts_tpu_torch.training import (compute_gradients,
+                                                       create_train_state)
+    loss_fn = FastSpeech2Loss()
+
+    def cfg(**sp):
+        return ModelConfig(duration_extraction="intended",
+                           duration_head_reduce="first", **sp)
+
+    def seeded(config):
+        torch.manual_seed(0)
+        return FastSpeech2Align(config)
+
+    def grads_of(model, batch, **meshes):
+        state = create_train_state(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        (lb, _), ms = md_timed(torch, lambda: compute_gradients(
+            state, loss_fn, batch, **meshes))
+        kind = "SP" if model.cfg.sequence_parallel else "dense"
+        counts = md_check_counts(kernels, f"{kind} T {batch.mels.shape[1]}",
+                                 PER_TRAIN_STEP, 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        return md_grads(state), md_floats(lb), ms, counts, peak
+
+    flat = make_mesh((world,), ("data",))
+    names = [n for n, _ in seeded(cfg()).named_parameters()]
+    batch = inputs["sp_batch"]
+    res = {}
+    for weights, make in (("committed", md_flagship), ("seeded", seeded)):
+        grads, losses, ms, counts, peak = grads_of(
+            make(cfg(sequence_parallel=True)), batch, sp_mesh=flat)
+        entry = dict(mesh=flat.shape, T=SP_T, weights=weights,
+                     losses=losses, forward_backward_ms=ms, launches=counts,
+                     peak_mem_gib=peak, frames_per_rank=SP_T // world,
+                     grads_same_on_every_rank=md_same_on_every_rank(
+                         torch, grads))
+        if not entry["grads_same_on_every_rank"]:
+            raise AssertionError(f"SP ({weights}): the ranks' gradients "
+                                 "differ")
+        if rank == 0:
+            dense, dense_losses, dense_ms, _, dense_peak = grads_of(
+                make(cfg()), batch)
+            # two dense runs part by the card's own rounding (cuDNN's and
+            # the embedding's backward sum in no fixed order)
+            _, _, noise = md_grad_check(torch, "dense",
+                                        grads_of(make(cfg()), batch)[0],
+                                        dense, names, gate=False)
+            worst, scale, top = md_grad_check(
+                torch, f"SP ({weights})", grads, dense, names,
+                gate=weights == "seeded")
+            entry.update(
+                dense_losses=dense_losses, dense_forward_backward_ms=dense_ms,
+                dense_peak_mem_gib=dense_peak,
+                losses_max_relative_err=md_losses(
+                    torch, f"SP ({weights})", losses, dense_losses),
+                grad_max_abs_err=worst, grad_scale=scale,
+                grad_bar_share_top5=top, dense_vs_dense_bar_share_top5=noise)
+            if weights == "seeded":
+                seeded_dense = (dense_losses, dense)
+        res[f"sp {weights}"] = entry
+        del grads
+    if world >= 4:
+        grid = make_mesh((2, world // 2), ("data", "seq"))
+        grads, losses, ms, counts, peak = grads_of(
+            seeded(cfg(sequence_parallel=True, sp_axis="seq")), batch,
+            mesh=grid, sp_mesh=grid)
+        res["hybrid"] = dict(mesh=grid.shape, weights="seeded",
+                             losses=losses, forward_backward_ms=ms,
+                             launches=counts, peak_mem_gib=peak,
+                             grads_same_on_every_rank=md_same_on_every_rank(
+                                 torch, grads))
+        if rank == 0:
+            worst, _, top = md_grad_check(torch, "hybrid", grads,
+                                          seeded_dense[1], names)
+            res["hybrid"].update(
+                losses_max_relative_err=md_losses(
+                    torch, "hybrid", losses, seeded_dense[0]),
+                grad_max_abs_err=worst, grad_bar_share_top5=top)
+        del grads
+        if not res["hybrid"]["grads_same_on_every_rank"]:
+            raise AssertionError("hybrid: the ranks' gradients differ")
+    if rank == 0:
+        del seeded_dense
+
+    # one SP step at SP_T_LONG, and the dense single-card one (flash past
+    # 2048 frames: its 4 decoder self-attentions)
+    def long_step(config, per, **meshes):
+        state = create_train_state(md_flagship(config))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+
+        def step():
+            lb, _ = compute_gradients(state, loss_fn, inputs["sp_long"],
+                                      **meshes)
+            state.apply_gradients()
+            return lb
+        lb, ms = md_timed(torch, step)
+        counts = md_check_counts(kernels, f"T {SP_T_LONG} step", per, 1)
+        del state
+        return dict(step_ms=ms, launches=counts, losses=md_floats(lb),
+                    peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    res["sp_long"] = dict(T=SP_T_LONG, **long_step(
+        cfg(sequence_parallel=True), PER_TRAIN_STEP, sp_mesh=flat))
+    if rank == 0:
+        from smart_nar_fast_tts_tpu_torch.models.layers import FLASH_MIN_LEN
+        flash = cfg().transformer.decoder_layer * (SP_T_LONG > FLASH_MIN_LEN)
+        res["sp_long"]["dense_single_card"] = long_step(
+            cfg(), dict(PER_TRAIN_STEP, flash_attention=flash))
+    torch.cuda.empty_cache()
+    return res
+
+
+def md_tp(torch, inputs, world):
+    """The committed HiFi-GAN V1 channel-sharded over the world on the
+    serving batch's mel: mesh (1, world), and (2, world/2) with world ≥ 4,
+    against the single-card generator."""
+    from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
+    from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
+    from smart_nar_fast_tts_tpu_torch.vocoder import shard_hifigan
+    gen = committed_vocoder().cuda().eval()
+    mel = inputs["serving_mel"].cuda()
+    with torch.inference_mode():
+        ref = gen(mel)
+        res = dict(single_card_stage_b_ms=wall_ms(lambda: gen(mel), torch))
+    shapes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
+    for shape in shapes:
+        fwd = shard_hifigan(gen, make_mesh(shape, ("data", "model")))
+        err = check_close(f"TP HiFi-GAN {shape}", fwd(mel), ref, TP_TOL,
+                          torch)
+        res[f"mesh {shape}"] = dict(max_abs_err=err,
+                                    stage_b_ms=wall_ms(lambda: fwd(mel),
+                                                       torch))
+    return res
+
+
+def md_gan(torch, kernels, inputs, world, rank):
+    """DP GAN: the committed HiFi-GAN V1 against the seeded full
+    discriminator, B 16 × 8192, mesh (world, 1), MD_GAN_STEPS steps; before
+    each, every rank takes the single-card step of the whole batch from a
+    copy of the state: metrics within MD_GAN_RTOL."""
+    import copy
+
+    from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
+    from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
+    from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
+    from smart_nar_fast_tts_tpu_torch.training import (
+        VocoderOptimizer, create_vocoder_state, make_vocoder_train_step)
+    from smart_nar_fast_tts_tpu_torch.vocoder import HiFiGANDiscriminator
+    segments = inputs["segments"]
+    mesh = make_mesh((world, 1))
+    tx = VocoderOptimizer()
+    state = create_vocoder_state(committed_vocoder(),
+                                 HiFiGANDiscriminator(seed=0), tx, tx)
+    step = make_vocoder_train_step(MelSpectrogramConfig(), mesh=mesh)
+    single = make_vocoder_train_step(MelSpectrogramConfig())
+
+    def floats(m):
+        return {k: float(v) for k, v in m._asdict().items()}
+    counts = {k: 0 for k in md_counts(kernels)}
+    res = dict(mesh=mesh.shape, segments_per_rank=VOC_B // world,
+               step_ms=[], metrics=[], single_card_step_ms=[],
+               metrics_max_relative_err=[])
+    for i in range(MD_GAN_STEPS):
+        ref = copy.deepcopy(state)
+        want, ref_ms = md_timed(torch, lambda: floats(single(ref,
+                                                             segments)))
+        del ref
+        kernels.reset_launches()
+        got, ms = md_timed(torch, lambda: floats(step(state, segments)))
+        counts = {k: counts[k] + v for k, v in md_counts(kernels).items()}
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-30)
+                  for k, v in want.items())
+        res["step_ms"].append(ms)
+        res["metrics"].append(got)
+        res["single_card_step_ms"].append(ref_ms)
+        res["metrics_max_relative_err"].append(rel)
+        if not rel <= MD_GAN_RTOL:
+            raise AssertionError(f"DP GAN step {i + 1}: metrics off by "
+                                 f"{rel} > {MD_GAN_RTOL}")
+    want = md_expect(kernels, PER_GAN_STEP, MD_GAN_STEPS)
+    if counts != want:
+        raise AssertionError(f"DP GAN steps: launches {counts}, expected "
+                             f"{want}")
+    res["launches"] = counts
+    return res
+
+
+def multi_device_rank(rank, world, port, work):
+    """One rank of the multi-device phases, spawned one per card: joins the
+    NCCL group, runs each path with its launch counts set to 0 just before
+    and read just after, holds it to the single card (rank 0), and writes
+    its numbers to ``work/rank<r>.pt``.  A failure writes its traceback to
+    ``work/rank<r>.err`` and ends the process with code 1."""
+    import traceback
+
+    import torch
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    try:
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from smart_nar_fast_tts_tpu_torch import kernels
+        from smart_nar_fast_tts_tpu_torch.parallel import init_distributed
+        init_distributed(require=True)
+        inputs = torch.load(os.path.join(work, "inputs.pt"),
+                            weights_only=False)
+        out = dict(rank=rank, card=torch.cuda.get_device_name(),
+                   device_index=torch.cuda.current_device(),
+                   backend=torch.distributed.get_backend())
+        t0 = time.perf_counter()
+        out["dp"] = md_dp(torch, kernels, inputs, world, rank)
+        out.update(md_sp(torch, kernels, inputs, world, rank))
+        out["tp"] = md_tp(torch, inputs, world)
+        out["gan"] = md_gan(torch, kernels, inputs, world, rank)
+        out["seconds"] = time.perf_counter() - t0
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        torch.distributed.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(work, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sp_batch(torch, np, inv, t, seed):
+    """A seeded SP batch of SP_B items at T ``t``: texts from the trained
+    phone inventory, normal mels and prosody, frame lengths from 3/4·t to
+    t (item 0 full)."""
+    from smart_nar_fast_tts_tpu_torch.data import Batch
+    rng = np.random.default_rng(seed)
+    mel_lens = rng.integers(3 * t // 4, t + 1, size=SP_B)
+    mel_lens[0] = t
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32))
+    return Batch(texts=torch.from_numpy(rng.choice(inv, size=(SP_B, SP_L))),
+                 src_lens=torch.from_numpy(rng.integers(SP_L - 32, SP_L + 1,
+                                                        size=SP_B)),
+                 mels=normal(SP_B, t, 80), mel_lens=torch.from_numpy(mel_lens),
+                 pitch=normal(SP_B, t), energy=normal(SP_B, t))
+
+
+def multi_device_phase(torch, np, kernels, synth, inv, short, segments):
+    """The multi-device phases: md_world() NCCL ranks spawned one per card
+    (``multi_device_rank``); prints the world and the cards on lines of
+    their own.  Returns each rank's numbers."""
+    import shutil
+
+    import torch.multiprocessing as mp
+    world = md_world(torch)
+    with Phase("multi_device") as f:
+        shutil.rmtree(MD_DIR, ignore_errors=True)
+        work = os.path.join(MD_DIR, "ranks")
+        os.makedirs(work)
+        batch = train_batch(torch, np, synth, inv)
+        torch.save(dict(
+            train_batch=type(batch)(*(None if t is None else t.cpu()
+                                      for t in batch)),
+            sp_batch=sp_batch(torch, np, inv, SP_T, 5),
+            sp_long=sp_batch(torch, np, inv, SP_T_LONG, 6),
+            serving_mel=short.postnet_mel.float().cpu(),
+            segments=segments.cpu()), os.path.join(work, "inputs.pt"))
+        ctx = mp.start_processes(multi_device_rank,
+                                 args=(world, free_port(), work),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MD_DEADLINE_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"multi_device ranks still running "
+                                         f"after {MD_DEADLINE_S} s")
+        except BaseException as e:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            errs = [open(os.path.join(work, n)).read()
+                    for n in sorted(os.listdir(work)) if n.endswith(".err")]
+            raise AssertionError("multi_device rank failed:\n"
+                                 + "\n".join(errs)) from e
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        cards = [r["card"] for r in ranks]
+        print(f"multi_device world {world}", flush=True)
+        print(f"multi_device cards {cards}", flush=True)
+        f.update(world=world, cards=cards, ranks=ranks,
+                 nvidia_smi=nvidia_smi())
+    return world, ranks
+
+
+def rank_cli(argv):
+    """``chip_smoke.py --rank-cli <plan.json>`` (one rank of a torchrun
+    launch): each run of the plan, ``{"cli", "out", "argv"}``, in order:
+    ``smart_nar_fast_tts_tpu_torch.cli.<cli>.main(argv)`` with the launch
+    counts set to 0 just before and read just after, written with its
+    result to ``<out>.<rank>.json``.  The process group joined by the
+    first run that joins one serves the rest."""
+    import importlib
+
+    import torch
+    sys.path.insert(0, REPO)
+    from smart_nar_fast_tts_tpu_torch import kernels
+    dist = torch.distributed
+    with open(argv[0]) as f:
+        plan = json.load(f)
+    for run in plan:
+        cli = importlib.import_module(
+            f"smart_nar_fast_tts_tpu_torch.cli.{run['cli']}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        result = cli.main(run["argv"])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        if hasattr(result, "_asdict"):
+            result = {k: float(v) for k, v in result._asdict().items()}
+        elif isinstance(result, dict):
+            result = result.get("saved")
+        else:
+            result = None
+        with open(f"{run['out']}.{rank}.json", "w") as f:
+            json.dump(dict(rank=rank, world=int(os.environ["WORLD_SIZE"]),
+                           group=dist.is_initialized(),
+                           launches={**kernels.launches(),
+                                     **kernels.route_launches()},
+                           seconds=seconds, result=result), f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def torchrun(world, plan_path, plan):
+    """The plan's CLI runs in one torchrun launch (``--standalone
+    --nproc_per_node world``) through :func:`rank_cli`; each run's
+    records, by rank."""
+    with open(plan_path, "w") as f:
+        json.dump(plan, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={world}", os.path.join(REPO, "chip_smoke.py"),
+           "--rank-cli", plan_path]
+    log_path = plan_path + ".log"
+    t0 = time.perf_counter()
+    # the ranks' output to a file; past the deadline the launcher is
+    # stopped (it stops its ranks, which run in sessions of their own),
+    # then killed with its session
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MD_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            rc = f"stopped after {MD_DEADLINE_S} s"
+    if rc != 0:
+        with open(log_path) as log:
+            raise AssertionError(f"torchrun: {rc}\n{log.read()[-4000:]}")
+    records = []
+    for run in plan:
+        ranks = []
+        for r in range(world):
+            with open(f"{run['out']}.{r}.json") as f:
+                ranks.append(json.load(f))
+        records.append(ranks)
+    return records, time.perf_counter() - t0
+
+
+def multi_device_cli_phase(torch, kernels, world, trainer_argv, cli):
+    """The training CLIs under torchrun on the trainer phase's corpus and
+    step-0 flagship checkpoint (a copy, with its own output paths):
+    ``cli.train --distributed`` to step 2 (only rank 0 writes), resumed to
+    step 3 (a validation), ``cli.evaluate`` of step 3 against the same CLI
+    in this process, and ``cli.train_vocoder`` for 2 GAN steps."""
+    import shutil
+
+    from smart_nar_fast_tts_tpu_torch.cli import evaluate as evaluate_cli
+    from smart_nar_fast_tts_tpu_torch.training import CheckpointManager
+    out_dir = os.path.join(MD_DIR, "output")
+    with Phase("multi_device cli") as f:
+        shutil.rmtree(os.path.join(MD_DIR, "cli"), ignore_errors=True)
+        os.makedirs(os.path.join(MD_DIR, "cli"))
+        rec = os.path.join(MD_DIR, "cli", "rank")
+        src_out = os.path.join(TRAINER_DIR, "output")
+        train_yaml = os.path.join(MD_DIR, "train.yaml")
+        with open(trainer_argv[5]) as fh:
+            text = fh.read().replace(src_out, out_dir)
+        with open(train_yaml, "w") as fh:
+            fh.write(text)
+        ckpt = os.path.join(out_dir, "ckpt")
+        shutil.copytree(os.path.join(src_out, "ckpt", "0"),
+                        os.path.join(ckpt, "0"))
+        argv = trainer_argv[:4] + ["-t", train_yaml]
+        step3 = argv + ["--restore_step", str(MD_CLI_STEPS[1])]
+        voc_out = os.path.join(MD_DIR, "vocoder")
+        plan = [dict(cli="train", argv=argv + [
+                        "--distributed", "--total_step", str(total)])
+                for total in MD_CLI_STEPS]
+        plan += [dict(cli="evaluate", argv=step3),
+                 dict(cli="train_vocoder", argv=[
+                     "--wav_dir", os.path.join(VOC_CLI_DIR, "wavs"),
+                     "--steps", str(MD_GAN_STEPS), "--batch_size",
+                     str(VOC_B), "--segment_size", str(VOC_SEG),
+                     "--restore_generator", cli["vocoder"],
+                     "--save_every", str(MD_GAN_STEPS), "--log_every",
+                     str(MD_GAN_STEPS), "--out_dir", voc_out])]
+        names = ("train", "resume", "evaluate", "train_vocoder")
+        for name, run in zip(names, plan):
+            run["out"] = f"{rec}-{name}"
+        records, wall = torchrun(world, f"{rec}-plan.json", plan)
+        runs = {name: dict(ranks=r) for name, r in zip(names, records)}
+        saved = CheckpointManager(ckpt).all_steps()
+        if saved != [0, *MD_CLI_STEPS]:
+            raise AssertionError(f"cli.train --distributed saved {saved}")
+        events = {w: sorted(n for n in os.listdir(os.path.join(
+            out_dir, "log", w)) if n.startswith("events."))
+                  for w in ("train", "val")}
+        # one writer: each run opens one event file per split
+        if any(len(v) != 2 for v in events.values()):
+            raise AssertionError(f"event files {events}")
+        logs = {}
+        for w in ("train", "val"):
+            with open(os.path.join(out_dir, "log", w, "log.txt")) as fh:
+                logs[w] = [line.split(",")[0] for line in fh]
+        if logs != {"train": ["Step 2/2"], "val": ["Validation Step 3"]}:
+            raise AssertionError(f"log.txt {logs}")
+        ranks = runs["evaluate"]["ranks"]
+        single = evaluate_cli.main(step3)._asdict()
+        rel = {k: abs(ranks[0]["result"][k] - v) / max(abs(v), 1e-30)
+               for k, v in single.items()}
+        bad = {k: e for k, e in rel.items() if not e <= TRAIN_RTOL}
+        if bad:
+            raise AssertionError(f"torchrun cli.evaluate against one "
+                                 f"process beyond rtol {TRAIN_RTOL}: {bad}")
+        val_batches = ranks[0]["launches"]["alignment_attention"] // 4
+        want_forwards = {"train": [MD_CLI_STEPS[0]] * world,
+                         "resume": [1 + val_batches + (r == 0)
+                                    for r in range(world)],
+                         "evaluate": [val_batches] * world}
+        for name, forwards in want_forwards.items():
+            for r, n in enumerate(forwards):
+                want = md_expect(kernels, PER_FORWARD, n)
+                if runs[name]["ranks"][r]["launches"] != want:
+                    raise AssertionError(
+                        f"torchrun {name} rank {r}: launches "
+                        f"{runs[name]['ranks'][r]['launches']}, expected "
+                        f"{want}")
+        files = sorted(os.listdir(voc_out))
+        if files != ["config.json", f"generator_{MD_GAN_STEPS}.pth.tar",
+                     "meta.json"]:
+            raise AssertionError(f"torchrun cli.train_vocoder wrote {files}")
+        for r in runs["train_vocoder"]["ranks"]:
+            want = md_expect(kernels, PER_GAN_STEP, MD_GAN_STEPS)
+            if r["launches"] != want:
+                raise AssertionError(f"torchrun train_vocoder rank "
+                                     f"{r['rank']}: launches {r['launches']}")
+        f.update(world=world, torchrun_wall_seconds=wall, runs=runs,
+                 checkpoints=saved, event_files=events,
+                 log_txt=logs, evaluate_single_process=single,
+                 evaluate_relative_err=rel, val_batches=val_batches,
+                 nvidia_smi=nvidia_smi())
+    return runs
+
+
 def bench_inputs(np):
     """bench.py's serving inputs: the same generator, draws and order."""
     with open(os.path.join(REPO, "benchmarks", "results",
@@ -4569,6 +5290,9 @@ def main() -> int:
     fam_cli_counts = train_vocoder_families_phase(torch, np, kernels, served,
                                                   cli, segments)
     vocos_export_counts = export_vocos_phase(torch, np, kernels, served, cli)
+    world, md_ranks = multi_device_phase(torch, np, kernels, synth, inv,
+                                         short, segments)
+    md_cli = multi_device_cli_phase(torch, kernels, world, trainer_argv, cli)
 
     def later_launches(name):
         """A kernel's launches on the streaming vocoder's path (its
@@ -4581,7 +5305,29 @@ def main() -> int:
         it and from the directly saved one) and the resumed cli.train."""
         def get(counts):
             return counts.get(name, 0)
+
+        def per_rank(path):
+            return [get(path(r)) for r in md_ranks]
+        multi_device = {
+            "world": world,
+            f"DP {MD_TRAIN_STEPS} train steps": per_rank(
+                lambda r: r["dp"]["launches"]),
+            f"SP step T {SP_T} (committed, seeded)": per_rank(
+                lambda r: {k: r["sp committed"]["launches"][k]
+                           + r["sp seeded"]["launches"][k]
+                           for k in r["sp seeded"]["launches"]}),
+            f"SP step T {SP_T_LONG}": per_rank(
+                lambda r: r["sp_long"]["launches"]),
+            f"DP {MD_GAN_STEPS} GAN steps": per_rank(
+                lambda r: r["gan"]["launches"]),
+            **{f"torchrun cli.{run}": [get(r["launches"])
+                                       for r in md_cli[run]["ranks"]]
+               for run in md_cli}}
+        if world >= 4:
+            multi_device[f"hybrid step T {SP_T}"] = per_rank(
+                lambda r: r["hybrid"]["launches"])
         return dict(
+            launches_multi_device=multi_device,
             launches_per_serving_batch_family={
                 k: get(c) for k, c in fam_counts.items()},
             launches_streaming_family={
@@ -4675,4 +5421,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-cli"]:
+        sys.exit(rank_cli(sys.argv[2:]))
     sys.exit(main())

@@ -14,7 +14,9 @@ waveform, in f32 or under the bf16 compute policy), exported serving artifacts
 the vocoder's GAN training through the ``train``, ``evaluate`` and
 ``train_vocoder`` CLIs, corpus preprocessing (``cli.preprocess``), the
 import of a reference checkpoint (``cli.import_checkpoint``) and the G2P
-trainer (``cli.train_g2p``), through
+trainer (``cli.train_g2p``), and the multi-device axes (data parallelism,
+ring sequence parallelism and the channel-sharded HiFi-GAN, one process
+per card under torchrun), through
 CUDA kernels written by hand for ``sm_90a`` (``csrc/``), one
 for each Pallas kernel of the JAX package, with second kernels for the
 widths the first ones do not take:
@@ -39,7 +41,7 @@ widths the first ones do not take:
     vocoder    — HiFi-GAN V1 and V3, Vocos and MelGAN generators, the
                  streaming vocoder, the discriminators and GAN losses, the
                  loaders of torch checkpoints and of the JAX package's
-                 flax ``.msgpack`` files
+                 flax ``.msgpack`` files, the channel-sharded HiFi-GAN
     training   — the acoustic train and eval steps, the fit loop
                  (``Trainer``), validation, the vocoder GAN step, the port's
                  checkpoints, TensorBoard event files and figures written
@@ -48,6 +50,9 @@ widths the first ones do not take:
                  synthesis metadata items, wav IO
     weights    — the committed ``.npz`` checkpoints and JAX trees → PyTorch
                  state dicts
+    parallel   — the device mesh over ``torch.distributed`` (one process
+                 per card), batch rows per rank, and ring attention over
+                 the frame axis
     serving    — ``Synthesizer``: two-stage bucketed text → mel → waveform;
                  ``export_serving_artifacts`` and ``ExportedTTS``:
                  ``torch.export`` programs with the weights stored once

@@ -10,13 +10,17 @@ element-weighted average losses::
 It reads the port's checkpoints (``training/checkpoint.py``), the latest
 when ``--restore_step`` is not given, and runs on CUDA unless ``--device
 cpu`` is given.  Returns the averaged ``LossBreakdown`` (Python floats;
-None for an empty split).
+None for an empty split).  Under torchrun (``--nproc_per_node N``) every
+rank evaluates its rows of each batch on the Trainer's mesh, and the first
+prints the global losses.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ..parallel import init_distributed
+from ..parallel.mesh import world
 from ..training.checkpoint import CheckpointManager
 from ..training.evaluate import validation_message, weighted_average
 from ..training.trainer import Trainer
@@ -31,6 +35,7 @@ def main(argv=None):
                         help="torch device (default cuda; 'cpu' runs the "
                              "kernels' plain versions on the CPU)")
     args = parser.parse_args(argv)
+    init_distributed(args.device)
 
     cfg = load_config(args)
     trainer = Trainer(cfg, device=args.device)
@@ -38,7 +43,9 @@ def main(argv=None):
         trainer.init_state(), step=args.restore_step)
     batcher = trainer.make_batcher("val.txt", pad_short="mask")
     losses = weighted_average(trainer.eval_step, state, batcher.batches(0))
-    print(validation_message(state.step, cfg.train.step.total_step, losses))
+    if world()[0] == 0:
+        print(validation_message(state.step, cfg.train.step.total_step,
+                                 losses))
     return losses
 
 

@@ -9,14 +9,24 @@ It trains from the latest checkpoint under ``train.path.ckpt_path`` (the
 port's own, ``training/checkpoint.py``), or from a fresh model when there
 is none, on CUDA unless ``--device cpu`` is given, and fails without a card
 otherwise.  ``--restore_step`` restores that step instead, as the JAX CLI's
-help says (its trainer restores the latest step whatever the flag).  The
-port trains on one device: ``--distributed`` is refused (ROADMAP §A.8).
+help says (its trainer restores the latest step whatever the flag).
+
+On several cards, one process per card under torchrun::
+
+    torchrun --nproc_per_node N -m smart_nar_fast_tts_tpu_torch.cli.train \
+        --distributed -p preprocess.yaml -m model.yaml -t train.yaml
+
+joins the process group (NCCL; gloo with ``--device cpu``) and trains on
+the mesh of ``train.yaml`` (``training/trainer.py``).  ``--distributed``
+without torchrun's environment raises; under torchrun with more than one
+rank the group is joined with or without it.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ..parallel import init_distributed
 from ..training.trainer import Trainer
 from ._args import add_config_args, load_config
 
@@ -30,15 +40,13 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--total_step", type=int, default=None,
                         help="override train.yaml total_step")
     parser.add_argument("--distributed", action="store_true",
-                        help="a multi-host run: not ported yet")
+                        help="join the process group of a torchrun "
+                             "launch (required to be one)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default cuda; 'cpu' runs the "
                              "kernels' plain versions on the CPU)")
     args = parser.parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (a multi-host run) is not ported yet (ROADMAP "
-            "§A.8); the port trains on one device")
+    init_distributed(args.device, require=args.distributed)
 
     cfg = load_config(args)
     trainer = Trainer(cfg, device=args.device)

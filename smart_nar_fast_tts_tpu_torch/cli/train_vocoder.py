@@ -7,7 +7,7 @@ smart_nar_fast_tts_tpu.cli.train_vocoder`` plus ``--device``::
         [--restore_generator generator.pth.tar|generator.msgpack] \\
         [--out_dir ./output/vocoder] [--device cpu]
 
-The GAN step is ``training/vocoder.py``'s on one device, whatever the
+The GAN step is ``training/vocoder.py``'s, whatever the
 generator family: the input mel and the real branch of the mel loss come
 from the ``fused_log_mel`` kernel on the raw segments.  It runs on CUDA
 unless ``--device cpu`` is given.  ``--restore_generator`` takes the port's
@@ -18,6 +18,17 @@ JAX CLI writes ``.msgpack``), with ``config.json`` (``{"family": ...,
 **config}``) and ``meta.json`` beside them.  ``--steps_per_dispatch`` K
 runs K single GAN steps between the host's log and save checks (PyTorch
 has no ``lax.scan``).
+
+On several cards, one process per card under torchrun::
+
+    torchrun --nproc_per_node N \\
+        -m smart_nar_fast_tts_tpu_torch.cli.train_vocoder --wav_dir W ...
+
+trains on a data mesh of ``gcd(batch_size // nodes, N)`` ranks per node, as
+the JAX CLI meshes over ``gcd(batch // hosts, local devices)``; the port
+raises where that leaves ranks idle.  Every rank draws the global batch
+from ``default_rng(seed + node index)`` and computes its rows; the first
+rank prints and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -25,11 +36,15 @@ from __future__ import annotations
 import argparse
 import glob
 import json
+import math
 import os
 import time
 
 import numpy as np
 import torch
+
+from ..parallel import init_distributed, make_mesh, replicated
+from ..parallel.mesh import node_layout, world
 
 # the --debug_tiny generator configs of each family (the JAX CLI's)
 TINY_GENERATORS = {
@@ -69,6 +84,17 @@ def main(argv=None) -> dict:
                         help="torch device (default cuda; 'cpu' runs the "
                              "kernels' plain versions on the CPU)")
     args = parser.parse_args(argv)
+    init_distributed(args.device)
+    rank = world()[0]
+    node, nodes, n_local = node_layout()
+    data_size = math.gcd(args.batch_size // nodes, n_local)
+    if data_size < n_local:
+        raise ValueError(
+            f"--batch_size {args.batch_size} over {nodes} node(s) shards "
+            f"over {data_size} of the {n_local} ranks per node: JAX would "
+            "leave the others idle, a torchrun job cannot; launch "
+            f"{data_size} ranks per node or make the batch per node a "
+            f"multiple of {n_local}")
 
     from ..audio.stft import MelSpectrogramConfig
     from ..data.wavio import load_wav
@@ -85,7 +111,8 @@ def main(argv=None) -> dict:
     wavs = [load_wav(p, args.sampling_rate)[0].astype(np.float32)
             for p in paths]
     audio_s = sum(len(w) for w in wavs) / args.sampling_rate
-    print(f"{len(wavs)} wavs, {audio_s:.1f}s audio")
+    if rank == 0:
+        print(f"{len(wavs)} wavs, {audio_s:.1f}s audio")
 
     sr = args.sampling_rate
     cfg_cls, gen_cls = FAMILIES[args.generator]
@@ -113,13 +140,15 @@ def main(argv=None) -> dict:
     tx = VocoderOptimizer(learning_rate=args.learning_rate)
     state = create_vocoder_state(generator, discriminator, tx, tx,
                                  device=args.device)
-    step_fn = make_vocoder_train_step(mel_cfg)
+    mesh = make_mesh((-1, 1))
+    replicated(mesh, state.generator, state.discriminator)
+    step_fn = make_vocoder_train_step(mel_cfg, mesh=mesh)
     device_name = (torch.cuda.get_device_name(state.device)
                    if state.device.type == "cuda" else state.device.type)
 
     os.makedirs(args.out_dir, exist_ok=True)
     k = max(1, args.steps_per_dispatch)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(args.seed + node)
     t0 = time.perf_counter()
     step, last_log, saved = 0, 0, []
     while step < args.steps:
@@ -133,13 +162,15 @@ def main(argv=None) -> dict:
                                     float(metrics.gen_total),
                                     float(metrics.mel))
             dt = time.perf_counter() - t0
-            print(f"step {step}: disc={disc:.4f} gen={gen_total:.4f} "
-                  f"mel={mel:.4f} ({(step - last_log) / dt:.2f} steps/s)",
-                  flush=True)
+            if rank == 0:
+                print(f"step {step}: disc={disc:.4f} gen={gen_total:.4f} "
+                      f"mel={mel:.4f} ({(step - last_log) / dt:.2f} "
+                      "steps/s)", flush=True)
             if not np.isfinite(gen_total):
                 raise FloatingPointError(f"non-finite loss at step {step}")
             last_log, t0 = step, time.perf_counter()
-        if step % args.save_every < k or step >= args.steps:
+        if rank == 0 and (step % args.save_every < k
+                          or step >= args.steps):
             path = os.path.join(args.out_dir, f"generator_{step}.pth.tar")
             torch.save({"generator": {
                 n: v.detach().cpu()

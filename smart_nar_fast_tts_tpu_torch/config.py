@@ -5,9 +5,9 @@ flagship is the default ``ModelConfig()``), the same loaders of the
 reference's YAML triplet (``Config.from_yaml_triplet``, ``from_dicts``) and
 the same validation, with ``ValueError`` where the JAX package asserts.  The
 YAML files are read by :mod:`.yaml_subset`, not PyYAML, which the card's
-machine lacks.  Fields that choose machinery the port does not run yet
-(``sequence_parallel``, the mesh) are carried so that a configuration reads
-the same; the port's entry points refuse them.
+machine lacks.  The mesh (``TrainConfig.mesh_shape``, ``mesh_axis_names``)
+and ``ModelConfig.sequence_parallel`` run over ``torch.distributed`` under
+torchrun (``parallel/``, ``training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -172,8 +172,8 @@ class ModelConfig:
     guided_sigma: float = 0.2
     # the FFT stacks' compute dtype: the port runs 'float32' only
     compute_dtype: str = "float32"
-    # ring sequence-parallel self-attention over mesh axis ``sp_axis``: not
-    # ported (one card needs none)
+    # ring sequence-parallel self-attention of the MelDecoder, the frame
+    # axis split over mesh axis ``sp_axis`` (parallel/sequence.py)
     sequence_parallel: bool = False
     sp_axis: str = "data"
 
@@ -413,12 +413,7 @@ class Config:
 
 
 def check_ported(model: ModelConfig) -> None:
-    """Raise for the model fields that choose machinery the port does not
-    run yet."""
+    """Raise for a compute dtype the port does not run."""
     if model.compute_dtype not in ("float32", "bfloat16"):
         raise ValueError("compute_dtype must be float32 or bfloat16, got "
                          f"{model.compute_dtype!r}")
-    if model.sequence_parallel:
-        raise NotImplementedError(
-            "sequence_parallel needs a device mesh, which the port does not "
-            "have yet (ROADMAP §A.8)")

@@ -54,13 +54,15 @@ class _PositionalStack(nn.Module):
 
     def run_stack(self, x: torch.Tensor, valid: torch.Tensor,
                   cap_valid: Optional[torch.Tensor],
-                  generator: Optional[torch.Generator]) -> torch.Tensor:
+                  generator: Optional[torch.Generator],
+                  sp_mesh=None, sp_axis: str = "data") -> torch.Tensor:
         """The stack in ``compute_dtype`` (PE added in it too); returns
         f32, where the variance adaptor and mel_linear take it."""
         x = x.to(self.dtype)
         x = x + self.positional(x.shape[1]).to(self.dtype)[None]
         for layer in self.layer_stack:
-            x, _ = layer(x, valid, cap_valid, generator=generator)
+            x, _ = layer(x, valid, cap_valid, generator=generator,
+                         sp_mesh=sp_mesh, sp_axis=sp_axis)
         return x.float()
 
 
@@ -115,14 +117,29 @@ class MelEncoder(_PositionalStack):
 
 
 class MelDecoder(_PositionalStack):
-    """PE + FFT blocks over the upsampled frame sequence."""
+    """PE + FFT blocks over the upsampled frame sequence.
+
+    Under ``cfg.sequence_parallel`` each block's self-attention is ring
+    attention with the frame axis split over ``cfg.sp_axis`` of
+    ``sp_mesh``, which must then be given (``parallel/sequence.py``)."""
 
     def __init__(self, cfg: ModelConfig):
         t = cfg.transformer
         super().__init__(t.decoder_hidden, t.decoder_layer, t.decoder_head,
                          t.decoder_dropout, cfg)
+        self.sequence_parallel = cfg.sequence_parallel
+        self.sp_axis = cfg.sp_axis
 
     def forward(self, x: torch.Tensor, mel_valid: torch.Tensor,
                 mel_cap: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.run_stack(x, mel_valid, mel_cap, generator)
+                generator: Optional[torch.Generator] = None,
+                sp_mesh=None) -> torch.Tensor:
+        if self.sequence_parallel and sp_mesh is None:
+            raise ValueError(
+                "ModelConfig.sequence_parallel=True requires the mesh: "
+                "pass sp_mesh= to the model call (a parallel.Mesh with "
+                f"axis {self.sp_axis!r}; the frame capacity {x.shape[1]} "
+                "must divide its size)")
+        sp = sp_mesh if self.sequence_parallel else None
+        return self.run_stack(x, mel_valid, mel_cap, generator, sp,
+                              self.sp_axis)

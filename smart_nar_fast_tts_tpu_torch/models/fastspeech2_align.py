@@ -9,6 +9,12 @@ embeddings and the duration targets drive the upsampling.  With
 MelEncoder runs the alignment kernel, which returns only head 0's per-frame
 argmax and guided-attention numerator; otherwise it keeps the full maps.
 Inference: predicted durations drive the upsampling.
+
+``sp_mesh`` runs the MelDecoder's self-attention as ring attention under
+``ModelConfig.sequence_parallel``.  ``data_group``, the process group of
+the data axis when each rank holds its rows of the batch, makes the
+batch-level quantities the whole batch's: the text and frame capacities
+(the longest item over the group) and the PostNet's BatchNorm statistics.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from torch import nn
 from ..config import FeatureStats, ModelConfig, PreprocessConfig
 from ..ops.duration import durations_from_argmax, durations_from_attention
 from ..ops.masks import length_to_valid
+from ..parallel import all_reduce
 from .encoders import MelDecoder, MelEncoder, TxtEncoder
 from .layers import PostNet, zero_where_not
 from .variance import VarianceAdaptor
@@ -43,6 +50,11 @@ class ModelOutput(NamedTuple):
     # training on the alignment kernel's path (alignments is None then):
     # head 0's Σ W·p over the valid pairs, per layer and item (layers, B)
     guided_numerators: Optional[torch.Tensor] = None
+
+
+def _longest(lens: torch.Tensor, group) -> torch.Tensor:
+    """The largest length of the batch, over ``group``'s rows too."""
+    return all_reduce(lens.max(), group, torch.distributed.ReduceOp.MAX)
 
 
 class FastSpeech2Align(nn.Module):
@@ -73,7 +85,8 @@ class FastSpeech2Align(nn.Module):
                 mel_lens: Optional[torch.Tensor] = None,
                 p_targets: Optional[torch.Tensor] = None,
                 e_targets: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> ModelOutput:
+                generator: Optional[torch.Generator] = None,
+                sp_mesh=None, data_group=None) -> ModelOutput:
         """texts (B, L) symbol ids, src_lens (B,).  Inference: outputs at
         the static frame capacity ``max_mel_len`` (default
         ``cfg.max_seq_len``).  Training: ``mels`` (B, T, n_mels),
@@ -84,7 +97,8 @@ class FastSpeech2Align(nn.Module):
         src_valid = length_to_valid(src_lens, L)
         # batch-level capacity: the reference's tensors end at the longest
         # item, so its convs see zero padding there
-        src_cap = torch.arange(L, device=texts.device) < src_lens.max()
+        src_cap = torch.arange(L, device=texts.device) < _longest(
+            src_lens, data_group)
 
         src_output = self.txt_encoder(texts, src_valid, src_cap, generator)
         if self.cfg.multi_speaker and speakers is not None:
@@ -95,7 +109,8 @@ class FastSpeech2Align(nn.Module):
         if is_training:
             T = mels.shape[1]
             mel_valid = length_to_valid(mel_lens, T)
-            mel_cap = torch.arange(T, device=mels.device) < mel_lens.max()
+            mel_cap = torch.arange(T, device=mels.device) < _longest(
+                mel_lens, data_group)
             # the kernel implements exactly the intended/head-0 semantics
             fused = (self.cfg.duration_extraction == "intended"
                      and self.cfg.duration_head_reduce == "first")
@@ -124,10 +139,12 @@ class FastSpeech2Align(nn.Module):
             e_control=e_control, d_control=d_control, src_cap=src_cap,
             mel_cap=mel_cap, generator=generator)
 
-        x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap, generator)
+        x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap, generator,
+                             sp_mesh)
         mel = self.mel_linear(x)
         postnet_in = zero_where_not(va.mel_cap, mel)
-        postnet_mel = self.postnet(postnet_in, va.mel_cap, generator) + mel
+        postnet_mel = self.postnet(postnet_in, va.mel_cap, generator,
+                                   data_group) + mel
         return ModelOutput(
             mel=mel, postnet_mel=postnet_mel,
             pitch_prediction=va.pitch_prediction,

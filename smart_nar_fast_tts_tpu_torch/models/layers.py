@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import alignment_attention, flash_attention, masked_softmax
+from ..parallel import all_reduce, all_reduce_sum
+from ..parallel.sequence import sequence_parallel_self_attention
 
 # torch nn.LayerNorm eps, as the JAX package's LN_EPS
 LN_EPS = 1e-5
@@ -96,16 +98,21 @@ class MultiHeadAttention(nn.Module):
     """Post-LN multi-head attention: projections → masked attention → head
     concat → fc → dropout → LayerNorm(out + x).
 
-    - Self-attention (``kv`` None) with ``max(Lq, Lk) > FLASH_MIN_LEN``
-      runs the flash kernel on CUDA and returns no maps.
+    - Given ``lens = (src_lens, mel_lens)``, the cross-attention runs the
+      alignment kernel and returns only ``{"argmax": (B, Lq) int32,
+      "guided_num": (B,)}`` of head 0.
+    - Self-attention (``kv`` None) with ``sp_mesh`` runs ring attention,
+      the time axis split over ``sp_axis`` (the MelDecoder's under
+      ``ModelConfig.sequence_parallel``), and returns no maps.
+    - Other self-attention with ``max(Lq, Lk) > FLASH_MIN_LEN`` runs the
+      flash kernel on CUDA and returns no maps.
     - Shorter self-attention, and cross-attention over ``kv``, run the f32
       einsum branch (on a bf16 input: f32 products of the bf16 q, k, and
       of the bf16-rounded probabilities with v) and return the full
       (B, H, Lq, Lk) ``masked_softmax`` maps (self-attention's are
       discarded by the caller).
-    - Given ``lens = (src_lens, mel_lens)``, the cross-attention runs the
-      alignment kernel and returns only ``{"argmax": (B, Lq) int32,
-      "guided_num": (B,)}`` of head 0.
+
+    The order is the JAX model's (``models/layers.py:87-117`` there).
     """
 
     def __init__(self, d_model: int, n_head: int, dropout_rate: float = 0.0,
@@ -125,7 +132,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor, key_valid: torch.Tensor,
                 kv: Optional[torch.Tensor] = None,
                 lens: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                sp_mesh=None, sp_axis: str = "data"):
         B, Lq, _ = x.shape
         src = x if kv is None else kv
         Lk = src.shape[1]
@@ -137,13 +145,18 @@ class MultiHeadAttention(nn.Module):
         q = heads(self.w_qs, x, Lq)
         k = heads(self.w_ks, src, Lk)
         v = heads(self.w_vs, src, Lk)
-        if kv is None and max(Lq, Lk) > FLASH_MIN_LEN:
-            attn = None
-            out = flash_attention(q, k, v, key_valid)
-        elif lens is not None:
+        if lens is not None:
             out, idx, gnum = alignment_attention(
                 q, k, v, key_valid, lens[0], lens[1], self.guided_sigma)
             attn = {"argmax": idx, "guided_num": gnum}
+        elif kv is None and sp_mesh is not None:
+            # ring_self_attention applies the 1/sqrt(d_k) temperature
+            attn = None
+            out = sequence_parallel_self_attention(sp_mesh, q, k, v,
+                                                   key_valid, sp_axis)
+        elif kv is None and max(Lq, Lk) > FLASH_MIN_LEN:
+            attn = None
+            out = flash_attention(q, k, v, key_valid)
         else:
             # bf16 × bf16 is exact in f32: these are the f32 sums of JAX's
             # preferred_element_type=float32 products
@@ -203,12 +216,14 @@ class FFTBlock(nn.Module):
                 kv: Optional[torch.Tensor] = None,
                 kv_valid: Optional[torch.Tensor] = None,
                 lens: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                sp_mesh=None, sp_axis: str = "data"):
         """Returns (out, attention maps or the alignment reductions or
         None)."""
         key_valid = valid if kv_valid is None else kv_valid
         out, attn = getattr(self, self.attn_name)(x, key_valid, kv, lens,
-                                                  generator)
+                                                  generator, sp_mesh,
+                                                  sp_axis)
         out = zero_where_not(valid, out)
         out = self.pos_ffn(out, cap_valid, generator)
         return zero_where_not(valid, out), attn
@@ -239,7 +254,12 @@ class MaskedBatchNorm(nn.Module):
     (T,) when given: the biased variance normalises, and the running
     statistics move by momentum 0.1 towards the mean and the unbiased
     variance, as ``torch.nn.BatchNorm1d`` on tensors cut to the batch's
-    longest item."""
+    longest item.
+
+    Under a data ``group`` (each rank holding its rows of the batch) the
+    statistics are the whole batch's: the masked sums and the count are
+    summed over the group, by an all-reduce whose backward is an
+    all-reduce, so the running statistics move alike on every rank."""
 
     MOMENTUM = 0.1
 
@@ -252,16 +272,19 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor,
-                cap_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cap_valid: Optional[torch.Tensor] = None,
+                group=None) -> torch.Tensor:
         if self.training:
             if cap_valid is None:
                 m = torch.ones((1, 1, x.shape[2]), dtype=x.dtype,
                                device=x.device)
             else:
                 m = cap_valid.to(x.dtype)[None, None, :]
-            n = torch.clamp(m.sum() * x.shape[0], min=1.0)
-            mean = (x * m).sum(dim=(0, 2)) / n
-            var = ((x - mean[:, None]) ** 2 * m).sum(dim=(0, 2)) / n
+            n = torch.clamp(all_reduce(m.sum() * x.shape[0], group),
+                            min=1.0)
+            mean = all_reduce_sum((x * m).sum(dim=(0, 2)), group) / n
+            var = all_reduce_sum(((x - mean[:, None]) ** 2 * m).sum(
+                dim=(0, 2)), group) / n
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.MOMENTUM).add_(
@@ -278,7 +301,8 @@ class PostNet(nn.Module):
     """Five conv1d(k=5) + BatchNorm layers over mels, tanh on all but the
     last, dropout 0.5 after each.  The caller adds the residual.
     ``cap_valid`` (T,) zeroes each conv's input beyond the batch capacity
-    and restricts the BatchNorm's batch statistics to it."""
+    and restricts the BatchNorm's batch statistics to it; ``data_group``
+    takes those statistics over the whole batch (``MaskedBatchNorm``)."""
 
     DROPOUT = 0.5
 
@@ -293,13 +317,14 @@ class PostNet(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 cap_valid: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                data_group=None) -> torch.Tensor:
         h = x.transpose(1, 2)                                  # (B, C, T)
         last = len(self.convolutions) - 1
         for i, (conv, bn) in enumerate(self.convolutions):
             if cap_valid is not None:
                 h = torch.where(cap_valid[None, None, :], h, 0.0)
-            h = bn(conv.conv(h), cap_valid)
+            h = bn(conv.conv(h), cap_valid, data_group)
             if i != last:
                 h = torch.tanh(h)
             h = dropout(h, self.DROPOUT, generator)

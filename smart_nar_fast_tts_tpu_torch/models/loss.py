@@ -2,6 +2,12 @@
 log-duration, pitch and energy, and the guided-attention diagonal prior on
 head 0 of every MelEncoder layer.  Every reduction is a masked mean over the
 valid positions.
+
+Under a data ``group`` (each rank holding its rows of the batch) each mean
+divides the rank's numerator by the whole batch's count, so the ranks'
+losses sum to the whole batch's and so do their gradients: the JAX step's
+losses are per global batch, and a mean of per-rank means differs from it
+wherever the ranks' valid counts differ.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import torch
 from ..config import PreprocessConfig
 from ..kernels.alignment import guided_weight
 from ..ops.masks import masked_mean
+from ..parallel import all_reduce
 from .fastspeech2_align import ModelOutput
 
 
@@ -28,7 +35,7 @@ class LossBreakdown(NamedTuple):
 
 def guided_attention_loss(attn: torch.Tensor, src_lens: torch.Tensor,
                           mel_lens: torch.Tensor, sigma: float = 0.2,
-                          alpha: float = 10.0) -> torch.Tensor:
+                          alpha: float = 10.0, group=None) -> torch.Tensor:
     """``alpha`` times the mean of ``W·attn`` over the valid (frame,
     phoneme) pairs, attn (B, T, L) one head of one layer.  The grid
     divisors are clamped at 1, so an item of length 0 gives a finite grid
@@ -39,7 +46,7 @@ def guided_attention_loss(attn: torch.Tensor, src_lens: torch.Tensor,
     t = torch.arange(T, device=attn.device)[None, :, None]
     n = torch.arange(L, device=attn.device)[None, None, :]
     valid = (t < mel_lens[:, None, None]) & (n < src_lens[:, None, None])
-    return alpha * masked_mean(w * attn, valid)
+    return alpha * masked_mean(w * attn, valid, group)
 
 
 class FastSpeech2Loss:
@@ -53,8 +60,8 @@ class FastSpeech2Loss:
         self.alpha = guided_alpha
 
     def __call__(self, output: ModelOutput, mel_targets: torch.Tensor,
-                 pitch_targets: torch.Tensor, energy_targets: torch.Tensor
-                 ) -> LossBreakdown:
+                 pitch_targets: torch.Tensor, energy_targets: torch.Tensor,
+                 group=None) -> LossBreakdown:
         src_valid, mel_valid = output.src_valid, output.mel_valid
         # targets carry no gradient
         log_d_targets = torch.log(output.duration_targets.float() + 1.0)
@@ -62,27 +69,29 @@ class FastSpeech2Loss:
         pv = src_valid if self.pitch_level == "phoneme_level" else mel_valid
         ev = src_valid if self.energy_level == "phoneme_level" else mel_valid
         pitch = masked_mean((output.pitch_prediction - pitch_targets) ** 2,
-                            pv)
+                            pv, group)
         energy = masked_mean(
-            (output.energy_prediction - energy_targets) ** 2, ev)
+            (output.energy_prediction - energy_targets) ** 2, ev, group)
         duration = masked_mean(
-            (output.log_duration_prediction - log_d_targets) ** 2, src_valid)
+            (output.log_duration_prediction - log_d_targets) ** 2, src_valid,
+            group)
         mel = masked_mean((output.mel - mel_targets).abs(),
-                          mel_valid[:, :, None])
+                          mel_valid[:, :, None], group)
         postnet_mel = masked_mean((output.postnet_mel - mel_targets).abs(),
-                                  mel_valid[:, :, None])
+                                  mel_valid[:, :, None], group)
 
         attention = torch.zeros((), device=mel.device)
         if output.alignments is not None:
             for layer in output.alignments:
                 attention = attention + guided_attention_loss(
                     layer[:, 0], output.src_lens, output.mel_lens,
-                    self.sigma, self.alpha)
+                    self.sigma, self.alpha, group)
         elif output.guided_numerators is not None:
             # the alignment kernel already summed W·p per layer and item;
             # each layer's loss is its batch sum over the batch's pair
             # count, so the layers may be summed first
-            pairs = (output.src_lens.float() * output.mel_lens.float()).sum()
+            pairs = all_reduce((output.src_lens.float()
+                                * output.mel_lens.float()).sum(), group)
             attention = (self.alpha * output.guided_numerators.sum()
                          / torch.clamp(pairs, min=1.0))
 

@@ -35,6 +35,7 @@ from typing import Optional
 import numpy as np
 
 from ..config import FeatureStats
+from ..parallel.mesh import world
 
 # anchors of a viridis-like ramp, dark (low) to light (high), RGB
 _RAMP = np.array([[68, 1, 84], [59, 82, 139], [33, 145, 140],
@@ -202,12 +203,16 @@ def audio_summary(tag: str, wav: np.ndarray, sampling_rate: int) -> bytes:
 
 
 class MetricWriter:
-    """TensorBoard event file + append-only text log under ``log_dir``.
-    The port runs one process, which writes (the JAX writer's "only the
-    primary process writes")."""
+    """TensorBoard event file + append-only text log under ``log_dir``;
+    no-ops on every rank but the first (the JAX writer's "only the primary
+    process writes"), unless ``enabled`` says otherwise."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, enabled: Optional[bool] = None):
         self.log_dir = log_dir
+        self.enabled = world()[0] == 0 if enabled is None else enabled
+        self._file = None
+        if not self.enabled:
+            return
         os.makedirs(log_dir, exist_ok=True)
         name = (f"events.out.tfevents.{int(time.time())}."
                 f"{socket.gethostname()}.{os.getpid()}.{next(_WRITER_IDS)}")
@@ -216,6 +221,8 @@ class MetricWriter:
         self._write(_event(0, file_version="brain.Event:2"))
 
     def _write(self, event: bytes) -> None:
+        if self._file is None:
+            return
         self._file.write(tfrecord(event))
         self._file.flush()
 
@@ -253,6 +260,8 @@ class MetricWriter:
 
     def message(self, text: str, filename: str = "log.txt") -> None:
         """Append-only text log (reference ``train.py:104-108``)."""
+        if not self.enabled:
+            return
         with open(os.path.join(self.log_dir, filename), "a") as f:
             f.write(text + "\n")
 

@@ -6,8 +6,7 @@
   Chrome trace (``chrome://tracing``, Perfetto) under
   ``<log_dir>/profile/``.
 - ``Throughput``: wall-clock steps/s and mel frames/s between log points,
-  logged beside the losses.  The port trains on one device, so frames/s
-  per chip is frames/s.
+  logged beside the losses; frames/s per chip divides by the ranks.
 """
 
 from __future__ import annotations
@@ -67,7 +66,8 @@ class StepProfiler:
 class Throughput:
     """Rolling steps/s + mel frames/s between log points."""
 
-    def __init__(self) -> None:
+    def __init__(self, n_chips: int = 1) -> None:
+        self.n_chips = n_chips
         self._t0: Optional[float] = None
         self._steps = 0
         self._frames = 0
@@ -86,7 +86,8 @@ class Throughput:
             return None
         dt = time.perf_counter() - self._t0
         out = {"steps_per_sec": self._steps / dt,
-               "mel_frames_per_sec_per_chip": self._frames / dt}
+               "mel_frames_per_sec_per_chip": (self._frames / dt
+                                               / self.n_chips)}
         self._t0 = time.perf_counter()
         self._steps = 0
         self._frames = 0

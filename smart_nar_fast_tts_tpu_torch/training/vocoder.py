@@ -6,8 +6,14 @@ mel and the real branch of the mel loss made on the device by the
 ``fused_log_mel`` kernel from raw waveform segments.
 
 PyTorch runs eagerly, so the JAX package's ``steps_per_dispatch > 1`` (a
-``lax.scan`` of steps in one dispatch) and its data-parallel mesh have no
-counterpart here: the step is single-device.
+``lax.scan`` of steps in one dispatch) has no counterpart here.  On a mesh
+(``parallel/``, one process per card) the step takes the global batch, as
+JAX's sharded step does (``training/vocoder.py:186-196`` there), and each
+rank computes its rows along ``data_axis``: the shards are equal, so every
+mean loss of the global batch is the ranks' mean, and each update's
+gradients and the reported metrics are averaged over the data group.  The
+discriminator's spectral-norm state stays alike on every rank, as the
+weights do.
 """
 
 from __future__ import annotations
@@ -17,11 +23,13 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..audio.stft import MelSpectrogramConfig
 from ..device import resolve_device
 from ..kernels import fused_log_mel
+from ..parallel import Mesh, all_reduce, average_grads, batch_sharding
 from ..vocoder.discriminators import HiFiGANDiscriminator
 from ..vocoder.losses import (FM_WEIGHT, MEL_WEIGHT, discriminator_loss,
                               feature_matching_loss,
@@ -104,9 +112,12 @@ def create_vocoder_state(generator: torch.nn.Module,
         disc_opt=disc_tx.build(discriminator.parameters()), device=device)
 
 
-def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig) -> Callable:
+def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
+                            mesh: Optional[Mesh] = None,
+                            data_axis: str = "data") -> Callable:
     """``step(state, wavs (B, S), mels=None) → VocoderMetrics``, updating
-    ``state`` in place.
+    ``state`` in place; on a ``mesh`` ``wavs`` (and ``mels``) are the
+    global batch and the metrics the global batch's.
 
     The input mel is ``fused_log_mel(wavs)`` unless ``mels`` (B, F, n_mels)
     is given (teacher-forced fine-tuning).  The discriminator is updated
@@ -117,9 +128,15 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig) -> Callable:
     named ``RANGE + "input mel" | "D update" | "G update"``, which a trace
     reads as the step's phases."""
 
+    group = None if mesh is None else mesh.group(data_axis)
+    rows = None if group is None else batch_sharding(mesh, data_axis)
+
     def step(state: VocoderState, wavs: torch.Tensor,
              mels: Optional[torch.Tensor] = None) -> VocoderMetrics:
         gen, disc = state.generator, state.discriminator
+        if rows is not None:
+            wavs = rows(wavs)
+            mels = None if mels is None else rows(mels)
         with record_function(RANGE + "input mel"):
             wavs = wavs.to(state.device).contiguous()
             if mels is None:
@@ -142,6 +159,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig) -> Callable:
             d_loss = (discriminator_loss(mpd_r, mpd_f)
                       + discriminator_loss(msd_r, msd_f))
             d_loss.backward()
+            average_grads(disc.parameters(), group)
             state.apply(state.disc_opt, state.disc_tx)
 
         # --- generator update (discriminator frozen) ---------------------
@@ -158,11 +176,15 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig) -> Callable:
             mel = MEL_WEIGHT * mel_l1_loss(wav_hat, real, mel_cfg)
             total = adv + fm + mel
             total.backward(inputs=list(gen.parameters()))
+            average_grads(gen.parameters(), group)
             state.apply(state.gen_opt, state.gen_tx)
 
         state.step += 1
-        return VocoderMetrics(*(t.detach() for t in (d_loss, adv, fm, mel,
-                                                     total)))
+        metrics = torch.stack([t.detach() for t in (d_loss, adv, fm, mel,
+                                                    total)])
+        if group is not None:
+            metrics = all_reduce(metrics, group) / dist.get_world_size(group)
+        return VocoderMetrics(*metrics)
 
     return step
 

@@ -4,8 +4,8 @@
   ``tests/test_trainer.py`` (a tiny model, 4 train and 2 val utterances),
   then again from ``--restore_step 2`` to 3, then ``cli.evaluate`` of step
   3: its losses equal ``weighted_average`` over the val split for the
-  restored state, and its message is printed.  ``--distributed`` and a
-  missing ``--restore_step`` are refused.
+  restored state, and its message is printed.  ``--distributed`` without
+  torchrun's environment and a missing ``--restore_step`` are refused.
 - ``cli.train_vocoder --debug_tiny`` for 2 GAN steps on two wavs (one at
   16 kHz, resampled): ``generator_2.pth.tar`` (``{"generator":
   state_dict}``), ``config.json`` and ``meta.json`` written; the port's
@@ -90,7 +90,8 @@ def test_evaluate_cli(trained, capsys):
 
 def test_train_cli_refuses(trained):
     _, argv, _ = trained
-    with pytest.raises(NotImplementedError, match="§A.8"):
+    with pytest.raises(RuntimeError, match="--distributed needs the "
+                                           "torchrun environment"):
         train_cli.main(argv + ["--distributed"])
     with pytest.raises(FileNotFoundError, match="step 7"):
         train_cli.main(argv + ["--restore_step", "7"])

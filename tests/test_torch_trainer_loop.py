@@ -10,8 +10,9 @@ against the JAX trainer):
 - ``steps_per_dispatch`` K > 1: checked as JAX checks it, the cadences and
   saves after each group of K, as ``tests/test_trainer.py``'s K-step run;
   ``configs/scaled/train.yaml`` (K 20) loads;
-- what needs several devices raises, naming ROADMAP §A.8; without
-  ``device="cpu"`` the trainer needs a card;
+- without a process group, a sequence-parallel model raises naming
+  torchrun and a mesh tail larger than the world raises JAX's message;
+  without ``device="cpu"`` the trainer needs a card;
 - with ``train.vocoder_ckpt``, each sample is vocoded into the event file.
 """
 
@@ -137,18 +138,26 @@ def test_steps_per_dispatch(corpus):
         device="cpu")
 
 
+ONE_DEVICE_ERRORS = {
+    "model": "sequence_parallel needs a process group: launch with torchrun",
+    "train": r"mesh_shape tail \(4,\) needs 4 devices per data slot but "
+             "only 1 are local"}
+
+
 @pytest.mark.parametrize("change", [
     {"model": {"sequence_parallel": True}},
     {"train": {"mesh_shape": (2, 4)}}])
 def test_one_device(corpus, change):
+    """One process, no process group: a mesh of one rank."""
     root, pre = corpus
     cfg = Config.from_yaml_triplet(*write_trainer_triplet(root, "mesh", pre))
     assert cfg.train.mesh_shape == (-1, 1)
-    Trainer(cfg, device="cpu")
+    assert Trainer(cfg, device="cpu").mesh.shape == {"data": 1, "model": 1}
     cfg = dataclasses.replace(cfg, **{
         part: dataclasses.replace(getattr(cfg, part), **fields)
         for part, fields in change.items()})
-    with pytest.raises(NotImplementedError, match="§A.8"):
+    with pytest.raises(ValueError, match=ONE_DEVICE_ERRORS[next(iter(
+            change))]):
         Trainer(cfg, device="cpu")
 
 
