@@ -4508,12 +4508,21 @@ MD_DEADLINE_S = 300
 SP_B, SP_L, SP_T, SP_T_LONG = 8, 128, 2048, 8192
 # JAX's SP gradient bar (tests/test_sequence_parallel.py:209-211)
 SP_GRAD_ATOL, SP_GRAD_RTOL = 2e-5, 2e-3
+# the ring's largest distance from float64 over the dense f32 path's, at
+# most (md_ring_witness): an order of magnitude; H100 runs at the committed
+# weights read 0.43–1.71 over four cards and up to 3.42 on one
+RING_WITNESS_FACTOR = 10.0
 # the channel-sharded HiFi-GAN against one card (tests/test_vocoder.py:
 # 226-246)
 TP_TOL = 2e-4
 MD_GAN_STEPS = 2
 MD_GAN_RTOL = 1e-3
 MD_CLI_STEPS = (2, 3)       # cli.train --distributed to step 2, resumed to 3
+# the torchrun launch of the CLIs: each rank dumps its Python stacks past
+# MD_CLI_STACKS_S, its collectives time out past MD_CLI_COLLECTIVE_S (NCCL's
+# watchdog then names the one that hung), the launch is stopped past
+# MD_CLI_DEADLINE_S
+MD_CLI_STACKS_S, MD_CLI_COLLECTIVE_S, MD_CLI_DEADLINE_S = 110, 140, 180
 
 
 def md_world(torch):
@@ -4690,6 +4699,81 @@ def md_dp(torch, kernels, inputs, world, rank):
     return res
 
 
+def md_dense_attention(torch, q, k, v, valid):
+    """The dense decoder self-attention's einsum branch
+    (``models/layers.py``), in the inputs' dtype."""
+    from smart_nar_fast_tts_tpu_torch.models.layers import masked_softmax
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / q.shape[-1] ** 0.5
+    return torch.einsum("bhqk,bhkd->bhqd",
+                        masked_softmax(s, valid[:, None, None, :]), v)
+
+
+def md_ring_witness(torch, model, batch, mesh, rank):
+    """The ring against float64 at the committed weights' own logits: the
+    q, k, v and key mask of every decoder self-attention of a forward of
+    the SP batch (eval mode) go through the ring (f32, every rank), the
+    dense einsum branch (f32, rank 0) and the same in float64 (rank 0),
+    with one seeded cotangent.  For the output and its q, k, v gradients,
+    the ring's largest distance from float64 is held within
+    RING_WITNESS_FACTOR times the dense f32 path's, and both relative L2
+    distances are reported: the two f32 paths round differently (the ring
+    differentiates its running max and sums unnormalised blocks), by a
+    few times at the largest logits, while a block folded or rescaled
+    wrongly parts from float64 by orders of magnitude more."""
+    from unittest import mock
+
+    from smart_nar_fast_tts_tpu_torch.models import layers
+    from smart_nar_fast_tts_tpu_torch.parallel import (
+        sequence_parallel_self_attention)
+    seen = []
+
+    def record(m, q, k, v, key_valid, axis):
+        seen.append(tuple(t.detach().clone() for t in (q, k, v, key_valid)))
+        return sequence_parallel_self_attention(m, q, k, v, key_valid, axis)
+    b = batch.to("cuda")
+    with mock.patch.object(layers, "sequence_parallel_self_attention",
+                           record), torch.no_grad():
+        model.cuda().eval()(b.texts, b.src_lens, mels=b.mels,
+                            mel_lens=b.mel_lens, p_targets=b.pitch,
+                            e_targets=b.energy, sp_mesh=mesh)
+    del model
+    res = []
+    for i, (q, k, v, valid) in enumerate(seen):
+        gen = torch.Generator().manual_seed(11 + i)
+        cot = torch.randn(q.shape, generator=gen).cuda()
+
+        def run(fn, dtype):
+            x = [t.to(dtype).clone().requires_grad_() for t in (q, k, v)]
+            out = fn(*x, valid)
+            (out * cot.to(dtype)).sum().backward()
+            return [out.detach()] + [t.grad for t in x]
+        ring = run(lambda a, c, d, m: sequence_parallel_self_attention(
+            mesh, a, c, d, m, "data"), torch.float32)
+        if rank != 0:
+            continue
+        f64 = run(lambda *x: md_dense_attention(torch, *x), torch.float64)
+        dense = run(lambda *x: md_dense_attention(torch, *x), torch.float32)
+        layer = dict(layer=i, logit_abs_max=float((torch.einsum(
+            "bhqd,bhkd->bhqk", q.double(), k.double()).abs().amax()
+            / q.shape[-1] ** 0.5)))
+        for name, r, d, w in zip(("out", "dq", "dk", "dv"), ring, dense,
+                                 f64):
+            r, d = r.double() - w, d.double() - w
+            r_err, d_err = float(r.abs().max()), float(d.abs().max())
+            layer[name] = dict(ring_vs_f64=r_err, dense_f32_vs_f64=d_err,
+                               ratio=r_err / d_err,
+                               ring_rel_l2=float(r.norm() / w.norm()),
+                               dense_f32_rel_l2=float(d.norm() / w.norm()))
+            if not r_err <= RING_WITNESS_FACTOR * d_err:
+                raise AssertionError(
+                    f"ring witness, decoder layer {i} {name}: the ring is "
+                    f"{r_err} from float64, the dense f32 path {d_err} "
+                    f"(> {RING_WITNESS_FACTOR}×)")
+        res.append(layer)
+        del f64, dense, ring
+    return res
+
+
 def md_sp(torch, kernels, inputs, world, rank):
     """SP: the flagship with its decoder self-attention ringed over the
     world, mesh (world,), at T SP_T against the dense single-card step of
@@ -4697,9 +4781,11 @@ def md_sp(torch, kernels, inputs, world, rank):
     TRAIN_RTOL and the gradients' share of JAX's bar reported; on
     seeded-init weights of the same widths (JAX's own SP test: fresh
     weights, hidden 256, T 2048) losses and gradients at JAX's bar.  The
-    committed weights' attention logits run to ~1e3: there two correct
-    f32 paths (the ring's online softmax and the einsum's) part by several
-    times that bar, as each parts from float64.  With world ≥ 4 the hybrid
+    committed weights' attention logits run to ~1e3: there the ring's
+    online softmax and the einsum part by several times that bar, and
+    :func:`md_ring_witness` holds the ring to float64 at those logits
+    within RING_WITNESS_FACTOR times the einsum's own distance.  With
+    world ≥ 4 the hybrid
     (2, world/2) step on the seeded weights; then one SP step at SP_T_LONG
     beside the dense single-card one."""
     from smart_nar_fast_tts_tpu_torch.config import ModelConfig
@@ -4768,6 +4854,10 @@ def md_sp(torch, kernels, inputs, world, rank):
                 seeded_dense = (dense_losses, dense)
         res[f"sp {weights}"] = entry
         del grads
+    # the committed weights' gradients miss JAX's bar (reported above):
+    # their ring held to float64 beside the dense f32 path
+    res["sp committed"]["ring_witness"] = md_ring_witness(
+        torch, md_flagship(cfg(sequence_parallel=True)), batch, flat, rank)
     if world >= 4:
         grid = make_mesh((2, world // 2), ("data", "seq"))
         grads, losses, ms, counts, peak = grads_of(
@@ -4959,14 +5049,16 @@ def sp_batch(torch, np, inv, t, seed):
                  pitch=normal(SP_B, t), energy=normal(SP_B, t))
 
 
-def multi_device_phase(torch, np, kernels, synth, inv, short, segments):
-    """The multi-device phases: md_world() NCCL ranks spawned one per card
-    (``multi_device_rank``); prints the world and the cards on lines of
-    their own.  Returns each rank's numbers."""
+def multi_device_phase(torch, np, kernels, synth, inv, short, segments,
+                       world=None):
+    """The multi-device phases: ``world`` (by default md_world()) NCCL
+    ranks spawned one per card (``multi_device_rank``); prints the world
+    and the cards on lines of their own.  Returns (world, each rank's
+    numbers)."""
     import shutil
 
     import torch.multiprocessing as mp
-    world = md_world(torch)
+    world = world or md_world(torch)
     with Phase("multi_device") as f:
         shutil.rmtree(MD_DIR, ignore_errors=True)
         work = os.path.join(MD_DIR, "ranks")
@@ -5013,13 +5105,20 @@ def rank_cli(argv):
     ``smart_nar_fast_tts_tpu_torch.cli.<cli>.main(argv)`` with the launch
     counts set to 0 just before and read just after, written with its
     result to ``<out>.<rank>.json``.  The process group joined by the
-    first run that joins one serves the rest."""
+    first run that joins one serves the rest.  A rank still running after
+    MD_CLI_STACKS_S writes its Python stacks to
+    ``<plan>.stacks.<rank>.txt``."""
+    import faulthandler
     import importlib
 
     import torch
     sys.path.insert(0, REPO)
     from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.parallel import mesh
     dist = torch.distributed
+    stacks = open(f"{argv[0]}.stacks.{os.environ['RANK']}.txt", "w")
+    faulthandler.dump_traceback_later(MD_CLI_STACKS_S, file=stacks)
+    mesh.COLLECTIVE_TIMEOUT_S = MD_CLI_COLLECTIVE_S
     with open(argv[0]) as f:
         plan = json.load(f)
     for run in plan:
@@ -5046,6 +5145,7 @@ def rank_cli(argv):
                            seconds=seconds, result=result), f)
     if dist.is_initialized():
         dist.destroy_process_group()
+    faulthandler.cancel_dump_traceback_later()
     return 0
 
 
@@ -5068,7 +5168,7 @@ def torchrun(world, plan_path, plan):
                                 stderr=subprocess.STDOUT,
                                 start_new_session=True)
         try:
-            rc = proc.wait(timeout=MD_DEADLINE_S)
+            rc = proc.wait(timeout=MD_CLI_DEADLINE_S)
         except subprocess.TimeoutExpired:
             proc.terminate()
             try:
@@ -5076,10 +5176,16 @@ def torchrun(world, plan_path, plan):
             except subprocess.TimeoutExpired:
                 os.killpg(proc.pid, 9)
                 proc.wait()
-            rc = f"stopped after {MD_DEADLINE_S} s"
+            rc = f"stopped after {MD_CLI_DEADLINE_S} s"
     if rc != 0:
         with open(log_path) as log:
-            raise AssertionError(f"torchrun: {rc}\n{log.read()[-4000:]}")
+            text = log.read()[-4000:]
+        for r in range(world):
+            path = f"{plan_path}.stacks.{r}.txt"
+            if os.path.exists(path):
+                with open(path) as fh:
+                    text += f"\n-- rank {r} stacks --\n{fh.read()[-3000:]}"
+        raise AssertionError(f"torchrun: {rc}\n{text}")
     records = []
     for run in plan:
         ranks = []
@@ -5197,6 +5303,94 @@ def bench_inputs(np):
     rng.choice(inv, size=(1, L_LONG))          # bench's long-form text
     src_lens = np.clip(rng.integers(L - 32, L + 1, size=(B,)), 1, L)
     return texts, src_lens, inv
+
+
+def multi_device_only(phases) -> int:
+    """``chip_smoke.py --multi-device PHASE [PHASE ...]`` on a node of
+    several cards: the multi-device phases alone, in the order given, each
+    ``cli:W`` (``multi_device_cli_phase``) or ``md:W``
+    (``multi_device_phase``) at world W, on the inputs they read in a
+    whole run (the e2e phase's serving batch and waveforms, untimed; the
+    cli phase's HiFi-GAN V1; the trainer phase's corpus).  A ``cli`` phase
+    after a failed one is skipped (it would wait out its deadline too).
+    Exits 1 when a phase failed."""
+    import shutil
+    import traceback
+
+    import torch
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.data import save_wav
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi(), torch.__version__, torch.version.cuda,
+          torch.cuda.device_count(), flush=True)
+    with Phase("build") as f:
+        f["compiled"] = _build.build_all()
+    from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
+    texts, src_lens, inv = bench_inputs(np)
+    with Phase("multi_device inputs"):
+        # the e2e phase's serving run, without its timings
+        synth = Synthesizer.from_committed()
+        wav, mel_lens = synth.synthesize(texts, src_lens)
+        short = synth.stage_a(torch.from_numpy(texts),
+                              torch.from_numpy(src_lens))
+        segments = vocoder_segments(torch, np, wav, mel_lens,
+                                    synth.hop_length)
+        voc = cli_workspace(torch, np)[2]
+        paths = trainer_workspace(torch, np, synth, inv, voc)
+        trainer_argv = ["-p", paths[0], "-m", paths[1], "-t", paths[2]]
+        shutil.rmtree(VOC_CLI_DIR, ignore_errors=True)
+        os.makedirs(os.path.join(VOC_CLI_DIR, "wavs"))
+        for i in range(wav.shape[0]):
+            n = int(mel_lens[i]) * synth.hop_length
+            save_wav(os.path.join(VOC_CLI_DIR, "wavs", f"e2e{i}.wav"),
+                     wav[i, :n].float().cpu().numpy(), synth.sampling_rate)
+    failed = []
+    for phase in phases:
+        kind, world = phase.split(":")
+        if kind == "cli" and any(p.startswith("cli") for p in failed):
+            print(f"skipped {phase}", flush=True)
+            continue
+        try:
+            if kind == "cli":
+                shutil.rmtree(MD_DIR, ignore_errors=True)
+                multi_device_cli_phase(torch, kernels, int(world),
+                                       trainer_argv, {"vocoder": voc})
+            else:
+                multi_device_phase(torch, np, kernels, synth, inv, short,
+                                   segments, world=int(world))
+        except Exception:
+            failed.append(phase)
+            print(f"FAILED {phase}\n{traceback.format_exc()}", flush=True)
+    emit({"multi_device_only": phases, "failed": failed})
+    return 1 if failed else 0
+
+
+def ring_witness_only() -> int:
+    """``chip_smoke.py --ring-witness``: :func:`md_ring_witness` alone on
+    one card without a process group (the ring of one block that world 1
+    runs), on the multi_device phase's SP batch."""
+    import torch
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from smart_nar_fast_tts_tpu_torch.config import ModelConfig
+    from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi(), flush=True)
+    inv = bench_inputs(np)[2]
+    cfg = ModelConfig(duration_extraction="intended",
+                      duration_head_reduce="first", sequence_parallel=True)
+    with Phase("ring witness") as f:
+        f["layers"] = md_ring_witness(
+            torch, md_flagship(cfg), sp_batch(torch, np, inv, SP_T, 5),
+            make_mesh((1,), ("data",)), 0)
+    return 0
 
 
 def main() -> int:
@@ -5423,4 +5617,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-cli"]:
         sys.exit(rank_cli(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multi-device"]:
+        sys.exit(multi_device_only(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ring-witness"]:
+        sys.exit(ring_witness_only())
     sys.exit(main())

@@ -9,7 +9,8 @@ rank stands for a JAX device; the ranks of one node stand for a JAX process.
   the CPU) and selects the rank's card.
 - :func:`make_mesh` lays the ranks out on named axes, row-major as
   ``np.reshape`` of the rank ids, with one process group per line of each
-  axis; a single ``-1`` absorbs the world size.
+  axis (:func:`line_group`: the default group for a line of every rank);
+  a single ``-1`` absorbs the world size.
 - :func:`batch_sharding` is a rank's contiguous rows of a batch along an
   axis, the row layout of JAX's ``NamedSharding(mesh, P(axis))``.
 - :func:`replicated` broadcasts parameters from the mesh's first rank, so
@@ -41,14 +42,15 @@ TORCHRUN_HINT = ("launch with torchrun (python -m torch.distributed.run "
 def init_distributed(device: str | torch.device | None = None,
                      require: bool = False,
                      init_method: Optional[str] = None,
-                     timeout_s: float = COLLECTIVE_TIMEOUT_S) -> bool:
+                     timeout_s: Optional[float] = None) -> bool:
     """Join the process group when launched by torchrun with
     ``WORLD_SIZE`` > 1, or with ``require`` at any world size; returns
     whether a group is up.  ``require`` raises when the torchrun
     environment is missing.  On CUDA (``device`` None or ``"cuda"``) the
     backend is NCCL and the rank's card becomes the current device, so
     that ``resolve_device(None)`` is that card; on the CPU it is gloo.
-    ``init_method`` defaults to ``env://``."""
+    ``init_method`` defaults to ``env://`` and ``timeout_s`` to
+    ``COLLECTIVE_TIMEOUT_S``."""
     if dist.is_initialized():
         return True
     if not all(k in os.environ for k in ("WORLD_SIZE", "RANK",
@@ -69,7 +71,8 @@ def init_distributed(device: str | torch.device | None = None,
     dist.init_process_group(
         "nccl" if cuda else "gloo", init_method=init_method or "env://",
         rank=int(os.environ["RANK"]), world_size=world,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        timeout=datetime.timedelta(
+            seconds=timeout_s or COLLECTIVE_TIMEOUT_S))
     return True
 
 
@@ -88,13 +91,41 @@ def node_layout() -> tuple[int, int, int]:
     return rank // local, max(1, size // local), local
 
 
+# the process groups of the lines of every mesh built so far, by their
+# ranks, for the default group in ``_LINES_OF``
+_LINES: dict = {}
+_LINES_OF = None
+
+
+def line_group(ranks: tuple):
+    """The process group of ``ranks`` (every rank calls this for every
+    line, in the same order): the default group when they are every rank,
+    None for a single rank of a larger world (its collectives are
+    skipped), else one group per set of ranks, made at its first call and
+    shared by every later mesh.  So one set of ranks never holds two NCCL
+    communicators, and a second Trainer or CLI in the process makes
+    none."""
+    global _LINES_OF
+    if len(ranks) == dist.get_world_size():
+        return dist.group.WORLD
+    if len(ranks) == 1:
+        return None
+    if _LINES_OF is not dist.group.WORLD:
+        _LINES.clear()
+        _LINES_OF = dist.group.WORLD
+    if ranks not in _LINES:
+        _LINES[ranks] = dist.new_group(list(ranks))
+    return _LINES[ranks]
+
+
 class Mesh:
     """The ranks of the default group on named axes.
 
     ``shape`` maps each axis name to its size and ``devices`` is the grid of
     rank ids, as a JAX mesh's; ``coords`` is this rank's index on each axis
     and :meth:`group` the process group of the line through this rank along
-    an axis (None without a process group)."""
+    an axis (None without a process group, and for a line of one rank in a
+    larger world)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
         rank, size = world()
@@ -108,12 +139,12 @@ class Mesh:
         self.coords = dict(zip(self.axis_names, (int(i) for i in here)))
         self._groups = {}
         if dist.is_initialized():
-            # every rank creates every group, in the same order
+            # every rank visits every line, in the same order
             for i, name in enumerate(self.axis_names):
                 lines = np.moveaxis(self.devices, i, -1).reshape(
                     -1, self.devices.shape[i])
                 for line in lines:
-                    group = dist.new_group(line.tolist())
+                    group = line_group(tuple(line.tolist()))
                     if rank in line:
                         self._groups[name] = group
 
@@ -241,26 +272,25 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _AllReduceSum.apply(x, group)
 
 
-def all_reduce_grads(params, group) -> None:
-    """Sum the parameters' ``.grad`` over ``group`` in one all-reduce of
-    the flattened gradients.  A parameter without one is skipped: the ranks
-    run the same graph, so the same ones have none on every rank."""
-    if group is None:
+def reduce_over_mesh(mesh: Optional[Mesh], params, divisor: float,
+                     buffers=()) -> None:
+    """One all-reduce over every rank of ``mesh`` (the default group): each
+    parameter's ``.grad`` summed and divided by ``divisor``, each tensor of
+    ``buffers`` averaged.  Ranks that compute the same rows (the seq ranks
+    of a ring, a tail axis such as ``model``) are equal in exact arithmetic
+    only: the card's nondeterministic kernels (cuDNN's and the embedding's
+    backward sum in no fixed order) would let them drift apart, and this
+    averages them back.  A parameter without a gradient is skipped: the
+    ranks run the same graph, so the same ones have none on every rank.
+    No-op without a mesh or a process group."""
+    if mesh is None or not dist.is_initialized():
         return
     grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
+    buffers = list(buffers)
+    flat = torch.cat([t.reshape(-1) for t in grads + buffers])
+    dist.all_reduce(flat)
     offset = 0
-    for g in grads:
-        g.copy_(flat[offset: offset + g.numel()].view_as(g))
-        offset += g.numel()
-
-
-def average_grads(params, group) -> None:
-    """The parameters' ``.grad`` averaged over ``group``."""
-    if group is None:
-        return
-    params = list(params)
-    all_reduce_grads(params, group)
-    torch._foreach_div_([p.grad for p in params if p.grad is not None],
-                        float(dist.get_world_size(group)))
+    for ts, d in ((grads, float(divisor)), (buffers, float(mesh.size))):
+        for t in ts:
+            t.copy_(flat[offset: offset + t.numel()].view_as(t) / d)
+            offset += t.numel()

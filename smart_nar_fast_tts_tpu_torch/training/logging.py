@@ -205,11 +205,11 @@ def audio_summary(tag: str, wav: np.ndarray, sampling_rate: int) -> bytes:
 class MetricWriter:
     """TensorBoard event file + append-only text log under ``log_dir``;
     no-ops on every rank but the first (the JAX writer's "only the primary
-    process writes"), unless ``enabled`` says otherwise."""
+    process writes")."""
 
-    def __init__(self, log_dir: str, enabled: Optional[bool] = None):
+    def __init__(self, log_dir: str):
         self.log_dir = log_dir
-        self.enabled = world()[0] == 0 if enabled is None else enabled
+        self.enabled = world()[0] == 0
         self._file = None
         if not self.enabled:
             return

@@ -20,10 +20,11 @@ are the global batch's (DDP would average, and need the sum of
 the same mesh as ``mesh`` (hybrid DP×SP) the batch rides the data axis and
 the ring the model's ``sp_axis``.  When ``sp_axis`` is the data axis
 itself, the ring takes that axis and the batch is not split.  The ranks
-around the ring compute the same rows: their gradients and BatchNorm
-running statistics, equal in exact arithmetic, are averaged over the seq
-axis, as the card's nondeterministic kernels (cuDNN's and the embedding's
-backward sum in no fixed order) would let the replicas drift apart.
+along every other axis (the ring's, a tail such as ``model``) compute the
+same rows: one all-reduce of the flattened gradients and BatchNorm running
+statistics over the whole mesh sums the data shards and averages those
+replicas, which the card's nondeterministic kernels would otherwise let
+drift apart (``parallel.reduce_over_mesh``).
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ import torch
 from ..data.batch import Batch
 from ..models import FastSpeech2Loss, LossBreakdown, ModelOutput
 from ..models.layers import MaskedBatchNorm
-from ..parallel import (Mesh, all_reduce, all_reduce_grads, average_grads,
-                        batch_sharding)
+from ..parallel import Mesh, all_reduce, batch_sharding, reduce_over_mesh
 from ..parallel.mesh import BatchSharding, trivial
 from .state import TrainState
 
@@ -86,20 +86,19 @@ def data_parallel(model_cfg, mesh: Optional[Mesh],
     return group, batch_sharding(mesh, data_axis, num_hosts)
 
 
-def sync_replicas(model, mesh: Optional[Mesh]) -> None:
-    """Average the gradients and the BatchNorm running statistics over the
-    seq axis of a sequence-parallel model's ``mesh``."""
-    if mesh is None or not model.cfg.sequence_parallel:
+def reduce_step(model, mesh: Optional[Mesh], split: bool,
+                data_axis: str = "data") -> None:
+    """The step's one all-reduce over every rank of ``mesh``: the
+    gradients summed over the data shards (each rank's a part of the
+    global batch's sum) and averaged over the ranks that compute the same
+    rows, the BatchNorm running statistics averaged; ``split`` says whether
+    the batch was split over ``data_axis``."""
+    if mesh is None:
         return
-    group = mesh.group(model.cfg.sp_axis)
-    if group is None:
-        return
-    average_grads(model.parameters(), group)
-    n = float(mesh.shape[model.cfg.sp_axis])
-    for bn in model.modules():
-        if isinstance(bn, MaskedBatchNorm):
-            for t in (bn.running_mean, bn.running_var):
-                t.copy_(all_reduce(t, group) / n)
+    shards = mesh.shape[data_axis] if split else 1
+    buffers = [t for bn in model.modules() if isinstance(bn, MaskedBatchNorm)
+               for t in (bn.running_mean, bn.running_var)]
+    reduce_over_mesh(mesh, model.parameters(), mesh.size / shards, buffers)
 
 
 def compute_gradients(state: TrainState, loss_fn: FastSpeech2Loss,
@@ -128,8 +127,8 @@ def compute_gradients(state: TrainState, loss_fn: FastSpeech2Loss,
         losses.append(lb)
         outputs.append(ModelOutput(*(None if t is None else t.detach()
                                      for t in out)))
-    sync_replicas(model, sp_mesh)
-    all_reduce_grads(state.params, group)
+    reduce_step(model, sp_mesh if mesh is None else mesh, rows is not None,
+                data_axis)
     if grad_acc_steps > 1:
         grads = [p.grad for p in state.params if p.grad is not None]
         torch._foreach_div_(grads, float(grad_acc_steps))

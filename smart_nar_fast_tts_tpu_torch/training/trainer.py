@@ -306,6 +306,11 @@ class Trainer:
             profiler.close(step)
             train_writer.close()
             val_writer.close()
+        if dist.is_initialized():
+            # no rank returns before the first one's checkpoint is written:
+            # a later run of the same job restores it
+            float(all_reduce(torch.zeros((), device=self.device),
+                             dist.group.WORLD))
         return state
 
     # -- sample synthesis during training ---------------------------------

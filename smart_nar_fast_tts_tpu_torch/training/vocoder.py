@@ -29,7 +29,7 @@ from torch.profiler import record_function
 from ..audio.stft import MelSpectrogramConfig
 from ..device import resolve_device
 from ..kernels import fused_log_mel
-from ..parallel import Mesh, all_reduce, average_grads, batch_sharding
+from ..parallel import Mesh, all_reduce, batch_sharding, reduce_over_mesh
 from ..vocoder.discriminators import HiFiGANDiscriminator
 from ..vocoder.losses import (FM_WEIGHT, MEL_WEIGHT, discriminator_loss,
                               feature_matching_loss,
@@ -130,6 +130,9 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
 
     group = None if mesh is None else mesh.group(data_axis)
     rows = None if group is None else batch_sharding(mesh, data_axis)
+    # each rank's losses are means over its rows: the gradients average
+    # over every rank (data shards and replicas alike)
+    divisor = None if mesh is None else mesh.size
 
     def step(state: VocoderState, wavs: torch.Tensor,
              mels: Optional[torch.Tensor] = None) -> VocoderMetrics:
@@ -159,7 +162,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
             d_loss = (discriminator_loss(mpd_r, mpd_f)
                       + discriminator_loss(msd_r, msd_f))
             d_loss.backward()
-            average_grads(disc.parameters(), group)
+            reduce_over_mesh(mesh, disc.parameters(), divisor)
             state.apply(state.disc_opt, state.disc_tx)
 
         # --- generator update (discriminator frozen) ---------------------
@@ -176,7 +179,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
             mel = MEL_WEIGHT * mel_l1_loss(wav_hat, real, mel_cfg)
             total = adv + fm + mel
             total.backward(inputs=list(gen.parameters()))
-            average_grads(gen.parameters(), group)
+            reduce_over_mesh(mesh, gen.parameters(), divisor)
             state.apply(state.gen_opt, state.gen_tx)
 
         state.step += 1

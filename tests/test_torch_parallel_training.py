@@ -12,7 +12,9 @@ on both sides (flax's ``Dropout`` patched inside the module's fixture).
   1), rtol 2e-3), parameters and BatchNorm running statistics 1e-5; the
   same with ``grad_acc_step`` 2 on a global batch of 16 rows (JAX's
   microbatches: rows of the global batch, the statistics carried from one
-  to the next).
+  to the next); and the DP step on a ``(2, 2)`` data × model mesh, whose
+  ranks along ``model`` compute the same rows, against the same step.
+  Every rank holds the same parameters after each.
 - The SP step (the ring over the 4-way axis) and the hybrid ``(2, 2)`` data
   × seq step against the same: losses 1e-4, gradients at JAX's bar, alike
   on every rank.
@@ -21,7 +23,8 @@ on both sides (flax's ``Dropout`` patched inside the module's fixture).
 - The DP GAN step against JAX's ``make_vocoder_train_step(mesh=)``: metrics
   rtol 1e-3, both trees 1e-5.
 - Two steps of ``Trainer.fit`` on a ``(2, 2)`` data × seq mesh: the same
-  parameters on every rank, and only the first rank's files.
+  parameters on every rank, only the first rank's files, and those on
+  disk when ``fit`` returns on any rank.
 
 JAX runs its Pallas kernels off (the alignment path's full maps, the plain
 log-mel); the port's CPU wrappers run their plain versions.
@@ -154,7 +157,7 @@ def run(tmp_path_factory):
         root, "fit", corpus,
         tpu={"mesh_shape": [2, 2], "mesh_axis_names": ["data", "seq"]},
         model={"tpu": {"sequence_parallel": True, "sp_axis": "seq"}},
-        step={"synth_step": 2, "val_step": 2, "save_step": 2})
+        step={"synth_step": 2, "val_step": 2, "save_step": 3})
     ranks = Ranks(training_cases, root, dict(
         arrays=arrays, acc_arrays=acc_arrays,
         acoustic=jax_to_torch_acoustic(flatten(variables), pcfg),
@@ -220,11 +223,17 @@ def _check_grads(got, want):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["dp", "acc"])
+@pytest.mark.parametrize("case", ["dp", "acc", "tail"])
 def test_data_parallel_step_matches_jax(run, case):
+    """``tail`` is the DP step on a (2, 2) data × model mesh, held to the
+    same global-batch step as ``dp``."""
     results, jax_side, _ = run
-    want = jax_side[case]
+    want = jax_side["dp" if case == "tail" else case]
     for res in results:
+        # every rank holds the same parameters after the update
+        for name, p in res[case]["params"].items():
+            np.testing.assert_array_equal(
+                p, results[0][case]["params"][name], err_msg=name)
         got = res[case]
         _check_losses(got["losses"], want["losses"])
         _check_grads(got["grads"], want["grads"])
@@ -287,12 +296,14 @@ def test_trainer_fit_on_data_seq_mesh(run):
     for res in results:
         fit = res["fit"]
         assert fit["step"] == 2 and fit["sp"]
+        # no rank returns before the first one's checkpoints are written
+        assert fit["saved"] == [1, 2]
         assert fit["mesh"] == {"data": 2, "seq": 2}
         np.testing.assert_array_equal(fit["params"],
                                       results[0]["fit"]["params"])
     out = root / "fit"
     # one writer: an event file per split, one log, the checkpoints of
-    # steps 1 (the first save) and 2
+    # steps 1 (the first save) and 2 (the last step, saved after the loop)
     for split in ("train", "val"):
         assert len(glob.glob(str(out / "log" / split / "events.*"))) == 1
     assert sorted(os.listdir(out / "ckpt")) == ["1", "2"]

@@ -232,8 +232,9 @@ def _bn_stats(model) -> list:
 
 
 def training_cases(inputs: dict) -> dict:
-    """The DP, accumulated, SP and hybrid train steps, the DP eval and GAN
-    steps, and two steps of ``Trainer.fit`` on a data × seq mesh."""
+    """The DP, accumulated, data × model, SP and hybrid train steps, the DP
+    eval and GAN steps, and two steps of ``Trainer.fit`` on a data × seq
+    mesh."""
     from smart_nar_fast_tts_tpu_torch import config as tcfg
     from smart_nar_fast_tts_tpu_torch.audio import MelSpectrogramConfig
     from smart_nar_fast_tts_tpu_torch.data import Batch
@@ -241,7 +242,8 @@ def training_cases(inputs: dict) -> dict:
                                                      FastSpeech2Loss)
     from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
     from smart_nar_fast_tts_tpu_torch.training import (
-        Trainer, VocoderOptimizer, compute_gradients, create_train_state,
+        CheckpointManager, Trainer, VocoderOptimizer, compute_gradients,
+        create_train_state,
         create_vocoder_state, make_eval_step, make_train_step,
         make_vocoder_train_step)
     from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
@@ -262,11 +264,15 @@ def training_cases(inputs: dict) -> dict:
 
     flat = make_mesh((4,), ("data",))
     grid = make_mesh((2, 2), ("data", "seq"))
+    # a (data, model) mesh: the ranks along the tail compute the same rows
+    tail = make_mesh((2, 2), ("data", "model"))
     out = {}
-    for name, acc, b in (("dp", 1, batch), ("acc", 2, acc_batch)):
+    for name, acc, b, mesh in (("dp", 1, batch, flat),
+                               ("acc", 2, acc_batch, flat),
+                               ("tail", 1, batch, tail)):
         # make_train_step's two halves: the gradients, then the update
         st = state()
-        losses, _ = compute_gradients(st, loss, b, acc, mesh=flat)
+        losses, _ = compute_gradients(st, loss, b, acc, mesh=mesh)
         grads = _grads(st)
         st.apply_gradients()
         out[name] = dict(losses=floats(losses), grads=grads,
@@ -304,6 +310,9 @@ def training_cases(inputs: dict) -> dict:
     fitted = trainer.fit(total_steps=2)
     out["fit"] = dict(step=fitted.step, mesh=trainer.mesh.shape,
                       sp=trainer.sp_mesh is not None,
+                      # what this rank sees on disk as fit returns
+                      saved=CheckpointManager(cfg.train.ckpt_path
+                                              ).all_steps(),
                       params=torch.cat([p.detach().reshape(-1) for p in
                                         fitted.params]).numpy())
     return out
