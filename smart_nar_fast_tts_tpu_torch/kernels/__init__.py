@@ -21,7 +21,7 @@ from .alignment import (alignment_attention, alignment_reference,
                         alignment_tf32x3_reference, alignment_wide_reference)
 from .attention import (attention_bf16_reference, attention_bf16_tolerance,
                         attention_reference, attention_wide_reference,
-                        flash_attention, masked_softmax)
+                        einsum_attention, flash_attention, masked_softmax)
 from .stft import fused_log_mel, log_mel_dft_reference, log_mel_fft_reference
 from .upsample import gaussian_upsample_banded
 
@@ -57,7 +57,8 @@ __all__ = ["alignment_attention", "alignment_reference",
            "alignment_tf32x3_reference", "alignment_wide_reference",
            "attention_bf16_reference", "attention_bf16_tolerance",
            "attention_reference", "attention_wide_reference",
-           "flash_attention", "masked_softmax", "fused_log_mel",
+           "einsum_attention", "flash_attention", "masked_softmax",
+           "fused_log_mel",
            "gaussian_upsample_banded",
            "log_mel_dft_reference", "log_mel_fft_reference",
            "reset_launches", "launches", "route_launches"]

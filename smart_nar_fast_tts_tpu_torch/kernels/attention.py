@@ -59,6 +59,23 @@ def masked_softmax(scores: torch.Tensor, key_valid: torch.Tensor
     return p / torch.clamp(denom, min=info.tiny)
 
 
+def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     key_valid: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Self-attention's einsum branch (the JAX model's up to its flash
+    length): the f32 product QKᵀ divided by √D, :func:`masked_softmax`, and
+    the probabilities in v's dtype times v in f32.  bf16 × bf16 is exact
+    in f32: these are the f32 sums of JAX's ``preferred_element_type=
+    float32`` products.  Returns the f32 output (B, H, Lq, D) and the
+    probabilities (B, H, Lq, Lk)."""
+    scores = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+              / q.shape[-1] ** 0.5)
+    attn = masked_softmax(scores, key_valid[:, None, None, :])
+    out = torch.einsum("bhqk,bhkd->bhqd", attn.to(v.dtype).float(),
+                       v.float())
+    return out, attn
+
+
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: torch.Tensor) -> torch.Tensor:
     """Plain version: f32 masked attention ``softmax(QKᵀ/√D)V``.

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels import alignment_attention, flash_attention, masked_softmax
+from ..kernels import alignment_attention, einsum_attention, flash_attention
 from ..parallel import all_reduce, all_reduce_sum
 from ..parallel.sequence import sequence_parallel_self_attention
 
@@ -150,7 +150,7 @@ class MultiHeadAttention(nn.Module):
                 q, k, v, key_valid, lens[0], lens[1], self.guided_sigma)
             attn = {"argmax": idx, "guided_num": gnum}
         elif kv is None and sp_mesh is not None:
-            # ring_self_attention applies the 1/sqrt(d_k) temperature
+            # the einsum branch below on this rank's query rows
             attn = None
             out = sequence_parallel_self_attention(sp_mesh, q, k, v,
                                                    key_valid, sp_axis)
@@ -158,13 +158,7 @@ class MultiHeadAttention(nn.Module):
             attn = None
             out = flash_attention(q, k, v, key_valid)
         else:
-            # bf16 × bf16 is exact in f32: these are the f32 sums of JAX's
-            # preferred_element_type=float32 products
-            scores = (torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
-                      / self.d_k ** 0.5)
-            attn = masked_softmax(scores, key_valid[:, None, None, :])
-            out = torch.einsum("bhqk,bhkd->bhqd",
-                               attn.to(v.dtype).float(), v.float())
+            out, attn = einsum_attention(q, k, v, key_valid)
         out = out.transpose(1, 2).reshape(B, Lq, self.n_head * self.d_k)
         out = dropout(linear_in(self.fc, out.to(x.dtype)), self.dropout_rate,
                       generator)

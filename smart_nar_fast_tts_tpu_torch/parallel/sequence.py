@@ -3,10 +3,11 @@
 
 - :func:`ring_self_attention`: self-attention where q, k, v are this rank's
   time slice; the key/value/mask slices travel around the ring of a process
-  group while each rank folds them into an online-softmax accumulator.  The
-  hop is an ``autograd.Function`` (send to ``r+1``, receive from ``r-1``;
-  its backward sends the gradient the other way): JAX's ``ppermute`` and its
-  transpose, so autograd differentiates the ring as JAX's ``lax.scan``.
+  group, and each rank attends its queries to the whole key axis.  The hop
+  is an ``autograd.Function`` (send to ``r+1``, receive from ``r-1``; its
+  backward sends the gradient the other way): JAX's ``ppermute`` and its
+  transpose, so each key slice's gradient sums every rank's part as JAX's
+  ``lax.scan`` does.
 - :func:`sequence_parallel_self_attention` takes the whole (B, H, T, D)
   tensors, as JAX's does, splits the time axis over the mesh's ``seq_axis``
   and gathers the output back.  Its split and gather are a pair of
@@ -17,6 +18,15 @@
   ``all_gather`` sums its gradient over the ranks, which would give n× the
   gradient here.)
 
+JAX's ring folds each arriving block into an online softmax of a pre-scaled
+q.  This one places the blocks in key order and runs the dense branch
+(``kernels.einsum_attention``) on its query rows, recomputed in the
+backward: at the committed weights' logits (~2.5e3) the gradient of a
+near-one-hot softmax is a difference of nearly equal f32 terms, so any other
+rounding of the scores, the sums or the normalisation moves the model's
+gradients by several times JAX's bar, and the ring is held to the dense
+step at that bar.
+
 The batch is this rank's own rows: a hybrid DP×SP mesh shards them over the
 data axis before the model runs (``training/step.py``).
 """
@@ -25,26 +35,10 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.utils.checkpoint import checkpoint
 
+from ..kernels import einsum_attention
 from .mesh import Mesh, all_gather_cat
-
-NEG_INF = -1e30
-
-
-def _fold(carry, s, v_blk, key_mask):
-    """Online-softmax fold of one score block.
-
-    carry: (acc (..., Tq, D), m (..., Tq), l (..., Tq)); s (..., Tq, Tk);
-    v_blk (..., Tk, D); key_mask (..., Tk) bool, broadcastable into s."""
-    acc, m, l = carry
-    s = torch.where(key_mask, s, NEG_INF)
-    m_new = torch.maximum(m, s.max(dim=-1).values)
-    alpha = torch.exp(m - m_new)
-    p = torch.exp(s - m_new[..., None]) * key_mask
-    l_new = l * alpha + p.sum(dim=-1)
-    acc_new = acc * alpha[..., None] + torch.einsum("...qk,...kd->...qd",
-                                                    p, v_blk)
-    return acc_new, m_new, l_new
 
 
 def _shift(group, tensors, hop: int):
@@ -81,31 +75,28 @@ class _RingShift(torch.autograd.Function):
 
 def ring_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_valid: torch.Tensor, group=None) -> torch.Tensor:
-    """Blockwise masked attention with k/v rotating around ``group``.
+    """Masked attention with k/v rotating around ``group``.
 
     q, k, v (B, H, T_local, D), key_valid (B, T_local) bool: this rank's
     time slice.  Returns (B, H, T_local, D) = softmax(QKᵀ/√D)V over the
     global key axis, in q's dtype, with zero rows where no key anywhere is
-    valid.  Hop ``j`` folds the block of rank ``(r − j) mod n``; ``n − 1``
-    shifts (JAX's last ``ppermute`` is discarded).  ``group`` None is a
-    ring of one."""
+    valid: each row rounded as the dense branch rounds it.  Hop ``j``
+    brings the block of rank ``(r − j) mod n``; ``n − 1`` shifts (JAX's
+    last ``ppermute`` is discarded).  The scores are not kept for the
+    backward but recomputed there.  ``group`` None is a ring of one."""
     n = 1 if group is None else dist.get_world_size(group)
-    scale = 1.0 / torch.sqrt(torch.tensor(float(q.shape[-1]),
-                                          dtype=torch.float32))
-    qf = q.float() * scale.to(q.device)
-    acc = torch.zeros_like(qf)
-    m = torch.full(qf.shape[:-1], NEG_INF, device=q.device)
-    l = torch.zeros(qf.shape[:-1], device=q.device)
+    r = 0 if group is None else dist.get_rank(group)
+    blocks = [None] * n
     # the mask travels as bytes: not every backend sends bool
-    k_blk, v_blk, mask_blk = k, v, key_valid.to(torch.uint8)
+    blk = (k, v, key_valid.to(torch.uint8))
     for j in range(n):
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, k_blk.float())
-        acc, m, l = _fold((acc, m, l), s, v_blk.float(),
-                          mask_blk.bool()[:, None, None, :])
+        blocks[(r - j) % n] = blk
         if j < n - 1:
-            k_blk, v_blk, mask_blk = _RingShift.apply(group, k_blk, v_blk,
-                                                      mask_blk)
-    out = acc / torch.clamp(l, min=1e-37)[..., None]
+            blk = _RingShift.apply(group, *blk)
+    keys, values, masks = (torch.cat(x, dim) for x, dim in
+                           zip(zip(*blocks), (2, 2, 1)))
+    out, _ = checkpoint(einsum_attention, q, keys, values, masks.bool(),
+                        use_reentrant=False, preserve_rng_state=False)
     return out.to(q.dtype)
 
 

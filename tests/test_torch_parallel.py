@@ -8,6 +8,11 @@ host devices.
   against JAX's on a ``(4,)`` mesh: full, ragged inside an interior shard,
   and no valid key (zero rows); atol/rtol 1e-5, the JAX test's bar.  Its
   q/k/v gradients against dense autograd at 2e-5, and alike on every rank.
+- The ring at logits of 3e2–1.6e3 (the committed weights' reach ~2.5e3),
+  in one block without a group and in 2 and 4 blocks over the ranks: its
+  output and gradients within JAX's SP bar of the dense f32 branch, and
+  at most ``WITNESS_FACTOR`` times as far from float64 as that branch; in
+  one block, equal to ``kernels.einsum_attention`` bit for bit.
 - The channel-sharded HiFi-GAN on a ``(2, 2)`` data × model mesh against
   JAX's ``shard_hifigan`` at 1e-5, each rank holding half of every conv's
   output channels but ``conv_post``'s.
@@ -31,8 +36,10 @@ from smart_nar_fast_tts_tpu.parallel.sequence import (
 from smart_nar_fast_tts_tpu.vocoder import HiFiGANConfig as JaxGenConfig
 from smart_nar_fast_tts_tpu.vocoder.sharding import (
     shard_hifigan as jax_shard_hifigan)
-from smart_nar_fast_tts_tpu_torch.kernels import masked_softmax
+from smart_nar_fast_tts_tpu_torch.kernels import (einsum_attention,
+                                                  masked_softmax)
 from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Align
+from smart_nar_fast_tts_tpu_torch.parallel import ring_self_attention
 from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
                                                   HiFiGANGenerator)
 from smart_nar_fast_tts_tpu_torch.weights import jax_to_torch_hifigan
@@ -43,6 +50,12 @@ from torch_port_util import flatten, init_vocoder, random_variables
 RING_TOL = 1e-5
 GRAD_TOL = 2e-5
 TP_TOL = 1e-5
+# JAX's SP gradient bar (tests/test_sequence_parallel.py:209-211)
+SP_ATOL, SP_RTOL = 2e-5, 2e-3
+# the ring's largest distance from float64 over the dense f32 branch's
+WITNESS_FACTOR = 1.5
+# q and k's standard deviation: logits up to ~320, ~980 and ~1600
+LARGE_LOGIT_SCALES = (8.0, 14.0, 18.0)
 HIFIGAN = dict(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
                upsample_initial_channel=16, resblock_kernel_sizes=(3,),
                resblock_dilation_sizes=((1, 2),), n_mels=8)
@@ -68,6 +81,19 @@ def _ring_inputs():
     return ring, cot
 
 
+def _large_logit_case(scale):
+    """B 2, H 2, T 512, D 128: q and k of standard deviation ``scale``,
+    row 1's keys padded past frame 300 (whole blocks of it at 4 blocks),
+    and a seeded cotangent."""
+    rng = np.random.RandomState(0)
+    q, k = ((rng.randn(2, 2, 512, 128) * scale).astype(np.float32)
+            for _ in range(2))
+    v = rng.randn(2, 2, 512, 128).astype(np.float32)
+    valid = np.ones((2, 512), bool)
+    valid[1, 300:] = False
+    return q, k, v, valid, rng.randn(*q.shape).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def jax_hifigan():
     gen, shapes = init_vocoder("hifigan",
@@ -80,7 +106,9 @@ def ranks(tmp_path_factory, jax_hifigan):
     _, variables = jax_hifigan
     ring, cot = _ring_inputs()
     inputs = dict(
-        ring=ring, cotangent=cot, hifigan_config=HIFIGAN,
+        ring=ring, cotangent=cot,
+        ring_large={c: _large_logit_case(c) for c in LARGE_LOGIT_SCALES},
+        hifigan_config=HIFIGAN,
         hifigan_state=jax_to_torch_hifigan(flatten(variables),
                                            HiFiGANConfig(**HIFIGAN)),
         tp_mels=np.random.RandomState(3).randn(4, 12, 8).astype(np.float32))
@@ -124,20 +152,76 @@ def _dense(q, k, v, valid):
     return torch.einsum("bhqk,bhkd->bhqd", p, v)
 
 
+def _grads(fn, q, k, v, valid, cot, dtype=torch.float32):
+    """``fn``'s output and its q, k, v gradients under ``cot``, in
+    ``dtype``, as numpy arrays keyed out/dq/dk/dv."""
+    q, k, v = (torch.from_numpy(x).to(dtype).requires_grad_()
+               for x in (q, k, v))
+    out = fn(q, k, v, torch.from_numpy(valid))
+    (out * torch.from_numpy(cot).to(dtype)).sum().backward()
+    return dict(out=out.detach().numpy(), dq=q.grad.numpy(),
+                dk=k.grad.numpy(), dv=v.grad.numpy())
+
+
 @pytest.mark.parametrize("case", ["full", "ragged", "none"])
 def test_ring_gradients_match_dense(ranks, case):
     inputs, results = ranks
-    q, k, v = (torch.from_numpy(x).requires_grad_()
-               for x in inputs["ring"][case][:3])
-    out = _dense(q, k, v, torch.from_numpy(inputs["ring"][case][3]))
-    (out * torch.from_numpy(inputs["cotangent"][case])).sum().backward()
+    want = _grads(_dense, *inputs["ring"][case], inputs["cotangent"][case])
     first = results[0]["ring"][case]
-    for name, x in (("dq", q), ("dk", k), ("dv", v)):
-        np.testing.assert_allclose(first[name], x.grad.numpy(),
+    for name in ("dq", "dk", "dv"):
+        np.testing.assert_allclose(first[name], want[name],
                                    atol=GRAD_TOL, rtol=GRAD_TOL, err_msg=name)
         for res in results[1:]:       # every seq rank: the same gradient
             np.testing.assert_array_equal(res["ring"][case][name],
                                           first[name])
+
+
+@functools.cache
+def _dense_at_large_logits(scale):
+    case = _large_logit_case(scale)
+    return (_grads(_dense, *case), _grads(_dense, *case, torch.float64))
+
+
+def _assert_rounds_as_dense(got, scale):
+    """The ring's out/dq/dk/dv on ``_large_logit_case(scale)``: within
+    JAX's SP bar of the dense f32 branch (atol SP_ATOL·max(scale, 1), the
+    scale that of each dense tensor, rtol SP_RTOL), and at most
+    WITNESS_FACTOR times as far from float64 as the dense branch."""
+    dense, f64 = _dense_at_large_logits(scale)
+    for name, want in dense.items():
+        np.testing.assert_allclose(
+            got[name], want, rtol=SP_RTOL,
+            atol=SP_ATOL * max(float(np.abs(want).max()), 1.0),
+            err_msg=name)
+        ring_err = np.abs(got[name] - f64[name]).max()
+        dense_err = np.abs(want - f64[name]).max()
+        assert ring_err <= WITNESS_FACTOR * dense_err, (name, ring_err,
+                                                        dense_err)
+
+
+@pytest.mark.parametrize("scale", LARGE_LOGIT_SCALES)
+def test_ring_rounds_as_dense_at_large_logits(scale):
+    """The ring of one (no group, one block)."""
+    _assert_rounds_as_dense(
+        _grads(ring_self_attention, *_large_logit_case(scale)), scale)
+
+
+@pytest.mark.parametrize("scale", LARGE_LOGIT_SCALES)
+def test_ring_of_one_is_the_dense_branch(scale):
+    """One block: the dense branch's rounding exactly, the backward's
+    recomputed scores included."""
+    case = _large_logit_case(scale)
+    got = _grads(ring_self_attention, *case)
+    want = _grads(lambda *x: einsum_attention(*x)[0], *case)
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+
+
+@pytest.mark.parametrize("blocks", [2, 4])
+@pytest.mark.parametrize("scale", LARGE_LOGIT_SCALES)
+def test_ring_blocks_round_as_dense_at_large_logits(ranks, blocks, scale):
+    _, results = ranks
+    _assert_rounds_as_dense(results[0]["ring_large"][blocks, scale], scale)
 
 
 def test_tp_hifigan_matches_jax(ranks, jax_hifigan):

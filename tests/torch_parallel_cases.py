@@ -177,15 +177,21 @@ def parallel_cases(inputs: dict) -> dict:
         grid_groups=[torch.distributed.get_process_group_ranks(
             grid.group(a)) for a in ("data", "seq")])
 
-    ring = {}
-    for name, (q, k, v, valid) in inputs["ring"].items():
+    def ring(mesh, axis, q, k, v, valid, cot):
         q, k, v = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
         o = sequence_parallel_self_attention(
-            flat, q, k, v, torch.from_numpy(valid), "data")
-        (o * torch.from_numpy(inputs["cotangent"][name])).sum().backward()
-        ring[name] = dict(out=o.detach().numpy(), dq=q.grad.numpy(),
-                          dk=k.grad.numpy(), dv=v.grad.numpy())
-    out["ring"] = ring
+            mesh, q, k, v, torch.from_numpy(valid), axis)
+        (o * torch.from_numpy(cot)).sum().backward()
+        return dict(out=o.detach().numpy(), dq=q.grad.numpy(),
+                    dk=k.grad.numpy(), dv=v.grad.numpy())
+    out["ring"] = {name: ring(flat, "data", *x, inputs["cotangent"][name])
+                   for name, x in inputs["ring"].items()}
+    # large logits, in 4 blocks over the flat mesh and 2 over the grid's
+    # seq axis: rank 0's results (the other ranks hold the same)
+    large = {(blocks, scale): ring(mesh, axis, *x)
+             for scale, x in inputs["ring_large"].items()
+             for blocks, mesh, axis in ((4, flat, "data"), (2, grid, "seq"))}
+    out["ring_large"] = large if torch.distributed.get_rank() == 0 else None
 
     gen = HiFiGANGenerator(HiFiGANConfig(**inputs["hifigan_config"]))
     gen.load_state_dict(inputs["hifigan_state"])
