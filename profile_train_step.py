@@ -19,7 +19,7 @@ own synthesis).  It warms up two steps, then traces ``--steps`` steps with
 card's busy time (the union of its kernels' intervals) and idle share over
 that window, the device time of each kernel by name and of each operator by
 self device time; for ``vocoder`` also the step's phases (its
-``record_function`` ranges: host ms, device span, kernel ms); for
+``tts.gan.*`` spans: host ms, device span, kernel ms); for
 ``acoustic`` each hand-written kernel's backward on the step's path (its
 recompute of the plain version) timed alone at the step's shapes by CUDA
 events.  Without a card it exits non-zero.
@@ -197,8 +197,8 @@ def main() -> int:
             for a in ops[:30]},
     }
     if args.step == "vocoder":
-        from smart_nar_fast_tts_tpu_torch.training.vocoder import RANGE
-        doc["phases_per_step"] = phases_ms(prof, RANGE, args.steps,
+        from smart_nar_fast_tts_tpu_torch.tracing import PREFIX
+        doc["phases_per_step"] = phases_ms(prof, PREFIX + "gan.", args.steps,
                                            kernel_events)
     if args.step == "acoustic":
         # each kernel's backward on the step's path alone, at its shapes

@@ -28,6 +28,7 @@ from ..config import FeatureStats, ModelConfig, PreprocessConfig
 from ..ops.duration import durations_from_argmax, durations_from_attention
 from ..ops.masks import length_to_valid
 from ..parallel import all_reduce
+from ..tracing import span
 from .encoders import MelDecoder, MelEncoder, TxtEncoder
 from .layers import PostNet, zero_where_not
 from .variance import VarianceAdaptor
@@ -100,7 +101,9 @@ class FastSpeech2Align(nn.Module):
         src_cap = torch.arange(L, device=texts.device) < _longest(
             src_lens, data_group)
 
-        src_output = self.txt_encoder(texts, src_valid, src_cap, generator)
+        with span("acoustic.text_encoder"):
+            src_output = self.txt_encoder(texts, src_valid, src_cap,
+                                          generator)
         if self.cfg.multi_speaker and speakers is not None:
             src_output = src_output + self.speaker_emb(speakers)[:, None, :]
 
@@ -114,37 +117,42 @@ class FastSpeech2Align(nn.Module):
             # the kernel implements exactly the intended/head-0 semantics
             fused = (self.cfg.duration_extraction == "intended"
                      and self.cfg.duration_head_reduce == "first")
-            _, attns = self.mel_encoder(src_output, mels, src_valid,
-                                        mel_valid, mel_cap, src_lens,
-                                        mel_lens, fused, generator)
-            if fused:
-                guided_nums = torch.stack([a["guided_num"] for a in attns])
-                d_targets = durations_from_argmax(
-                    attns[-1]["argmax"].detach(), src_lens, mel_lens, L)
-            else:
-                alignments = torch.stack(attns)
-                d_targets = durations_from_attention(
-                    alignments[-1].detach(), src_lens, mel_lens,
-                    mode=self.cfg.duration_extraction,
-                    head_reduce=self.cfg.duration_head_reduce)
+            with span("acoustic.mel_encoder"):
+                _, attns = self.mel_encoder(src_output, mels, src_valid,
+                                            mel_valid, mel_cap, src_lens,
+                                            mel_lens, fused, generator)
+                if fused:
+                    guided_nums = torch.stack([a["guided_num"]
+                                               for a in attns])
+                    d_targets = durations_from_argmax(
+                        attns[-1]["argmax"].detach(), src_lens, mel_lens, L)
+                else:
+                    alignments = torch.stack(attns)
+                    d_targets = durations_from_attention(
+                        alignments[-1].detach(), src_lens, mel_lens,
+                        mode=self.cfg.duration_extraction,
+                        head_reduce=self.cfg.duration_head_reduce)
             max_len = T
         else:
             max_len = max_mel_len if max_mel_len is not None \
                 else self.cfg.max_seq_len
 
-        va = self.variance_adaptor(
-            src_output, src_valid, max_len, mel_valid=mel_valid,
-            pitch_target=p_targets, energy_target=e_targets,
-            duration_target=d_targets, p_control=p_control,
-            e_control=e_control, d_control=d_control, src_cap=src_cap,
-            mel_cap=mel_cap, generator=generator)
+        with span("acoustic.variance"):
+            va = self.variance_adaptor(
+                src_output, src_valid, max_len, mel_valid=mel_valid,
+                pitch_target=p_targets, energy_target=e_targets,
+                duration_target=d_targets, p_control=p_control,
+                e_control=e_control, d_control=d_control, src_cap=src_cap,
+                mel_cap=mel_cap, generator=generator)
 
-        x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap, generator,
-                             sp_mesh)
-        mel = self.mel_linear(x)
-        postnet_in = zero_where_not(va.mel_cap, mel)
-        postnet_mel = self.postnet(postnet_in, va.mel_cap, generator,
-                                   data_group) + mel
+        with span("acoustic.decoder"):
+            x = self.mel_decoder(va.x, va.mel_valid, va.mel_cap, generator,
+                                 sp_mesh)
+            mel = self.mel_linear(x)
+        with span("acoustic.postnet"):
+            postnet_in = zero_where_not(va.mel_cap, mel)
+            postnet_mel = self.postnet(postnet_in, va.mel_cap, generator,
+                                       data_group) + mel
         return ModelOutput(
             mel=mel, postnet_mel=postnet_mel,
             pitch_prediction=va.pitch_prediction,

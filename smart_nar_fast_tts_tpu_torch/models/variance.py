@@ -18,6 +18,7 @@ from torch import nn
 from ..config import FeatureStats, ModelConfig
 from ..kernels import gaussian_upsample_banded
 from ..ops.upsample import hard_upsample
+from ..tracing import span
 from .layers import LN_EPS, ConvNorm, dropout, zero_where_not
 
 
@@ -157,12 +158,13 @@ class VarianceAdaptor(nn.Module):
                 min=0.0)
             duration = duration * src_valid
 
-        if self.cfg.upsampling == "hard":
-            x, mel_len = hard_upsample(x, duration, max_len)
-        else:
-            x, mel_len = gaussian_upsample_banded(
-                x.contiguous(), duration, max_len, src_valid.to(x.dtype),
-                sigma=self.cfg.gaussian_sigma)
+        with span("acoustic.upsample"):
+            if self.cfg.upsampling == "hard":
+                x, mel_len = hard_upsample(x, duration, max_len)
+            else:
+                x, mel_len = gaussian_upsample_banded(
+                    x.contiguous(), duration, max_len, src_valid.to(x.dtype),
+                    sigma=self.cfg.gaussian_sigma)
 
         frames = torch.arange(max_len, device=x.device)
         if duration_target is None or mel_valid is None:

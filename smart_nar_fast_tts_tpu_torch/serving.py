@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .tracing import call_args, span
 
 RESULTS_DIR = Path(__file__).resolve().parent.parent / "benchmarks" / "results"
 MEL_BUCKETS = (128, 256, 384, 512, 640, 768, 1000)
@@ -119,6 +120,7 @@ class Synthesizer:
         self.model = model.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
         self.t_cap = t_cap
+        self.calls = 0          # synthesize calls, numbered in their spans
 
     @classmethod
     def from_committed(cls, device: str | torch.device | None = None,
@@ -148,13 +150,15 @@ class Synthesizer:
     def stage_a(self, token_ids: torch.Tensor, src_lens: torch.Tensor
                 ) -> ModelOutput:
         """Text → mel at the full frame capacity."""
-        return self.model(token_ids.to(self.device), src_lens.to(self.device),
-                          max_mel_len=self.t_cap)
+        with span("stage_a"):
+            return self.model(token_ids.to(self.device),
+                              src_lens.to(self.device), max_mel_len=self.t_cap)
 
     @torch.inference_mode()
     def stage_b(self, mel: torch.Tensor) -> torch.Tensor:
         """Mel (B, T, n_mels) → waveform (B, T·hop)."""
-        return self.vocoder(mel.to(self.device))
+        with span("stage_b"):
+            return self.vocoder(mel.to(self.device))
 
     def synthesize(self, token_ids, src_lens
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -163,9 +167,13 @@ class Synthesizer:
         ``mel_lens[i]·hop`` samples."""
         token_ids = torch.as_tensor(token_ids, dtype=torch.long)
         src_lens = torch.as_tensor(src_lens, dtype=torch.long)
-        out = self.stage_a(token_ids, src_lens)
-        cap = bucket(int(out.mel_lens.max()))
-        wav = self.stage_b(out.postnet_mel[:, :cap])
+        self.calls += 1
+        with span("synthesize", call_args(self.calls, *token_ids.shape,
+                                          self.t_cap)):
+            out = self.stage_a(token_ids, src_lens)
+            with span("bucket"):
+                cap = bucket(int(out.mel_lens.max()))
+            wav = self.stage_b(out.postnet_mel[:, :cap])
         return wav, out.mel_lens
 
 

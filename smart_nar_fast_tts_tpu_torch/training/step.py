@@ -38,6 +38,7 @@ from ..models import FastSpeech2Loss, LossBreakdown, ModelOutput
 from ..models.layers import MaskedBatchNorm
 from ..parallel import Mesh, all_reduce, batch_sharding, reduce_over_mesh
 from ..parallel.mesh import BatchSharding, trivial
+from ..tracing import call_args, span
 from .state import TrainState
 
 
@@ -122,13 +123,16 @@ def compute_gradients(state: TrainState, loss_fn: FastSpeech2Loss,
         if rows is not None:
             mb = rows(mb)
         mb = mb.to(state.device)
-        lb, out = _forward(model, loss_fn, mb, generator, sp_mesh, group)
-        lb.total.backward()
+        with span("step.forward"):
+            lb, out = _forward(model, loss_fn, mb, generator, sp_mesh, group)
+        with span("step.backward"):
+            lb.total.backward()
         losses.append(lb)
         outputs.append(ModelOutput(*(None if t is None else t.detach()
                                      for t in out)))
-    reduce_step(model, sp_mesh if mesh is None else mesh, rows is not None,
-                data_axis)
+    with span("step.reduce"):
+        reduce_step(model, sp_mesh if mesh is None else mesh,
+                    rows is not None, data_axis)
     if grad_acc_steps > 1:
         grads = [p.grad for p in state.params if p.grad is not None]
         torch._foreach_div_(grads, float(grad_acc_steps))
@@ -148,10 +152,14 @@ def make_train_step(loss_fn: FastSpeech2Loss, grad_acc_steps: int = 1,
 
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None):
-        losses, outputs = compute_gradients(
-            state, loss_fn, batch, grad_acc_steps, generator, mesh, sp_mesh,
-            data_axis, num_hosts)
-        state.apply_gradients()
+        B, L = batch.texts.shape
+        with span("step", call_args(state.step + 1, B, L,
+                                    batch.mels.shape[1])):
+            losses, outputs = compute_gradients(
+                state, loss_fn, batch, grad_acc_steps, generator, mesh,
+                sp_mesh, data_axis, num_hosts)
+            with span("step.optimizer"):
+                state.apply_gradients()
         return (losses, outputs) if keep_outputs else losses
 
     return step

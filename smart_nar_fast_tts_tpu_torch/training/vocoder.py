@@ -24,12 +24,12 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..audio.stft import MelSpectrogramConfig
 from ..device import resolve_device
 from ..kernels import fused_log_mel
 from ..parallel import Mesh, all_reduce, batch_sharding, reduce_over_mesh
+from ..tracing import span
 from ..vocoder.discriminators import HiFiGANDiscriminator
 from ..vocoder.losses import (FM_WEIGHT, MEL_WEIGHT, discriminator_loss,
                               feature_matching_loss,
@@ -43,9 +43,6 @@ class VocoderMetrics(NamedTuple):
     mel: torch.Tensor
     gen_total: torch.Tensor
 
-
-# the prefix of the GAN step's profiler ranges
-RANGE = "vocoder_step: "
 
 # optax.adamw's defaults (torch's AdamW decays by 1e-2 unless told)
 ADAM_EPS = 1e-8
@@ -124,9 +121,9 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
     first (real with ``update_stats=True``, then fake with the new
     statistics), then the generator against the new discriminator.  Each
     tree's gradient of its update is left in its parameters' ``.grad``.
-    The three parts run inside ``torch.profiler.record_function`` ranges
-    named ``RANGE + "input mel" | "D update" | "G update"``, which a trace
-    reads as the step's phases."""
+    Under a profiler the three parts are the spans ``tts.gan.input_mel``,
+    ``tts.gan.d_update`` and ``tts.gan.g_update`` (``tracing.span``), which
+    a trace reads as the step's phases."""
 
     group = None if mesh is None else mesh.group(data_axis)
     rows = None if group is None else batch_sharding(mesh, data_axis)
@@ -140,7 +137,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
         if rows is not None:
             wavs = rows(wavs)
             mels = None if mels is None else rows(mels)
-        with record_function(RANGE + "input mel"):
+        with span("gan.input_mel"):
             wavs = wavs.to(state.device).contiguous()
             if mels is None:
                 mel_in, _ = fused_log_mel(wavs, mel_cfg)  # (B, n_mels, F)
@@ -149,7 +146,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
                 mel_in = mels.to(state.device)
 
         # --- discriminator update (generator frozen) ---------------------
-        with record_function(RANGE + "D update"):
+        with span("gan.d_update"):
             with torch.no_grad():
                 fake = gen(mel_in)
             # the centred STFT yields one extra frame, so F·hop can exceed
@@ -166,7 +163,7 @@ def make_vocoder_train_step(mel_cfg: MelSpectrogramConfig,
             state.apply(state.disc_opt, state.disc_tx)
 
         # --- generator update (discriminator frozen) ---------------------
-        with record_function(RANGE + "G update"):
+        with span("gan.g_update"):
             gen.zero_grad(set_to_none=True)
             wav_hat = gen(mel_in)[:, :n]
             with torch.no_grad():

@@ -24,7 +24,8 @@ from torch_port_util import REPO
 PORT = os.path.join(REPO, "smart_nar_fast_tts_tpu_torch")
 CHIP_SMOKE = os.path.join(REPO, "chip_smoke.py")
 PROFILES = [os.path.join(REPO, f"{name}.py")
-            for name in ("profile_train_step", "profile_trainer")]
+            for name in ("profile_train_step", "profile_trainer",
+                         "profile_spans")]
 FORBIDDEN = ("jax", "jaxlib", "flax", "smart_nar_fast_tts_tpu")
 
 TINY = """
