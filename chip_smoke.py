@@ -61,7 +61,8 @@ any failure raises (exit code 1):
             set to 0 just before and read just after; then stage timings,
             and the upsampling kernel alone on the path's own recorded
             inputs.  Self-attention runs the flash kernel only past 2048
-            frames, as the JAX model, so this path launches upsampling alone
+            frames, as the JAX model, so this path launches upsampling and
+            HiFi-GAN V1's 72 resblock convs alone
   e2e cap 4096  stage A of the same inputs at the 4096-frame cap of the JAX
             package's ``serving_mel_caps``: the decoder's self-attention runs
             the flash kernel (4 launches at (8, 2, 4096, 128)), the encoder's
@@ -264,6 +265,21 @@ any failure raises (exit code 1):
             ``cli.evaluate`` of step 3 within 1e-4 of the same CLI in one
             process; ``cli.train_vocoder`` for 2 GAN steps; each rank's
             launches held
+  kernel hifigan_resblock  the resblock conv kernel against float64 and
+            cuDNN float32 at V1's and V3's convs (each epilogue, every
+            tile; at most 1e-5 of the largest output and 2x cuDNN's error
+            above 1e-6), the tile it chooses for each of V1's 72 convs
+            (every tile chosen by some shape of the benchmark's HiFi-GAN
+            cells); at the batch (B 16 x 1000 frames) and online (B 2 x 500)
+            shapes each timed conv held to the same limits, timed beside its
+            plain version and cuDNN's convolution; the whole V1 generator
+            there: 72 launches, within 2x the module chain's error against
+            float64.  ``chip_smoke.py --resblock`` runs this phase alone
+
+Every phase that runs a kernel holds each wrapper's launch count to what its
+path should launch (the PER_* tables; the resblock kernel's 72 a V1 and 18
+a V3 forward without a gradient in float32 on the card, 0 for bf16, the
+GAN generator update, the sharded generator and the acoustic runs).
 
 The last three lines are the kernel table as one JSON object, the card's
 name and power limit as ``nvidia-smi`` gives them, and
@@ -271,8 +287,10 @@ name and power limit as ``nvidia-smi`` gives them, and
 of the repository, it exits non-zero before printing any result.
 """
 
+import collections
 import copy
 import io
+import itertools
 import json
 import math
 import os
@@ -298,15 +316,24 @@ T_CAP_LONG = 4096
 FLASH_TS = (1000, 2048, 4096, 8192)
 # the flagship training shape (benchmarks/train_throughput.py:27)
 TRAIN_B, TRAIN_L, TRAIN_T, TRAIN_STEPS = 48, 128, 896, 5
+# HiFi-GAN's resblock convs on the kernel (csrc/hifigan_resblock.cu) a
+# float32 generator forward without a gradient: V1's 4 stages x 3 resblocks
+# x 3 dilations x 2 convs, V3's 3 stages x 3 x 2 dilations x 1
+RB_V1_LAUNCHES, RB_V3_LAUNCHES = 72, 18
 # launches of each kernel per training step: one per MelEncoder layer, one
-# upsampling; the self-attentions (T 896, L 128) take the einsum branch
+# upsampling; the self-attentions (T 896, L 128) take the einsum branch; no
+# vocoder
 PER_TRAIN_STEP = {"flash_attention": 0, "alignment_attention": 4,
-                  "gaussian_upsample_banded": 1, "fused_log_mel": 0}
-# per serving batch: at cap 1000 no self-attention passes 2048 frames; at
-# cap 4096 the 4 decoder layers do
+                  "gaussian_upsample_banded": 1, "fused_log_mel": 0,
+                  "hifigan_resblock_conv": 0}
+# per serving batch: at cap 1000 no self-attention passes 2048 frames, and
+# HiFi-GAN V1 vocodes the batch once; stage A alone at cap 4096: the 4
+# decoder layers on the flash kernel
 PER_SERVING_BATCH = {"flash_attention": 0, "alignment_attention": 0,
-                     "gaussian_upsample_banded": 1, "fused_log_mel": 0}
-PER_SERVING_BATCH_LONG = dict(PER_SERVING_BATCH, flash_attention=4)
+                     "gaussian_upsample_banded": 1, "fused_log_mel": 0,
+                     "hifigan_resblock_conv": RB_V1_LAUNCHES}
+PER_SERVING_BATCH_LONG = dict(PER_SERVING_BATCH, flash_attention=4,
+                              hifigan_resblock_conv=0)
 # FastSpeech's published widths (Ren et al. 2019, "FastSpeech: Fast, Robust
 # and Controllable Text to Speech", "Model Configuration"): 384 hidden, 2
 # heads (head dim 192), conv filter 1536, 6 + 6 FFT blocks; the conv kernel
@@ -317,14 +344,18 @@ FS_WIDTHS = dict(encoder_layer=6, encoder_head=2, encoder_hidden=384,
                  decoder_layer=6, decoder_head=2, decoder_hidden=384,
                  conv_filter_size=1536)
 FS_SEED, FS_FRAMES, FS_TRAIN_STEPS = 0, 10.0, 3
-# its six decoder self-attentions at cap 4096, its six MelEncoder layers
-PER_SERVING_BATCH_FS = dict(PER_SERVING_BATCH, flash_attention=6)
+# its six decoder self-attentions at cap 4096 (stage A alone), its six
+# MelEncoder layers
+PER_SERVING_BATCH_FS = dict(PER_SERVING_BATCH_LONG, flash_attention=6)
 PER_TRAIN_STEP_FS = dict(PER_TRAIN_STEP, alignment_attention=6)
 # the vocoder GAN step (smart_nar_fast_tts_tpu/cli/train_vocoder.py:30-31
-# defaults): B 16 segments of 8192 samples; 2 log-mel launches per step
+# defaults): B 16 segments of 8192 samples; 2 log-mel launches per step;
+# the discriminator update's generator forward runs without a gradient (the
+# resblock kernel), the generator update's with one (the module chain)
 VOC_B, VOC_SEG, VOC_STEPS = 16, 8192, 5
 PER_GAN_STEP = {"flash_attention": 0, "alignment_attention": 0,
-                "gaussian_upsample_banded": 0, "fused_log_mel": 2}
+                "gaussian_upsample_banded": 0, "fused_log_mel": 2,
+                "hifigan_resblock_conv": RB_V1_LAUNCHES}
 
 BF16_TOL = 2e-2     # the flash kernel rounds q·scale, k, v and p to bf16;
                     # against attention_bf16_reference, which rounds at the
@@ -2518,6 +2549,11 @@ def cli_phase(torch, np, kernels):
             elif counts["flash_attention"] or not counts[
                     "gaussian_upsample_banded"]:
                 raise AssertionError(f"{name}: launches {counts}")
+            # HiFi-GAN V1 vocodes each utterance alone; Griffin-Lim none
+            if counts["hifigan_resblock_conv"] != RB_V1_LAUNCHES * len(
+                    utts) * ("--vocoder_ckpt" in argv):
+                raise AssertionError(f"{name}: resblock launches {counts} "
+                                     f"for {len(utts)} utterances")
             if name == "source" and len(utts) != len(CLI_SOURCE):
                 raise AssertionError(f"source run wrote {len(utts)}")
             runs[name] = (utts, controls, calls)
@@ -2938,7 +2974,8 @@ def import_phase(torch, np, kernels, cli):
             want = cli["utts"][name]
             long = name == "long"
             if counts["flash_attention"] != 4 * long or counts[
-                    "gaussian_upsample_banded"] != 1 + long:
+                    "gaussian_upsample_banded"] != 1 + long or counts[
+                    "hifigan_resblock_conv"] != RB_V1_LAUNCHES:
                 raise AssertionError(f"import {name}: launches {counts}")
             mel_err = wav_err = 0.0
             for u, w in zip(utts, want, strict=True):
@@ -3017,7 +3054,8 @@ def import_resume_phase(torch, np, kernels, cli, ref_path):
             raise AssertionError(f"val losses {losses}")
         ev = runs["evaluate (imported)"]
         if not ev["alignment_attention"] or ev["alignment_attention"] != \
-                4 * ev["gaussian_upsample_banded"]:
+                4 * ev["gaussian_upsample_banded"] or ev[
+                "hifigan_resblock_conv"]:
             raise AssertionError(f"evaluate launches {ev}")
 
         apply, updates, train_losses = TrainState.apply_gradients, [], []
@@ -3255,7 +3293,8 @@ TRAINER_PROFILE = (3, 2)    # the profiler traces steps 4 and 5
 # launches of one forward of the flagship with intended/first extraction:
 # train, eval and sample forwards alike (teacher-forced, MelEncoder on)
 PER_FORWARD = {"flash_attention": 0, "alignment_attention": 4,
-               "gaussian_upsample_banded": 1, "fused_log_mel": 0}
+               "gaussian_upsample_banded": 1, "fused_log_mel": 0,
+               "hifigan_resblock_conv": 0}
 VOC_CLI_DIR = os.path.join(REPO, "build", "train_vocoder_smoke")
 VOC_CLI_STEPS = 4
 
@@ -3375,6 +3414,15 @@ def forwards_in(first, last, val_batches):
     evals = sum(s % TRAINER_STEP["val_step"] == 0 for s in steps)
     samples = sum(s % TRAINER_STEP["synth_step"] == 0 for s in steps)
     return len(steps) + evals * (val_batches + 1) + samples
+
+
+def vocoded_in(first, last):
+    """HiFi-GAN V1 forwards of the fit loop from step ``first`` to
+    ``last``: each sample (of every validation and every train sample)
+    vocodes the reconstruction and the ground truth."""
+    steps = range(first + 1, last + 1)
+    return 2 * sum((s % TRAINER_STEP["val_step"] == 0)
+                   + (s % TRAINER_STEP["synth_step"] == 0) for s in steps)
 
 
 def read_events(log_dir):
@@ -3500,13 +3548,16 @@ def trainer_cli_phase(torch, np, kernels, synth, inv, step_ms, cli):
         per_epoch = train.steps_per_epoch()
         frames = sum(int(b.mel_lens.sum()) for e in range(total // per_epoch)
                      for b, _, _ in train.batches(e))
-        plan = {"fit": forwards_in(0, total, val_batches),
-                "resume": forwards_in(total, TRAINER_RESUME_TOTAL,
-                                      val_batches),
-                "evaluate": val_batches}
-        for name, n_forwards in plan.items():
+        plan = {"fit": (forwards_in(0, total, val_batches),
+                        vocoded_in(0, total)),
+                "resume": (forwards_in(total, TRAINER_RESUME_TOTAL,
+                                       val_batches),
+                           vocoded_in(total, TRAINER_RESUME_TOTAL)),
+                "evaluate": (val_batches, 0)}
+        for name, (n_forwards, n_vocoded) in plan.items():
             want = {k: 0 for k in kernels.route_launches()}
             want.update({k: v * n_forwards for k, v in PER_FORWARD.items()})
+            want["hifigan_resblock_conv"] = RB_V1_LAUNCHES * n_vocoded
             if runs[name]["launches"] != want:
                 raise AssertionError(f"trainer {name} launches "
                                      f"{runs[name]['launches']}, expected "
@@ -3679,7 +3730,8 @@ def train_vocoder_cli_phase(torch, np, kernels, synth, short, wav, mel_lens,
         wall = time.perf_counter() - t0
         counts = {**kernels.launches(), **kernels.route_launches()}
         want = {k: 0 for k in counts}
-        want["fused_log_mel"] = PER_GAN_STEP["fused_log_mel"] * VOC_CLI_STEPS
+        for k in ("fused_log_mel", "hifigan_resblock_conv"):
+            want[k] = PER_GAN_STEP[k] * VOC_CLI_STEPS
         if counts != want:
             raise AssertionError(f"train_vocoder launches {counts}, "
                                  f"expected {want}")
@@ -3764,7 +3816,7 @@ def launch_counts(kernels):
 
 
 def main_counts(counts):
-    """The four wrappers' counts of :func:`launch_counts`."""
+    """The five wrappers' counts of :func:`launch_counts`."""
     return {k: counts[k] for k in PER_SERVING_BATCH}
 
 
@@ -3797,6 +3849,9 @@ def streaming_phase(torch, np, kernels, synth, short, cli):
         chunks = list(sv.synthesize_chunks(mel))
         torch.cuda.synchronize()
         counts = launch_counts(kernels)
+        if counts["hifigan_resblock_conv"] != RB_V1_LAUNCHES * len(chunks):
+            raise AssertionError(f"streaming: launches {counts} for "
+                                 f"{len(chunks)} windows")
         with torch.inference_mode():
             full = synth.vocoder(torch.from_numpy(mel[None]).to(
                 synth.device))[0].cpu().numpy()
@@ -3856,9 +3911,12 @@ def streaming_phase(torch, np, kernels, synth, short, cli):
         if not cli_err <= STREAM_TOL:
             raise AssertionError(f"--stream_chunk: wav {cli_err} from run "
                                  f"(a)'s, over {STREAM_TOL}")
+        windows = -(-utts[0].mel_len // STREAM_CHUNK)
         if cli_counts["flash_attention"] or cli_counts[
-                "gaussian_upsample_banded"] != 1:
-            raise AssertionError(f"--stream_chunk launches {cli_counts}")
+                "gaussian_upsample_banded"] != 1 or cli_counts[
+                "hifigan_resblock_conv"] != RB_V1_LAUNCHES * windows:
+            raise AssertionError(f"--stream_chunk launches {cli_counts} for "
+                                 f"{windows} windows")
         f.update(launches=cli_counts, wall_seconds=wall,
                  audio_seconds=seconds, max_abs_err_vs_run_a=cli_err)
     return counts, {"cli": cli_counts}
@@ -3906,7 +3964,9 @@ def bf16_serving_phase(torch, np, kernels, synth, short, wav, texts,
         wav16, lens16 = synth16.synthesize(texts, src_lens)
         torch.cuda.synchronize()
         counts = launch_counts(kernels)
-        if main_counts(counts) != PER_SERVING_BATCH:
+        # the bf16 generator runs the module chain
+        if main_counts(counts) != dict(PER_SERVING_BATCH,
+                                       hifigan_resblock_conv=0):
             raise AssertionError(f"bf16 serving launches {counts}")
         out = synth16.stage_a(tx, sl)
         if out.postnet_mel.dtype != torch.float32 or not torch.isfinite(
@@ -4019,6 +4079,8 @@ def v3_phase(torch, np, kernels, short):
             ms = wall_ms(lambda: gen(mel.cuda()), torch)
         if got.shape != (1, n * gen.config.hop_length):
             raise AssertionError(f"V3 wav shape {tuple(got.shape)}")
+        if counts["hifigan_resblock_conv"] != RB_V3_LAUNCHES:
+            raise AssertionError(f"V3 launches {counts}")
         err = check_close("HiFi-GAN V3", got.cpu(), expect, V3_TOL, torch)
         f.update(launches=counts, frames=n, hop=gen.config.hop_length,
                  parameters=sum(p.numel() for p in gen.parameters()),
@@ -4030,7 +4092,8 @@ def v3_phase(torch, np, kernels, short):
 def program_op_counts(tts):
     """{program: {kernel: calls in its graph}} of a loaded ExportedTTS."""
     ops = {"smart_tts.flash_attention": "flash_attention",
-           "smart_tts.gaussian_upsample_banded": "gaussian_upsample_banded"}
+           "smart_tts.gaussian_upsample_banded": "gaussian_upsample_banded",
+           "smart_tts.hifigan_resblock_conv": "hifigan_resblock_conv"}
 
     def count(module):
         out = dict.fromkeys(ops.values(), 0)
@@ -4040,7 +4103,8 @@ def program_op_counts(tts):
         return out
     return {"probe": {p.bucket: count(p.call) for p in tts._probe},
             "acoustic": {(p.bucket, p.mel_cap): count(p.call)
-                         for p in tts._acoustic}}
+                         for p in tts._acoustic},
+            "vocoder": {p.bucket: count(p.call) for p in tts._vocoder}}
 
 
 def export_phase(torch, np, kernels, cli):
@@ -4122,8 +4186,11 @@ def export_phase(torch, np, kernels, cli):
             out = tts.acoustic(ids, speaker=CLI_SPEAKER)
             L = next(b for b in EXPORT_TEXT_BUCKETS if len(ids) <= b)
             cap = out["postnet_mel"].shape[1]
+            # the vocoder program of the first mel bucket past mel_len
+            voc = next(b for b in sorted(ops["vocoder"])
+                       if max(int(out["mel_lens"][0]), 1) <= b)
             expect = {k: ops["probe"][L][k] + ops["acoustic"][(L, cap)][k]
-                      for k in ops["probe"][L]}
+                      + ops["vocoder"][voc][k] for k in ops["probe"][L]}
             others = {k: v for k, v in counts.items() if k not in expect}
             if {k: counts[k] for k in expect} != expect or any(
                     others.values()):
@@ -4213,7 +4280,8 @@ def families_serving_phase(torch, np, kernels, texts, src_lens):
             wav, mel_lens = synth.synthesize(texts, src_lens)
             torch.cuda.synchronize()
             counts = launch_counts(kernels)
-            if main_counts(counts) != PER_SERVING_BATCH or any(
+            if main_counts(counts) != dict(
+                    PER_SERVING_BATCH, hifigan_resblock_conv=0) or any(
                     v for k, v in counts.items()
                     if k not in PER_SERVING_BATCH):
                 raise AssertionError(f"{family} serving launches {counts}")
@@ -4910,22 +4978,36 @@ def md_sp(torch, kernels, inputs, world, rank):
     return res
 
 
-def md_tp(torch, inputs, world):
+def md_tp(torch, kernels, inputs, world):
     """The committed HiFi-GAN V1 channel-sharded over the world on the
     serving batch's mel: mesh (1, world), and (2, world/2) with world ≥ 4,
-    against the single-card generator."""
+    against the single-card generator; the single card's forward takes the
+    resblock kernel, the sharded one (its convs ``_Gathered``) the module
+    chain."""
     from smart_nar_fast_tts_tpu_torch.parallel import make_mesh
     from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
     from smart_nar_fast_tts_tpu_torch.vocoder import shard_hifigan
     gen = committed_vocoder().cuda().eval()
     mel = inputs["serving_mel"].cuda()
+
+    def resblock_launches(fn):
+        kernels.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, kernels.launches()["hifigan_resblock_conv"]
     with torch.inference_mode():
-        ref = gen(mel)
+        ref, n = resblock_launches(lambda: gen(mel))
         res = dict(single_card_stage_b_ms=wall_ms(lambda: gen(mel), torch))
+    if n != RB_V1_LAUNCHES:
+        raise AssertionError(f"single-card HiFi-GAN: {n} resblock launches")
     shapes = [(1, world)] + ([(2, world // 2)] if world >= 4 else [])
     for shape in shapes:
         fwd = shard_hifigan(gen, make_mesh(shape, ("data", "model")))
-        err = check_close(f"TP HiFi-GAN {shape}", fwd(mel), ref, TP_TOL,
+        out, n = resblock_launches(lambda: fwd(mel))
+        if n:
+            raise AssertionError(f"TP HiFi-GAN {shape}: {n} resblock "
+                                 "launches")
+        err = check_close(f"TP HiFi-GAN {shape}", out, ref, TP_TOL,
                           torch)
         res[f"mesh {shape}"] = dict(max_abs_err=err,
                                     stage_b_ms=wall_ms(lambda: fwd(mel),
@@ -5012,7 +5094,7 @@ def multi_device_rank(rank, world, port, work):
         t0 = time.perf_counter()
         out["dp"] = md_dp(torch, kernels, inputs, world, rank)
         out.update(md_sp(torch, kernels, inputs, world, rank))
-        out["tp"] = md_tp(torch, inputs, world)
+        out["tp"] = md_tp(torch, kernels, inputs, world)
         out["gan"] = md_gan(torch, kernels, inputs, world, rank)
         out["seconds"] = time.perf_counter() - t0
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
@@ -5270,6 +5352,9 @@ def multi_device_cli_phase(torch, kernels, world, trainer_argv, cli):
         for name, forwards in want_forwards.items():
             for r, n in enumerate(forwards):
                 want = md_expect(kernels, PER_FORWARD, n)
+                # rank 0 vocodes the resumed run's validation sample twice
+                want["hifigan_resblock_conv"] = 2 * RB_V1_LAUNCHES * (
+                    name == "resume" and r == 0)
                 if runs[name]["ranks"][r]["launches"] != want:
                     raise AssertionError(
                         f"torchrun {name} rank {r}: launches "
@@ -5368,6 +5453,246 @@ def multi_device_only(phases) -> int:
             print(f"FAILED {phase}\n{traceback.format_exc()}", flush=True)
     emit({"multi_device_only": phases, "failed": failed})
     return 1 if failed else 0
+
+
+# HiFi-GAN's resblock convolutions (csrc/hifigan_resblock.cu): V1's
+# (channels per stage, kernels, dilations) and V3's, the batch cell's shape
+# (B 16, 1000 mel frames) and online's (B 2, 500 frames)
+RB_V1 = ((256, 128, 64, 32), (3, 7, 11), ((1, 3, 5),) * 3)
+RB_V3 = ((128, 64, 32, 16), (3, 5, 7), ((1, 2), (2, 6), (3, 12)))
+RB_HOPS = (8, 64, 128, 256)         # samples a mel frame after each stage
+RB_TIMED = (("batch", 16, 1000), ("online", 2, 500))
+# the shapes of the benchmark's HiFi-GAN cells (portbench/traffic): batch
+# B 16 at bucket 1000, online B 1-16 at buckets 128-1000
+RB_CELL_BATCHES = tuple(range(1, 17))
+RB_CELL_BUCKETS = (128, 256, 384, 512, 640, 768, 1000)
+# the kernel's largest |error| against float64 (over the float64 output's
+# largest |value|): at most RB_ERR_MAX, and at most RB_ERR_RATIO times
+# cuDNN float32's own unless below RB_ERR_FLOOR
+RB_ERR_MAX, RB_ERR_RATIO, RB_ERR_FLOOR = 1e-5, 2.0, 1e-6
+
+
+def rb_bound_ms(b, cin, cout, t, k, mode):
+    """Least time of one resblock conv: x and out once (res and acc where
+    read), the weights once; 3·2·B·T·Cin·Cout·k operations at the TF32
+    rate (3xTF32)."""
+    nbytes = 4 * (b * t * (cin + cout * (1 + mode)) + cout * cin * k + cout)
+    return bound(nbytes, 3 * 2 * b * t * cin * cout * k, TF32_FLOPS)
+
+
+def rb_errors(torch, got, x, w, bias, d, res, acc, div):
+    """The kernel's output ``got`` and cuDNN float32's (the plain version,
+    TF32 off) against float64 on the same inputs: each one's largest
+    |error| over the float64 output's largest |value|."""
+    from smart_nar_fast_tts_tpu_torch.kernels import resblock
+    with torch.inference_mode():
+        ref = resblock.resblock_conv_reference(x, w, bias, d, 0.1, res, acc,
+                                               div)
+        f64 = resblock.resblock_conv_reference(
+            *(None if v is None else v.double()
+              for v in (x, w, bias)), d, 0.1,
+            *(None if v is None else v.double() for v in (res, acc)), div)
+    scale = float(f64.abs().max())
+    return (float((got.double() - f64).abs().max()) / scale,
+            float((ref.double() - f64).abs().max()) / scale)
+
+
+def rb_off(kerr, cerr):
+    """The kernel's error is off its limits (see RB_ERR_MAX)."""
+    return not (kerr <= RB_ERR_MAX and (kerr <= RB_ERR_RATIO * cerr
+                                        or kerr <= RB_ERR_FLOOR))
+
+
+def rb_case(torch, b, c, t, k, d, mode, tile=-1):
+    """One conv on the kernel, on seeded inputs, against float64 and cuDNN
+    float32 (:func:`rb_errors`)."""
+    from smart_nar_fast_tts_tpu_torch.kernels import resblock
+    x = torch.randn(b, c, t, device="cuda") * 2
+    w = torch.randn(c, c, k, device="cuda") / (c * k) ** 0.5
+    bias = torch.randn(c, device="cuda") * 0.1
+    res = torch.randn(b, c, t, device="cuda") if mode >= 1 else None
+    acc = torch.randn(b, c, t, device="cuda") if mode == 2 else None
+    div = 3.0 if mode == 2 else 1.0
+    with torch.inference_mode():
+        got = resblock._launch(x, w, bias, res, acc, d, 0.1, div, tile)
+    return rb_errors(torch, got, x, w, bias, d, res, acc, div)
+
+
+def rb_v1_convs(frames):
+    """(C, T samples, k, d) of each of V1's resblock convs on ``frames`` mel
+    frames, in the order the generator runs them."""
+    return [(c, frames * hop, k, dd)
+            for c, hop in zip(RB_V1[0], RB_HOPS)
+            for k, ds in zip(RB_V1[1], RB_V1[2])
+            for d in ds for dd in (d, 1)]
+
+
+def rb_tile_choices(lib):
+    """The tile the kernel chooses (``tile_for``) for each of V1's 72
+    convs at the timed shapes, and how often each tile is chosen over every
+    shape of the benchmark's HiFi-GAN cells; raises when a tile is chosen
+    by none of them."""
+    per_conv = {label: [lib.hifigan_resblock_tile_for(b, c, c, t, k, d)
+                        for c, t, k, d in rb_v1_convs(frames)]
+                for label, b, frames in RB_TIMED}
+    chosen = collections.Counter(
+        lib.hifigan_resblock_tile_for(b, c, c, t, k, d)
+        for b in RB_CELL_BATCHES for frames in RB_CELL_BUCKETS
+        for c, t, k, d in rb_v1_convs(frames))
+    unused = sorted(set(range(lib.hifigan_resblock_tiles())) - set(chosen))
+    if unused or -1 in chosen:
+        raise AssertionError(f"hifigan_resblock: tiles {unused} chosen by no "
+                             f"cell shape (choices {dict(chosen)})")
+    return dict(per_conv=per_conv,
+                cells_B_1_16_buckets_128_1000={
+                    str(t): n for t, n in sorted(chosen.items())})
+
+
+def kernel_hifigan_resblock(torch, np, kernels, compiled):
+    """The resblock conv kernel against float64 and cuDNN float32 at V1's
+    and V3's convs (B 1 and 3, T past and below the halo, T not a multiple
+    of 4, each epilogue, every tile); the tile it chooses at the cells'
+    shapes; then, at the batch and online shapes, each timed conv held to
+    the same limits, timed beside its plain version (LeakyReLU + cuDNN +
+    adds) and cuDNN's convolution alone, and the whole V1 generator held to
+    its launches and to float64 beside the module chain."""
+    import torch.nn.functional as F
+
+    from smart_nar_fast_tts_tpu_torch.kernels import _build, resblock
+    torch.manual_seed(25)
+    lib = _build.load("hifigan_resblock", resblock._SIGNATURES)
+    worst = {"kernel": 0.0, "cudnn": 0.0, "ratio": 0.0}
+    bad = []
+
+    def held(case, kerr, cerr):
+        worst.update(kernel=max(worst["kernel"], kerr),
+                     cudnn=max(worst["cudnn"], cerr),
+                     ratio=max(worst["ratio"], kerr / max(cerr, 1e-12)))
+        if rb_off(kerr, cerr):
+            bad.append(dict(case=case, kernel=kerr, cudnn=cerr))
+
+    with Phase("kernel hifigan_resblock checks") as f:
+        cases = []
+        for chans, ks, dils in (RB_V1, RB_V3):
+            for c in chans:
+                for k, ds in zip(ks, dils):
+                    for d in ds:
+                        for b, t, mode in ((1, 997, (c + k + d) % 3),
+                                           (3, 1024, 2), (2, 7, 1)):
+                            cases.append((b, c, t, k, d, mode, -1))
+        for tile in range(lib.hifigan_resblock_tiles()):
+            for c in (16, 40, 256):
+                cases.append((2, c, 2052, 11, 5, tile % 3, tile))
+        for case in cases:
+            held(list(case), *rb_case(torch, *case))
+        f.update(cases=len(cases), worst=dict(worst), bad=bad[:20],
+                 tiles=rb_tile_choices(lib))
+    timings = []
+    for label, b, frames in RB_TIMED:
+        for (c, hop), (k, ds) in itertools.product(
+                zip(RB_V1[0], RB_HOPS), zip(RB_V1[1], RB_V1[2])):
+            d, t = ds[-1], frames * hop
+            x = torch.randn(b, c, t, device="cuda")
+            w = torch.randn(c, c, k, device="cuda") / (c * k) ** 0.5
+            bias = torch.randn(c, device="cuda") * 0.1
+            res = torch.randn(b, c, t, device="cuda")
+            with torch.inference_mode(), Phase(
+                    "kernel hifigan_resblock timing") as f:
+                got = kernels.hifigan_resblock_conv(x, w, bias, d, 0.1,
+                                                    res=res)
+                kerr, cerr = rb_errors(torch, got, x, w, bias, d, res, None,
+                                       1.0)
+                held([label, b, c, t, k, d, 1, -1], kerr, cerr)
+                del got
+                ms = device_ms(lambda: kernels.hifigan_resblock_conv(
+                    x, w, bias, d, 0.1, res=res), torch, reps=10)
+                plain_ms = device_ms(lambda: resblock.resblock_conv_reference(
+                    x, w, bias, d, 0.1, res=res), torch, reps=10)
+                lib_ms = device_ms(lambda: F.conv1d(
+                    x, w, bias, dilation=d, padding=(k - 1) * d // 2),
+                    torch, reps=10)
+                tiles = {}
+                for tile in range(lib.hifigan_resblock_tiles()):
+                    if lib.hifigan_resblock_smem_bytes(tile, k, d) <= 232448:
+                        tiles[tile] = device_ms(lambda: resblock._launch(
+                            x, w, bias, res, None, d, 0.1, 1.0, tile), torch,
+                            reps=5)
+                bound_ms, by = rb_bound_ms(b, c, c, t, k, 1)
+                row = dict(cell=label, B=b, C=c, T=t, k=k, d=d, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=by,
+                           share=bound_ms / ms, kernel_vs_f64=kerr,
+                           cudnn_vs_f64=cerr,
+                           tile=lib.hifigan_resblock_tile_for(b, c, c, t, k,
+                                                              d),
+                           tile_ms=tiles)
+                f.update(row)
+                timings.append(row)
+    with Phase("kernel hifigan_resblock generator") as f:
+        from smart_nar_fast_tts_tpu_torch.serving import committed_vocoder
+        gen = committed_vocoder().cuda().eval()
+        for p in gen.parameters():
+            p.requires_grad_(False)
+        out = {}
+        for label, b, frames in RB_TIMED:
+            mel = torch.randn(b, frames, 80, device="cuda") - 5.0
+            kernels.reset_launches()
+            with torch.inference_mode():
+                wav = gen(mel)
+            torch.cuda.synchronize()
+            n = kernels.launches()["hifigan_resblock_conv"]
+            with torch.enable_grad():
+                chain = gen(mel)
+            with torch.inference_mode():
+                f64 = copy.deepcopy(gen).double()(mel.double())
+                ms = device_ms(lambda: gen(mel), torch, reps=5)
+            with torch.enable_grad():
+                chain_ms = device_ms(lambda: gen(mel), torch, reps=5)
+            out[label] = dict(
+                B=b, frames=frames, launches=n, ms=ms, chain_ms=chain_ms,
+                kernel_vs_f64=float((wav.double() - f64).abs().max()),
+                chain_vs_f64=float((chain.double() - f64).abs().max()),
+                kernel_vs_chain=float((wav - chain).abs().max()))
+            if n != RB_V1_LAUNCHES:
+                bad.append(dict(generator=label, launches=n))
+            if rb_off(out[label]["kernel_vs_f64"],
+                      out[label]["chain_vs_f64"]):
+                bad.append(dict(generator=label, **out[label]))
+        f.update(out, nvidia_smi=nvidia_smi())
+    if bad:
+        raise AssertionError(f"hifigan_resblock: {len(bad)} cases off: "
+                             f"{bad[:5]}")
+    smem = {f"tile {i}, k {k}, d {d}": lib.hifigan_resblock_smem_bytes(i, k, d)
+            for i in range(lib.hifigan_resblock_tiles())
+            for k, d in ((3, 1), (11, 5))}
+    ptxas = {"dynamic_smem_bytes": smem}
+    if "hifigan_resblock" in compiled:
+        ptxas.update(compiled["hifigan_resblock"]["kernels"])
+        ptxas["build_seconds"] = compiled["hifigan_resblock"]["seconds"]
+    else:
+        ptxas["kernels"] = "not compiled in this run: the build directory had it"
+    return dict(worst=worst, timings=timings, generator=out, ptxas=ptxas,
+                launches_generator={k: v["launches"] for k, v in out.items()})
+
+
+def resblock_only() -> int:
+    """``chip_smoke.py --resblock``: build, then
+    :func:`kernel_hifigan_resblock` alone."""
+    import torch
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with Phase("build") as f:
+        compiled = _build.build_all()
+        f.update(compiled={k: {"seconds": v["seconds"], "ptxas": v["ptxas"]}
+                           for k, v in compiled.items()})
+    emit({"hifigan_resblock": kernel_hifigan_resblock(torch, np, kernels,
+                                                      compiled)})
+    return 0
 
 
 def ring_witness_only() -> int:
@@ -5538,15 +5863,24 @@ def main() -> int:
             launches_exported={f"synthesize ({k})": get(c)
                                for k, c in exported_counts.items()})
 
+    entries["hifigan_resblock_conv"] = dict(
+        route="cuda",
+        source="smart_nar_fast_tts_tpu_torch/csrc/hifigan_resblock.cu",
+        replaces="none: the JAX package's HiFi-GAN convolutions are XLA's",
+        **kernel_hifigan_resblock(torch, np, kernels, compiled))
+
     # each kernel's launches on its path's run: flash attention on the
     # cap-4096 serving batch, upsampling and alignment attention over the
-    # training steps, the log-mel kernel over the GAN steps
+    # training steps, the log-mel kernel over the GAN steps, the resblock
+    # kernel on the cap-1000 serving batch (its V1 forward)
     paths = {"flash_attention": ("serving stage A at cap 4096", long_counts),
              "gaussian_upsample_banded": (f"{TRAIN_STEPS} train steps",
                                           train_counts),
              "alignment_attention": (f"{TRAIN_STEPS} train steps",
                                      train_counts),
-             "fused_log_mel": (f"{VOC_STEPS} GAN steps", gan_counts)}
+             "fused_log_mel": (f"{VOC_STEPS} GAN steps", gan_counts),
+             "hifigan_resblock_conv": ("serving batch at cap 1000",
+                                       serving)}
     for name, (path, counts) in paths.items():
         if counts[name] == 0:
             raise AssertionError(f"{path} never launched {name}")
@@ -5604,7 +5938,6 @@ def main() -> int:
                  "n_fft 1024", **entry)
     entries["flash_attention"]["cli_long_path"] = (
         "synthesize CLI, long passage: cap 4096")
-
     emit({"kernels": [{"name": name, **entry}
                       for name, entry in entries.items()]})
     print(smi, flush=True)
@@ -5621,4 +5954,6 @@ if __name__ == "__main__":
         sys.exit(multi_device_only(sys.argv[2:]))
     if sys.argv[1:2] == ["--ring-witness"]:
         sys.exit(ring_witness_only())
+    if sys.argv[1:2] == ["--resblock"]:
+        sys.exit(resblock_only())
     sys.exit(main())

@@ -12,9 +12,10 @@ from 32 to 4096) and DFT kernel (an odd n_fft past the mixed-radix
 kernel's 7,263), each counted there alone.
 
 The serving kernels' forwards are registered operators,
-``smart_tts::flash_attention`` and ``smart_tts::gaussian_upsample_banded``
-(importing this package registers them), so that ``torch.export`` keeps
-them in the exported serving programs of ``serving.py``.
+``smart_tts::flash_attention``, ``smart_tts::gaussian_upsample_banded`` and
+``smart_tts::hifigan_resblock_conv`` (importing this package registers
+them), so that ``torch.export`` keeps them in the exported serving programs
+of ``serving.py``.
 """
 
 from .alignment import (alignment_attention, alignment_reference,
@@ -22,11 +23,13 @@ from .alignment import (alignment_attention, alignment_reference,
 from .attention import (attention_bf16_reference, attention_bf16_tolerance,
                         attention_reference, attention_wide_reference,
                         einsum_attention, flash_attention, masked_softmax)
+from .resblock import (hifigan_resblock_conv, resblock_conv_reference,
+                       resblock_conv_tf32x3_reference)
 from .stft import fused_log_mel, log_mel_dft_reference, log_mel_fft_reference
 from .upsample import gaussian_upsample_banded
 
 WRAPPERS = (flash_attention, gaussian_upsample_banded, alignment_attention,
-            fused_log_mel)
+            fused_log_mel, hifigan_resblock_conv)
 # (wrapper, its second kernel's counter, that kernel's name)
 ROUTE_COUNTERS = (
     (flash_attention, "wide_launches", "flash_attention_wide"),
@@ -59,6 +62,7 @@ __all__ = ["alignment_attention", "alignment_reference",
            "attention_reference", "attention_wide_reference",
            "einsum_attention", "flash_attention", "masked_softmax",
            "fused_log_mel",
-           "gaussian_upsample_banded",
+           "gaussian_upsample_banded", "hifigan_resblock_conv",
            "log_mel_dft_reference", "log_mel_fft_reference",
+           "resblock_conv_reference", "resblock_conv_tf32x3_reference",
            "reset_launches", "launches", "route_launches"]

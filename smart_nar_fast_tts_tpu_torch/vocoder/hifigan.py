@@ -13,6 +13,13 @@ upstream torch generator with weight norm folded.
 ``compute_dtype="bfloat16"`` runs conv_pre, the upsampling stages and the
 resblocks in bf16 (the parameters stay f32 and are rounded per call); the
 last LeakyReLU, conv_post and tanh run in f32, as the JAX generator.
+
+A resblock whose input is a CUDA float32 tensor, with no gradient recorded
+and every conv a plain ``nn.Conv1d``, runs each conv on the kernel
+``kernels.hifigan_resblock_conv`` (3xTF32 tensor cores, the LeakyReLU, the
+residual and the multi-receptive-field sum fused in); anything else (the
+CPU, bf16, GAN training, the channel-sharded generator) runs the module
+chain.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels import hifigan_resblock_conv
+from ..kernels.resblock import mrf_sum
 
 LRELU_SLOPE = 0.1
 
@@ -114,8 +124,17 @@ def conv_in(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return conv._conv_forward(x, w, b)
 
 
+def _on_kernel(x: torch.Tensor, convs) -> bool:
+    """A resblock takes the kernel: x a CUDA float32 tensor, no gradient
+    recorded, every conv a plain ``nn.Conv1d`` (not a sharded one)."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and not torch.is_grad_enabled()
+            and all(isinstance(c, nn.Conv1d) for c in convs))
+
+
 class ResBlock1(nn.Module):
-    """Per dilation d: LReLU → conv(k, dil d) → LReLU → conv(k) → +x."""
+    """Per dilation d: LReLU → conv(k, dil d) → LReLU → conv(k) → +x; then
+    the generator's running sum ``acc`` (when given) and its ``/ div``."""
 
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int]):
@@ -129,16 +148,27 @@ class ResBlock1(nn.Module):
                       padding=(kernel_size - 1) // 2)
             for _ in dilations)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, acc=None, div: float = 1
+                ) -> torch.Tensor:
+        if _on_kernel(x, [*self.convs1, *self.convs2]):
+            last = len(self.convs1) - 1
+            for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
+                h = hifigan_resblock_conv(x, c1.weight, c1.bias,
+                                          c1.dilation[0], LRELU_SLOPE)
+                x = hifigan_resblock_conv(
+                    h, c2.weight, c2.bias, c2.dilation[0], LRELU_SLOPE, res=x,
+                    acc=acc if i == last else None,
+                    div=div if i == last else 1)
+            return x
         for c1, c2 in zip(self.convs1, self.convs2):
             h = conv_in(c1, F.leaky_relu(x, LRELU_SLOPE))
             x = x + conv_in(c2, F.leaky_relu(h, LRELU_SLOPE))
-        return x
+        return mrf_sum(x, acc, div)
 
 
 class ResBlock2(nn.Module):
     """HiFi-GAN V3's resblock: per dilation d, LReLU → conv(k, dil d) →
-    +x."""
+    +x; then the running sum as :class:`ResBlock1`."""
 
     def __init__(self, channels: int, kernel_size: int,
                  dilations: Sequence[int]):
@@ -148,10 +178,19 @@ class ResBlock2(nn.Module):
                       padding=(kernel_size - 1) * d // 2)
             for d in dilations)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, acc=None, div: float = 1
+                ) -> torch.Tensor:
+        if _on_kernel(x, self.convs):
+            last = len(self.convs) - 1
+            for i, conv in enumerate(self.convs):
+                x = hifigan_resblock_conv(
+                    x, conv.weight, conv.bias, conv.dilation[0], LRELU_SLOPE,
+                    res=x, acc=acc if i == last else None,
+                    div=div if i == last else 1)
+            return x
         for conv in self.convs:
             x = x + conv_in(conv, F.leaky_relu(x, LRELU_SLOPE))
-        return x
+        return mrf_sum(x, acc, div)
 
 
 class HiFiGANGenerator(nn.Module):
@@ -183,10 +222,10 @@ class HiFiGANGenerator(nn.Module):
         for i, up in enumerate(self.ups):
             x = conv_in(up, F.leaky_relu(x, LRELU_SLOPE))
             blocks = self.resblocks[i * n_kernels:(i + 1) * n_kernels]
-            acc = blocks[0](x)
-            for block in blocks[1:]:
-                acc = acc + block(x)
-            x = acc / n_kernels
+            acc = None
+            for j, block in enumerate(blocks):
+                acc = block(x, acc, n_kernels if j == n_kernels - 1 else 1)
+            x = acc
         # the waveform's last linear map in the parameters' dtype (f32),
         # whatever the compute dtype
         x = self.conv_post(F.leaky_relu(x.to(self.conv_post.weight.dtype),

@@ -76,6 +76,7 @@ from smart_nar_fast_tts_tpu_torch.kernels import (
     attention_bf16_tolerance, attention_reference, flash_attention,
     fused_log_mel, gaussian_upsample_banded, log_mel_dft_reference,
     log_mel_fft_reference)
+from smart_nar_fast_tts_tpu_torch.kernels import resblock as kresblock
 from smart_nar_fast_tts_tpu_torch.kernels import stft as kstft
 from smart_nar_fast_tts_tpu_torch.ops import gaussian_upsample
 
@@ -606,3 +607,129 @@ def test_log_mel_smem_rule(card):
     for n in range(2, kstft.max_odd_n_fft("dft") + 2):
         assert lib.log_mel_mixed_smem_bytes(n) == kstft.mixed_smem_bytes(n)
         assert lib.log_mel_dft_smem_bytes(n) == kstft.dft_smem_bytes(n)
+
+
+# HiFi-GAN's resblock conv kernel (3xTF32 wgmma): its largest error against
+# float64, over the largest |output|, at most RESBLOCK_ERR_RATIO times
+# cuDNN float32's own (TF32 off), or RESBLOCK_FLOOR where both are tiny
+RESBLOCK_ERR_RATIO, RESBLOCK_FLOOR = 2.0, 1e-6
+V1_CONVS = [(256, 11, 5), (256, 3, 1), (128, 7, 3), (64, 11, 1), (32, 3, 5)]
+V3_CONVS = [(128, 3, 1), (64, 5, 6), (32, 7, 12), (16, 7, 3)]
+
+
+def _resblock_inputs(card, B, C, T, k, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, C, T, generator=g) * 2
+    w = torch.randn(C, C, k, generator=g) / (C * k) ** 0.5
+    b = torch.randn(C, generator=g) * 0.1
+    r, a = (torch.randn(B, C, T, generator=g) for _ in range(2))
+    return [t.to(card) for t in (x, w, b, r, a)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["first conv", "residual", "sum"])
+@pytest.mark.parametrize("B, T", [(1, 997), (16, 640), (3, 5)])
+@pytest.mark.parametrize("C, k, d", V1_CONVS + V3_CONVS)
+def test_hifigan_resblock_conv(card, C, k, d, B, T, mode):
+    torch.backends.cudnn.allow_tf32 = False
+    x, w, b, r, a = _resblock_inputs(card, B, C, T, k, seed=C + k + d + T)
+    kw = {"first conv": {}, "residual": {"res": r},
+          "sum": {"res": r, "acc": a, "div": 3.0}}[mode]
+    with torch.inference_mode():
+        got = kresblock.hifigan_resblock_conv(x, w, b, d, 0.1, **kw)
+        f32 = kresblock.resblock_conv_reference(x, w, b, d, 0.1, **kw)
+        f64 = kresblock.resblock_conv_reference(
+            x.double(), w.double(), b.double(), d, 0.1,
+            **{n: v.double() if torch.is_tensor(v) else v
+               for n, v in kw.items()})
+        twin = kresblock.resblock_conv_tf32x3_reference(x, w, b, d, 0.1,
+                                                        **kw)
+    scale = float(f64.abs().max())
+    err = float((got.double() - f64).abs().max()) / scale
+    cudnn = float((f32.double() - f64).abs().max()) / scale
+    assert err <= max(RESBLOCK_ERR_RATIO * cudnn, RESBLOCK_FLOOR), (err,
+                                                                   cudnn)
+    # the 3xTF32 twin rounds at the kernel's points: as close as either is
+    # to float64
+    twin_err = float((twin.double() - f64).abs().max()) / scale
+    assert float((got - twin).abs().max()) / scale <= 2 * max(
+        err, twin_err, RESBLOCK_FLOOR / 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["V1", "V3"])
+def test_hifigan_generator_on_the_kernel(card, kind):
+    """One launch a resblock conv a forward; the whole generator within
+    twice the module chain's distance from float64."""
+    import copy
+
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
+                                                      HiFiGANGenerator)
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = HiFiGANConfig() if kind == "V1" else HiFiGANConfig(
+        resblock="2", upsample_rates=(8, 8, 4),
+        upsample_kernel_sizes=(16, 16, 8), upsample_initial_channel=256,
+        resblock_kernel_sizes=(3, 5, 7),
+        resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+    torch.manual_seed(3)
+    gen = HiFiGANGenerator(cfg).to(card).eval()
+    mel = torch.randn(2, 40, 80, device=card) - 5.0
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = gen(mel)
+    per_conv = 2 if kind == "V1" else 1
+    want = len(cfg.upsample_rates) * sum(
+        per_conv * len(ds) for ds in cfg.resblock_dilation_sizes)
+    assert kernels.launches()["hifigan_resblock_conv"] == want
+    with torch.no_grad(), torch.enable_grad():
+        for p in gen.parameters():
+            p.requires_grad_(False)
+        chain = gen(mel)
+    with torch.inference_mode():
+        f64 = copy.deepcopy(gen).double()(mel.double())
+    assert kernels.launches()["hifigan_resblock_conv"] == want
+    err = float((got.double() - f64).abs().max())
+    chain_err = float((chain.double() - f64).abs().max())
+    assert err <= max(2 * chain_err, 1e-6), (err, chain_err)
+
+
+@pytest.mark.cuda
+def test_streaming_vocoder_on_the_kernel(card):
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANGenerator,
+                                                      StreamingVocoder)
+    torch.manual_seed(4)
+    gen = HiFiGANGenerator().to(card).eval()
+    mel = (torch.randn(150, 80) - 5.0).numpy()
+    sv = StreamingVocoder(gen, chunk_frames=64)
+    kernels.reset_launches()
+    chunks = np.concatenate(list(sv.synthesize_chunks(mel)))
+    assert kernels.launches()["hifigan_resblock_conv"] > 0
+    with torch.inference_mode():
+        full = gen(torch.from_numpy(mel[None]).to(card))[0].cpu().numpy()
+    assert chunks.shape == full.shape
+    np.testing.assert_allclose(chunks, full, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_export_keeps_the_resblock_kernel(card):
+    from smart_nar_fast_tts_tpu_torch import kernels
+    from smart_nar_fast_tts_tpu_torch.vocoder import (HiFiGANConfig,
+                                                      HiFiGANGenerator)
+    cfg = HiFiGANConfig(upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                        upsample_initial_channel=64)
+    gen = HiFiGANGenerator(cfg).to(card).eval()
+    mel = torch.randn(1, 12, 80, device=card)
+    with torch.no_grad():
+        ep = torch.export.export(gen, (mel,), strict=False)
+        want = gen(mel)
+    ops = [n for n in ep.graph.nodes if n.op == "call_function"
+           and "hifigan_resblock_conv" in str(n.target)]
+    assert len(ops) == 2 * 2 * 9
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = ep.module()(mel)
+    assert kernels.launches()["hifigan_resblock_conv"] == len(ops)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+

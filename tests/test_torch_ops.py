@@ -189,7 +189,10 @@ def test_cpu_tensors_take_the_plain_versions():
                                 torch.full_like(src_lens, q.shape[2]))
     kernels.fused_log_mel(torch.zeros(2, 64), MelSpectrogramConfig(
         n_fft=32, hop_length=8, win_length=32, n_mels=8, mel_fmax=None))
+    kernels.hifigan_resblock_conv(torch.zeros(1, 8, 20),
+                                  torch.zeros(8, 8, 3), None, 1, 0.1)
     assert kernels.launches() == {"flash_attention": 0,
                                   "gaussian_upsample_banded": 0,
                                   "alignment_attention": 0,
-                                  "fused_log_mel": 0}
+                                  "fused_log_mel": 0,
+                                  "hifigan_resblock_conv": 0}
