@@ -3,17 +3,17 @@ machine, so that tests can drive it on the CPU at a small size."""
 
 from __future__ import annotations
 
-import importlib.util
 import json
 import subprocess
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Optional
 
 import torch
 
-from . import check, drivers, program, traffic
+from . import check, drivers, families, traffic
 from .trace import Tracer
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -38,12 +38,9 @@ def load_config(name: str) -> dict:
 
 def metric_reader(name: str) -> Callable:
     """``metrics/<name>.py``'s ``read``."""
-    path = METRIC_DIR / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return families.load_file(
+        METRIC_DIR / f"{name}.py",
+        "portbench_metric_" + name.replace(".", "_").replace("-", "_")).read
 
 
 @dataclass
@@ -59,6 +56,8 @@ class Context:
     tracer: Tracer
     device: str
     t_start: float
+    acoustic: ModuleType
+    vocoder: ModuleType
     control: bool = False
     rate: Optional[float] = None
     setup_s: Optional[float] = None
@@ -67,9 +66,6 @@ class Context:
 
     def build(self, srv):
         return self.wrap_synth(srv.build())
-
-    def build_acoustic(self, weights):
-        return program.acoustic(self.cfg, weights)
 
     def make_step(self, step):
         return self.wrap_step(step)
@@ -97,14 +93,17 @@ class Context:
 @dataclass
 class MetricInput:
     """What a per-layer reader reads: the cell, its configuration and
-    traffic, the reduced trace, and the driver's record (counters, CUDA
-    event totals, the shapes of each traced batch or step)."""
+    traffic, the reduced trace, the record of ``drivers.py`` (counters, CUDA
+    event totals, the shapes of each traced batch or step), and the
+    configuration's families (their FLOPs and shapes)."""
 
     cell: dict
     cfg: dict
     spec: dict
     trace: object
     record: dict = field(default_factory=dict)
+    acoustic: Optional[ModuleType] = None
+    vocoder: Optional[ModuleType] = None
 
 
 def nvidia_smi() -> str:
@@ -128,9 +127,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     cfg = cfg or load_config(cell["config"])
     spec = spec or traffic.load(cell["traffic"])
     tracer = Tracer(trace)
+    acoustic, vocoder = families.of(cfg)
     ctx = Context(cell=cell, cfg=cfg, spec=spec, seed=int(seed),
                   seconds=float(seconds), tracer=tracer, device=device,
-                  t_start=t_start, control=control, rate=rate, **hooks)
+                  t_start=t_start, acoustic=acoustic, vocoder=vocoder,
+                  control=control, rate=rate, **hooks)
     outcome = drivers.MODES[spec["mode"]](ctx)
     lim = limits if limits is not None else check.limits(workload)
     correct = check.verdict(outcome.numbers, lim)
@@ -150,7 +151,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     else:
         red = tracer.reduce()
         inp = MetricInput(cell=cell, cfg=cfg, spec=spec, trace=red,
-                          record=outcome.record)
+                          record=outcome.record, acoustic=acoustic,
+                          vocoder=vocoder)
         metrics = {}
         for m in bench["per_layer"]:
             if workload not in m.get("workloads", [workload]):

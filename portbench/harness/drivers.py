@@ -1,9 +1,11 @@
 """The measured windows: set-up, window and the check of what the window
-produced, for each traffic mode.
+produced, for each traffic mode.  What belongs to a model family (its
+weights, its program, its inputs and outputs, its reference) comes from
+the configuration's family files (``families.py``).
 
 - ``closed``: the mix's batches dispatched back to back, cycled, each
-  through the entry the mix names (``synthesize``: ``Synthesizer.
-  synthesize``; ``stages``: ``stage_a``, then ``stage_b`` on the mel cut
+  through the entry the mix names (``synthesize``: the program's
+  ``synthesize``; ``stages``: ``stage_a``, then ``stage_b`` on the mel cut
   at the batch's longest valid length), waveforms copied to the host.
   Set-up runs every batch of the mix once.  Batches start while the window
   lasts; the window closes when the last one is on the host, so the rate
@@ -12,8 +14,8 @@ produced, for each traffic mode.
   is free, every waiting request (up to ``max_batch``) goes into one
   ``synthesize`` call.  A request's latency runs from its scheduled arrival
   to its waveform on the host; every request scheduled in the window is
-  served, after the window if need be.  Set-up runs each batch size at
-  each vocoder bucket once.
+  served, after the window if need be.  Set-up is the acoustic family's
+  ``warm``.
 - ``train``: set-up builds the train state and step and drives it through
   its first ``check_steps`` steps on distinct batches (kept for the
   check); the window goes on stepping the same state, cycling the mix's
@@ -22,7 +24,6 @@ produced, for each traffic mode.
 
 from __future__ import annotations
 
-import importlib
 import time
 from dataclasses import dataclass, field
 from typing import Optional
@@ -30,9 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..reference import fastspeech2 as ref_acoustic
-from ..reference import train as ref_train
-from . import check, program, traffic, weights
+from . import check, traffic
 
 HOST = "cpu"
 
@@ -91,73 +90,72 @@ class _Events:
         self.pending.clear()
 
 
+class _Precision:
+    """TF32 on or off for matrix products and convolutions inside the
+    block, as before it after."""
+
+    def __init__(self, tf32: bool):
+        self.tf32 = tf32
+
+    def __enter__(self):
+        self.prev = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = self.tf32
+        torch.backends.cudnn.allow_tf32 = self.tf32
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = self.prev[0]
+        torch.backends.cudnn.allow_tf32 = self.prev[1]
+
+
 # ----------------------------------------------------------------- serving
 
+@dataclass
+class Batch:
+    """Requests in one call: token ids (B, L) padded to the text bucket,
+    their lengths (B,), and the mix's sentences they carry, by which a
+    family finds inputs of its own that it drew for them."""
+
+    ids: np.ndarray
+    lens: np.ndarray
+    index: list[int]
+
+
 class Serving:
-    """The program's ``Synthesizer`` on the benchmark's weights, and the
-    reference on the same weights."""
+    """The program on the benchmark's weights, and the reference on the
+    same weights: the acoustic family's ``Serving`` (``acoustic``) and the
+    vocoder family (``vocoder``) put together."""
 
-    def __init__(self, cfg, spec, seed, device, mix):
-        self.cfg, self.spec, self.seed, self.device = cfg, spec, seed, device
-        self.a, self.v = cfg["acoustic"], cfg["vocoder"]
-        self.ref_v = importlib.import_module(
-            f"portbench.reference.{cfg['reference']['vocoder']}")
-        self.hop = self.v["hop_length"]
-        self.sr = self.v["sampling_rate"]
-        self.bias = self._calibrate(mix)
+    def __init__(self, ctx, mix):
+        cfg, spec = ctx.cfg, ctx.spec
+        self.cfg, self.spec, self.seed, self.device = cfg, spec, ctx.seed, \
+            ctx.device
+        self.mix = mix
+        self.acoustic = ctx.acoustic.Serving(cfg, spec, ctx.seed, ctx.device,
+                                             mix)
+        self.vocoder = ctx.vocoder
+        self.decisions = getattr(ctx.acoustic, "Decisions", None)
+        self.hop = cfg["vocoder"]["hop_length"]
+        self.sr = cfg["vocoder"]["sampling_rate"]
 
-    def weights(self, calibrated: bool = True):
-        """(acoustic, vocoder) weights of the seed; ``calibrated``: the
-        duration head's bias set by ``_calibrate``."""
-        a, v = self.a, self.v
-        Wa = weights.make(ref_acoustic.shapes(a), self.seed, 1, self.device)
-        name = "variance_adaptor.duration_predictor.linear_layer"
-        Wa[name + ".weight"] = Wa[name + ".weight"] * \
-            self.cfg["weights"]["duration_head_scale"]
-        if calibrated:
-            Wa[name + ".bias"] = torch.full_like(Wa[name + ".bias"],
-                                                 self.bias)
-        Wv = weights.make(self.ref_v.shapes(v), self.seed, 2, self.device,
-                          layers=v.get("n_layers", 1))
-        return Wa, Wv
-
-    @torch.inference_mode()
-    def _calibrate(self, mix) -> float:
-        """The duration head's bias: the one at which the reference's own
-        durations over the mix's phonemes total F frames a phoneme
-        (bisection on the head's output before its bias), so that every
-        seed's model speaks the same number of frames."""
-        Wa, _ = self.weights(calibrated=False)
-        ids, lens = traffic.pad(mix.sentences, [max(
-            len(s) for s in mix.sentences)])
-        ids, lens = torch.as_tensor(ids, device=self.device), \
-            torch.as_tensor(lens, device=self.device)
-        log_d, valid = ref_acoustic.log_durations(Wa, self.a, ids, lens)
-        b = float(Wa["variance_adaptor.duration_predictor.linear_layer.bias"])
-        pre = (log_d - b)[valid].double().cpu().numpy()
-        target = self.cfg["weights"]["frames_per_phoneme"] * len(pre)
-        lo, hi = -20.0, 20.0
-        for _ in range(60):
-            mid = 0.5 * (lo + hi)
-            frames = np.maximum(np.round(np.exp(pre + mid) - 1.0), 0).sum()
-            lo, hi = (mid, hi) if frames < target else (lo, mid)
-        return hi
+    def weights(self):
+        """(acoustic, vocoder) weights of the seed."""
+        return self.acoustic.weights(), self.vocoder.draw(
+            self.cfg["vocoder"], self.seed, self.device)
 
     def build(self):
-        from smart_nar_fast_tts_tpu_torch.serving import Synthesizer
         Wa, Wv = self.weights()
-        synth = Synthesizer(program.acoustic(self.cfg, Wa),
-                            program.vocoder(self.cfg, Wv), device=self.device,
-                            t_cap=self.spec["t_cap"])
-        return synth
+        return self.acoustic.build(Wa, self.vocoder.build(self.cfg["vocoder"],
+                                                          Wv))
 
-    def bins(self, pitch, energy) -> np.ndarray:
-        """(2, B, T) pitch and energy bin indices of the predictions, by the
-        configuration's quantization."""
-        st, n = self.a["stats"], self.a["variance_embedding"]["n_bins"]
-        return np.stack([check.to_host(torch.bucketize(x, ref_acoustic.bins(
-            st[f"{f}_min"], st[f"{f}_max"], n, x.device))).astype(np.int64)
-            for f, x in (("pitch", pitch), ("energy", energy))])
+    def batch(self, index) -> Batch:
+        ids, lens = traffic.pad([self.mix.sentences[i] for i in index],
+                                self.spec["text_buckets"])
+        return Batch(ids, lens, list(index))
+
+    def tally(self) -> check.ServingTally:
+        return check.ServingTally(None if self.decisions is None
+                                  else self.decisions())
 
     def cut(self, mel_lens: np.ndarray) -> int:
         """Frames the vocoder runs on: the bucket of the batch's longest
@@ -169,44 +167,23 @@ class Serving:
         return next((b for b in buckets if n <= b), buckets[-1])
 
     @torch.inference_mode()
-    def reference(self, Wa, Wv, ids, lens, items, force=None, tf32=False,
+    def reference(self, Wa, Wv, batch, items, force=None, tf32=False,
                   low=None):
         """The reference's outputs for one batch, as ``check.ServingTally``
-        takes them: ``force`` (durations (B, L), bins (2, B, T)) sets the
-        discrete decisions to the judged side's, and each item carries the
-        reference's own; ``tf32``/``low``: the control's precision."""
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
-        dev = self.device
-        try:
-            ro = ref_acoustic.forward(
-                Wa, self.a, torch.as_tensor(ids, device=dev),
-                torch.as_tensor(lens, device=dev), t_cap=self.spec["t_cap"],
-                bf16_past=self.cfg["precision"]["attention_bf16_past"],
-                low=low or torch.bfloat16,
-                force_durations=None if force is None else
-                torch.as_tensor(force[0], device=dev),
-                force_bins=None if force is None else
-                torch.as_tensor(force[1], device=dev))
-            mel_lens = check.to_host(ro.mel_lens).astype(np.int64)
+        takes them: ``force`` sets the discrete decisions to the judged
+        side's, and ``own`` carries the reference's own; ``tf32``/``low``:
+        the control's precision."""
+        with _Precision(tf32):
+            mel, mel_lens, own, used = self.acoustic.reference(
+                Wa, batch, force=force, low=low)
             cut = self.cut(mel_lens)
-            wav = check.to_host(self.ref_v.forward(Wv, self.v,
-                                                   ro.postnet_mel[:, :cut]))
-            own = check.to_host(ro.own_duration)
-            bins = check.to_host(ro.own_bins).astype(np.int64)
-            mel = check.to_host(ro.postnet_mel)
-            used = (check.to_host(ro.duration), bins if force is None
-                    else np.asarray(force[1]))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev[0]
-            torch.backends.cudnn.allow_tf32 = prev[1]
+            wav = check.to_host(self.vocoder.reference(
+                Wv, self.cfg["vocoder"], mel[:, :cut]))
+            mel = check.to_host(mel)
         return {"mel_lens": mel_lens, "cut": cut, "hop": self.hop,
-                "force": used, "own_durations": own, "lens": np.asarray(lens),
-                "items": {i: (own[i, :lens[i]], bins[:, i, :mel_lens[i]],
-                              mel[i, :mel_lens[i]],
-                              wav[i, :mel_lens[i] * self.hop])
+                "lens": np.asarray(batch.lens), "own": own, "force": used,
+                "items": {i: {"mel": mel[i, :mel_lens[i]],
+                              "wav": wav[i, :mel_lens[i] * self.hop]}
                           for i in items}}
 
 
@@ -222,45 +199,37 @@ class _Capture:
         self.out = out
 
 
-def _run_entry(synth, spec, ids, lens, tracer):
-    """One batch through the cell's entry; returns (wav on the device, the
-    vocoder's frames, mel_lens on the host)."""
-    if spec["entry"] == "synthesize":
+def _run_entry(synth, srv, batch, tracer):
+    """One batch through the cell's entry; returns (wav on the host,
+    mel_lens on the host)."""
+    if srv.spec["entry"] == "synthesize":
         with tracer.span("synthesize"):
-            wav, mel_lens = synth.synthesize(ids, lens)
+            wav, mel_lens = srv.acoustic.synthesize(synth, batch)
     else:
         with tracer.span("stage_a"):
-            out = synth.stage_a(torch.as_tensor(ids), torch.as_tensor(lens))
+            mel, mel_lens = srv.acoustic.stage_a(synth, batch)
         with tracer.span("host_sync"):
-            n = int(out.mel_lens.max())
+            n = int(mel_lens.max())
         with tracer.span("stage_b"):
-            wav = synth.stage_b(out.postnet_mel[:, :n])
-        mel_lens = out.mel_lens
+            wav = synth.stage_b(mel[:, :n])
     with tracer.span("host_copy"):
         wav_h = wav.to(HOST)
         mel_lens_h = mel_lens.to(HOST).numpy().astype(np.int64)
     return wav_h, mel_lens_h
 
 
-def _keep(capture, wav_h, mel_lens_h, lens, items, hop):
-    out = capture.out
-    return {"dur": out.duration_rounded.detach().clone(),
-            "mel": out.postnet_mel.detach().clone(),
-            "pitch": out.pitch_prediction.detach().clone(),
-            "energy": out.energy_prediction.detach().clone(),
-            "wav": wav_h, "mel_lens": mel_lens_h, "lens": lens,
-            "items": items, "hop": hop}
+def _keep(srv, capture, wav_h, mel_lens_h, items):
+    return {"acoustic": srv.acoustic.keep(capture.out), "wav": wav_h,
+            "mel_lens": mel_lens_h, "items": items}
 
 
-def _settle_kept(k, srv):
-    dur, mel = check.to_host(k["dur"]), check.to_host(k["mel"])
-    bins = srv.bins(k["pitch"], k["energy"])
+def _settle_kept(k, srv, batch):
+    mel, own = srv.acoustic.settle(k["acoustic"])
     wav = k["wav"].float().numpy()
-    ml, lens = k["mel_lens"], k["lens"]
-    return {"mel_lens": ml, "cut": wav.shape[1] // k["hop"], "hop": k["hop"],
-            "force": (dur, bins),
-            "items": {i: (dur[i, :lens[i]], bins[:, i, :ml[i]],
-                          mel[i, :ml[i]], wav[i, :ml[i] * k["hop"]])
+    ml, hop = k["mel_lens"], srv.hop
+    return {"mel_lens": ml, "cut": wav.shape[1] // hop, "hop": hop,
+            "lens": np.asarray(batch.lens), "own": own, "force": own,
+            "items": {i: {"mel": mel[i, :ml[i]], "wav": wav[i, :ml[i] * hop]}
                       for i in k["items"]}}
 
 
@@ -277,33 +246,23 @@ def _instrument(synth, tracer, events):
         setattr(synth, name, events.wrap(name, spanned))
 
 
-def _upsample_record(capture, lens):
-    out = capture.out
-    return {"B": int(out.duration_rounded.shape[0]),
-            "L": int(out.duration_rounded.shape[1]),
-            "T": int(out.mel_valid.shape[1]),
-            "durations": check.to_host(out.duration_rounded),
-            "src_lens": np.asarray(lens)}
-
-
 def serve_closed(ctx) -> Outcome:
     spec, cfg, dev = ctx.spec, ctx.cfg, ctx.device
     mix = traffic.generate(spec, ctx.seed, cfg["acoustic"]["vocab_size"])
-    srv = Serving(cfg, spec, ctx.seed, dev, mix)
+    srv = Serving(ctx, mix)
     synth = ctx.build(srv)
-    capture = _Capture(synth.model)
+    capture = _Capture(srv.acoustic.captured(synth))
     events = _Events(dev)
-    pool = [traffic.pad([mix.sentences[i] for i in b], spec["text_buckets"])
-            for b in mix.batches]
+    pool = [srv.batch(b) for b in mix.batches]
     with torch.inference_mode():
-        for ids, lens in pool:
-            _run_entry(synth, spec, ids, lens, ctx.tracer)
+        for batch in pool:
+            _run_entry(synth, srv, batch, ctx.tracer)
     _sync(dev)
     ctx.setup_done()
 
     # the cycle starts at the batch holding the longest sentence; it and the
     # next check_batches - 1 (the seed's batches) are compared
-    longest = int(np.argmax([lens.max() for _, lens in pool]))
+    longest = int(np.argmax([b.lens.max() for b in pool]))
     pool = pool[longest:] + pool[:longest]
     sample = set(range(min(spec["check_batches"], len(pool))))
     _instrument(synth, ctx.tracer, events)
@@ -312,17 +271,19 @@ def serve_closed(ctx) -> Outcome:
     with torch.inference_mode(), ctx.tracer.window():
         while time.perf_counter() - t0 < ctx.seconds:
             p = k % len(pool)
-            ids, lens = pool[p]
-            wav_h, mel_lens_h = _run_entry(synth, spec, ids, lens,
-                                           ctx.tracer)
+            batch = pool[p]
+            wav_h, mel_lens_h = _run_entry(synth, srv, batch, ctx.tracer)
             frames += int(mel_lens_h.sum())
-            items += len(lens)
+            items += len(batch.lens)
             if p in sample and p not in kept:
-                kept[p] = _keep(capture, wav_h, mel_lens_h, lens,
-                                range(len(lens)), srv.hop)
+                kept[p] = _keep(srv, capture, wav_h, mel_lens_h,
+                                range(len(batch.lens)))
             if ctx.tracer.on:
-                record.append(dict(_upsample_record(capture, lens),
-                                   mel_lens=mel_lens_h))
+                record.append(dict(srv.acoustic.record(capture.out),
+                                   B=len(batch.lens),
+                                   src_lens=np.asarray(batch.lens),
+                                   mel_lens=mel_lens_h,
+                                   vocoder_frames=wav_h.shape[1] // srv.hop))
             k += 1
         t1 = time.perf_counter()
     window = t1 - t0
@@ -334,10 +295,11 @@ def serve_closed(ctx) -> Outcome:
                   "launches": record, "audio_s": audio}
     out.peak_bytes = ctx.peak_bytes()
     capture.handle.remove()
-    got = {p: _settle_kept(v, srv) for p, v in kept.items()}
+    got = {p: (pool[p], _settle_kept(v, srv, pool[p]))
+           for p, v in kept.items()}
     del synth, capture, kept
     ctx.free()
-    _serving_check(ctx, srv, out, {p: (pool[p], got[p]) for p in got})
+    _serving_check(ctx, srv, out, got)
     return out
 
 
@@ -347,7 +309,8 @@ def _controls(cfg, spec) -> dict[str, tuple[bool, torch.dtype]]:
     parts; where the cell's frames reach the bf16 attention, fp8 for it,
     alone and with TF32."""
     out = {"tf32": (True, torch.bfloat16)}
-    if spec["t_cap"] > cfg["precision"]["attention_bf16_past"]:
+    past = cfg["precision"].get("attention_bf16_past")
+    if past is not None and spec["t_cap"] > past:
         out.update(fp8=(False, torch.float8_e4m3fn),
                    tf32_fp8=(True, torch.float8_e4m3fn))
     return out
@@ -355,17 +318,17 @@ def _controls(cfg, spec) -> dict[str, tuple[bool, torch.dtype]]:
 
 def _serving_check(ctx, srv, out, batches):
     Wa, Wv = srv.weights()
-    tally = check.ServingTally()
+    tally = srv.tally()
     controls = _controls(ctx.cfg, ctx.spec) if ctx.control else {}
-    tallies = {name: check.ServingTally() for name in controls}
-    for (ids, lens), got in batches.values():
-        tally.add(got, srv.reference(Wa, Wv, ids, lens, got["items"],
+    tallies = {name: srv.tally() for name in controls}
+    for batch, got in batches.values():
+        tally.add(got, srv.reference(Wa, Wv, batch, got["items"],
                                      force=got["force"]))
         for name, (tf32, low) in controls.items():
-            ctl = srv.reference(Wa, Wv, ids, lens, got["items"], tf32=tf32,
+            ctl = srv.reference(Wa, Wv, batch, got["items"], tf32=tf32,
                                 low=low)
             tallies[name].add(ctl, srv.reference(
-                Wa, Wv, ids, lens, got["items"], force=ctl["force"]))
+                Wa, Wv, batch, got["items"], force=ctl["force"]))
     out.numbers = tally.numbers()
     out.record["compared_items"] = tally.compared
     if ctx.control:
@@ -376,19 +339,12 @@ def serve_open(ctx) -> Outcome:
     spec, cfg, dev = ctx.spec, ctx.cfg, ctx.device
     mix = traffic.generate(spec, ctx.seed, cfg["acoustic"]["vocab_size"],
                            seconds=ctx.seconds, rate=ctx.rate)
-    srv = Serving(cfg, spec, ctx.seed, dev, mix)
+    srv = Serving(ctx, mix)
     synth = ctx.build(srv)
-    capture = _Capture(synth.model)
+    capture = _Capture(srv.acoustic.captured(synth))
     events = _Events(dev)
-    n_mels = cfg["acoustic"]["n_mel_channels"]
-    L = max(spec["text_buckets"])
     with torch.inference_mode():
-        for b in range(1, spec["max_batch"] + 1):
-            ids = np.ones((b, L), dtype=np.int64)
-            synth.stage_a(torch.as_tensor(ids),
-                          torch.full((b,), L, dtype=torch.long))
-            for t in spec["vocoder_buckets"]:
-                synth.stage_b(torch.zeros((b, t, n_mels), device=dev))
+        srv.acoustic.warm(synth)
     _sync(dev)
     ctx.setup_done()
 
@@ -416,20 +372,17 @@ def serve_open(ctx) -> Outcome:
                    and arrivals[nxt + len(take)] <= now):
                 take.append(nxt + len(take))
             nxt += len(take)
-            ids, lens = traffic.pad(
-                [mix.sentences[mix.request_sentence[r]] for r in take],
-                spec["text_buckets"])
+            batch = srv.batch([mix.request_sentence[r] for r in take])
             s = time.perf_counter()
-            wav_h, mel_lens_h = _run_entry(synth, spec, ids, lens,
-                                           ctx.tracer)
+            wav_h, mel_lens_h = _run_entry(synth, srv, batch, ctx.tracer)
             e = time.perf_counter()
             done[take] = e - t0
             fills.append(len(take))
             service.append(e - s)
             mine = [i for i, r in enumerate(take) if r in sample]
             if mine:
-                kept[take[0]] = ((ids, lens), _keep(
-                    capture, wav_h, mel_lens_h, lens, mine, srv.hop))
+                kept[take[0]] = (batch, _keep(srv, capture, wav_h,
+                                              mel_lens_h, mine))
         t1 = time.perf_counter()
     events.settle()
     latency = done - arrivals
@@ -446,7 +399,7 @@ def serve_open(ctx) -> Outcome:
                                           / np.mean(lat[:n // 4 or 1]))}
     out.peak_bytes = ctx.peak_bytes()
     capture.handle.remove()
-    got = {r: (b, _settle_kept(v, srv)) for r, (b, v) in kept.items()}
+    got = {r: (b, _settle_kept(v, srv, b)) for r, (b, v) in kept.items()}
     del synth, capture, kept
     ctx.free()
     _serving_check(ctx, srv, out, got)
@@ -455,81 +408,46 @@ def serve_open(ctx) -> Outcome:
 
 # ---------------------------------------------------------------- training
 
-def _train_batches(spec, mix, seed, device, n_mels):
-    """The mix's batches on the device: token ids padded to the text
-    bucket, frames about ``frames_per_phoneme`` a phoneme (a fixed set of
-    jitters in the seed's order) up to ``mel_pad``, and normal mel, pitch
-    and energy targets drawn on the device."""
-    g = torch.Generator(device=device).manual_seed(traffic.sub_seed(seed, 5))
-    rng = np.random.default_rng(traffic.sub_seed(seed, 6))
-    n = len(mix.sentences)
-    jit = spec["frames_jitter"] * (2.0 * (np.arange(n) + 0.5) / n - 1.0)
-    jit = jit[rng.permutation(n)]
-    T = spec["mel_pad"]
-    out = []
-    for b in mix.batches:
-        ids, lens = traffic.pad([mix.sentences[i] for i in b],
-                                spec["text_buckets"])
-        mel_lens = np.minimum(T, np.rint(lens * spec["frames_per_phoneme"]
-                                         * (1.0 + jit[b])).astype(np.int64))
-        B = len(b)
-        out.append({
-            "texts": torch.as_tensor(ids, device=device),
-            "src_lens": torch.as_tensor(lens, device=device),
-            "mels": torch.randn((B, T, n_mels), generator=g, device=device)
-            * 2.0 - 5.0,
-            "mel_lens": torch.as_tensor(mel_lens, device=device),
-            "pitch": torch.randn((B, T), generator=g, device=device),
-            "energy": torch.randn((B, T), generator=g, device=device),
-            "src_np": lens, "mel_np": mel_lens})
-    return out
-
-
 def train(ctx) -> Outcome:
-    from smart_nar_fast_tts_tpu_torch.config import OptimizerConfig
-    from smart_nar_fast_tts_tpu_torch.data.batch import Batch
-    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss
-    from smart_nar_fast_tts_tpu_torch.training import (create_train_state,
-                                                       make_train_step)
+    """The acoustic family's ``Training`` gives the batches (``feed`` for
+    the step, ``records`` of their shapes and valid lengths on the host),
+    the weights (``initial``), the port's model, state and step
+    (``build``), what the port decides in the first steps (``decisions``,
+    a context over the model that fills a dict), the reference's first
+    steps given those decisions (``reference``) and numbers of its own
+    (``numbers``)."""
     spec, cfg, dev = ctx.spec, ctx.cfg, ctx.device
-    a, o = cfg["acoustic"], cfg["optimizer"]
-    mix = traffic.generate(spec, ctx.seed, a["vocab_size"])
-    batches = _train_batches(spec, mix, ctx.seed, dev, a["n_mel_channels"])
-    feed = [Batch(b["texts"], b["src_lens"], b["mels"], b["mel_lens"],
-                  b["pitch"], b["energy"]) for b in batches]
-    shapes = ref_acoustic.shapes(a)
+    o = cfg["optimizer"]
+    mix = traffic.generate(spec, ctx.seed, cfg["acoustic"]["vocab_size"])
+    fam = ctx.acoustic.Training(cfg, spec, ctx.seed, dev, mix)
+    feed, n_batches = fam.feed, len(fam.feed)
     gen_seed = traffic.sub_seed(ctx.seed, 7)
 
-    def initial():
-        return weights.make(shapes, ctx.seed, 1, dev)
-
-    model = ctx.build_acoustic(initial())
-    state = create_train_state(model, OptimizerConfig(
-        betas=tuple(o["betas"]), eps=o["eps"],
-        weight_decay=o["weight_decay"],
-        grad_clip_thresh=o["grad_clip_thresh"],
-        warm_up_step=o["warm_up_step"]), device=dev)
-    step = ctx.make_step(make_train_step(FastSpeech2Loss(
-        program.preprocess_config(cfg))))
+    model, state, step = fam.build(fam.initial())
+    step = ctx.make_step(step)
     gen = torch.Generator(device=dev).manual_seed(gen_seed)
     names = [n for n, _ in model.named_parameters()]
     steps = spec["check_steps"]
     losses = []
-    for s in range(steps):
-        losses.append(torch.stack(list(step(state, feed[s], gen))))
-        if s == 0:
-            beta1 = o["betas"][0]
-            first = torch.stack([
-                torch.linalg.vector_norm(state.optimizer.state[p]["exp_avg"])
-                if p in state.optimizer.state else torch.zeros((), device=dev)
-                for p in state.params]) / (1.0 - beta1)
-    W0 = initial()
+    with fam.decisions(model) as taken:
+        for s in range(steps):
+            losses.append(torch.stack(list(step(state, feed[s], gen))))
+            if s == 0:
+                beta1 = o["betas"][0]
+                first = torch.stack([
+                    torch.linalg.vector_norm(
+                        state.optimizer.state[p]["exp_avg"])
+                    if p in state.optimizer.state
+                    else torch.zeros((), device=dev)
+                    for p in state.params]) / (1.0 - beta1)
+    W0 = fam.initial()
     change = torch.stack([torch.linalg.vector_norm(p.detach() - W0[n])
                           for n, p in model.named_parameters()])
     del W0
     got = {"losses": check.to_host(torch.stack(losses)).tolist(),
            "grad": dict(zip(names, check.to_host(first).tolist())),
-           "change": dict(zip(names, check.to_host(change).tolist()))}
+           "change": dict(zip(names, check.to_host(change).tolist())),
+           **taken}
     _sync(dev)
     ctx.setup_done()
 
@@ -539,17 +457,13 @@ def train(ctx) -> Outcome:
     t0 = time.perf_counter()
     with ctx.tracer.window():
         while time.perf_counter() - t0 < ctx.seconds:
-            b = batches[k % len(batches)]
+            rec = fam.records[k % n_batches]
             with ctx.tracer.span("step"):
-                lb = timed(state, feed[k % len(batches)], gen)
-            window_losses.append(lb.total)
-            frames += int(b["mel_np"].sum())
+                lb = timed(state, feed[k % n_batches], gen)
+            window_losses.append(lb[0])
+            frames += int(rec["mel_lens"].sum())
             if ctx.tracer.on:
-                record.append({"src_lens": b["src_np"],
-                               "mel_lens": b["mel_np"],
-                               "B": len(b["src_np"]),
-                               "L": int(b["texts"].shape[1]),
-                               "T": int(b["mels"].shape[1])})
+                record.append(rec)
             k += 1
         _sync(dev)
         t1 = time.perf_counter()
@@ -564,23 +478,17 @@ def train(ctx) -> Outcome:
     out.record = {"steps": n_steps, "window_s": window, "events": events,
                   "launches": record, "audio_s": audio}
     out.peak_bytes = ctx.peak_bytes()
-    del state, model, step, feed
+    del state, model, step
     ctx.free()
 
-    ref = ref_train.run(initial(), cfg, batches[:steps], gen_seed, steps)
-    out.numbers = check.training_numbers(got, ref)
+    ref = fam.reference(fam.initial(), steps, gen_seed, got)
+    out.numbers = check.training_numbers(got, ref, fam)
     if ctx.control:
-        prev = (torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            ctl = ref_train.run(initial(), cfg, batches[:steps], gen_seed,
-                                steps)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev[0]
-            torch.backends.cudnn.allow_tf32 = prev[1]
-        out.control = {"tf32": check.training_numbers(ctl, ref)}
+        with _Precision(True):
+            ctl = fam.reference(fam.initial(), steps, gen_seed)
+        # the reference given the control's decisions, as the program's
+        ref = fam.reference(fam.initial(), steps, gen_seed, ctl)
+        out.control = {"tf32": check.training_numbers(ctl, ref, fam)}
     return out
 
 

@@ -67,3 +67,19 @@ def alignment_seconds(B, H, T, L, D, src_lens, mel_lens):
                     + float(t.sum()) + B) + float(keys.sum()) + 8 * B
     ops = 3 * 4 * H * D * float(np.sum(t * keys))
     return max(bytes_ / HBM_BYTES_S, ops / TF32_FLOPS)
+
+
+def resblock_seconds(B, convs) -> float:
+    """Least time of a forward's resblock convolutions at B items, each
+    conv (n samples, C channels, k taps, reads: the (B, C, n) tensors it
+    reads besides its input) as the vocoder's family lists them: its
+    input and output once, what it reads besides, and its weights once;
+    3·2·B·n·C·C·k operations in 3xTF32 (three TF32 products each), the
+    float32-accurate route on tensor cores (on the CUDA cores alone, at
+    67 TFLOP/s, the least time is longer still)."""
+    total = 0.0
+    for n, c, k, reads in convs:
+        bytes_ = F32 * (B * n * c * (2 + reads) + c * c * k + c)
+        ops = 3 * 2 * B * n * c * c * k
+        total += max(bytes_ / HBM_BYTES_S, ops / TF32_FLOPS)
+    return total

@@ -35,7 +35,11 @@ def load(name: str) -> dict:
 
 
 def sub_seed(seed: int, tag: int) -> int:
-    """A 63-bit seed for stream ``tag`` of run seed ``seed``."""
+    """A 63-bit seed for stream ``tag`` of run seed ``seed``.  The harness
+    takes 0 (the mix), 1 and 2 (the weights, ``weights.ACOUSTIC`` and
+    ``VOCODER``), 3 (the open mix's compared requests) and 7 (the train
+    step's generator); a family draws inputs of its own from other tags,
+    which its file names."""
     return (int(seed) * 6364136223846793005 + 1442695040888963407 * (tag + 1)
             ) % (1 << 63)
 

@@ -17,6 +17,9 @@ import torch
 
 from .traffic import sub_seed
 
+# the streams of the two models' draws (``traffic.sub_seed`` tags)
+ACOUSTIC, VOCODER = 1, 2
+
 
 def _kind(name: str, shape, shapes) -> str:
     if name.endswith("running_mean"):
@@ -65,3 +68,14 @@ def make(shapes: dict[str, tuple], seed: int, tag: int, device,
             out[name] = (torch.ones if kind == "ones" else torch.zeros)(
                 shape, device=device)
     return out
+
+
+def module(build, W: dict[str, torch.Tensor]) -> torch.nn.Module:
+    """The module ``build()`` makes, made on the weights' device and
+    loaded with ``W``."""
+    dev = next(iter(W.values())).device
+    with torch.device(dev):
+        model = build()
+    model.to(dev)
+    model.load_state_dict(W, strict=True)
+    return model

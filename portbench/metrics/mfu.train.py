@@ -1,10 +1,10 @@
 """The whole step's share of the card's peak, in %: the forward and
 backward FLOPs that the traced window's steps need at each item's valid
-lengths (``flops.acoustic_train``, from the configuration alone) per second
-of the window, over ``roofline.MFU_PEAK``.  Moves
+lengths (the acoustic family's ``train_flops``, from the configuration
+alone) per second of the window, over ``roofline.MFU_PEAK``.  Moves
 ``train_audio_s_per_s``."""
 
-from portbench.harness import flops, roofline
+from portbench.harness import roofline
 
 
 def read(run):
@@ -12,6 +12,6 @@ def read(run):
     if not steps or run.trace.window_s <= 0:
         return None
     a = run.cfg["acoustic"]
-    total = sum(flops.acoustic_train(a, int(L), int(T))
+    total = sum(run.acoustic.train_flops(a, int(L), int(T))
                 for x in steps for L, T in zip(x["src_lens"], x["mel_lens"]))
     return 100.0 * total / run.trace.window_s / roofline.MFU_PEAK

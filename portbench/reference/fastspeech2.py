@@ -259,12 +259,13 @@ class Output(NamedTuple):
     guided: Optional[torch.Tensor] = None
     own_duration: Optional[torch.Tensor] = None   # before any forcing
     own_bins: Optional[torch.Tensor] = None       # (2, B, T) pitch, energy
+    own_targets: Optional[torch.Tensor] = None    # training, before forcing
 
 
 def forward(W, cfg, texts, src_lens, t_cap=None, bf16_past=2048,
             mels=None, mel_lens=None, pitch=None, energy=None, gen=None,
             train=False, low=torch.bfloat16, force_durations=None,
-            force_bins=None):
+            force_bins=None, force_targets=None):
     """Inference at the frame capacity ``t_cap`` (predicted durations), or
     the training forward (``mels`` etc. given: aligned durations,
     ground-truth pitch and energy, BatchNorm on the batch).  ``low`` is
@@ -274,7 +275,10 @@ def forward(W, cfg, texts, src_lens, t_cap=None, bf16_past=2048,
     discrete decisions of inference (each phoneme's frames, each frame's
     pitch and energy bin) to those of the side being judged; the output
     still gives the reference's own decisions (``own_duration``,
-    ``own_bins``), taken from its own predictions at each step."""
+    ``own_bins``), taken from its own predictions at each step.  In
+    training, ``force_targets`` (B, L) forces the aligned durations (each
+    frame's phoneme, by the aligner's argmax) the same way, and
+    ``own_targets`` gives the reference's own."""
     tr, vp = cfg["transformer"], cfg["variance_predictor"]
     stats, n_bins = cfg["stats"], cfg["variance_embedding"]["n_bins"]
     dev = texts.device
@@ -285,7 +289,7 @@ def forward(W, cfg, texts, src_lens, t_cap=None, bf16_past=2048,
     x = stack(W, "txt_encoder", x, src_valid, src_cap, tr["encoder_layer"],
               tr["encoder_head"], tr["encoder_dropout"], gen, bf16_past, low)
 
-    d_targets = guided = None
+    d_targets = guided = own_targets = None
     if mels is not None:
         T = mels.shape[1]
         frames = torch.arange(T, device=dev)
@@ -307,7 +311,9 @@ def forward(W, cfg, texts, src_lens, t_cap=None, bf16_past=2048,
         guided = torch.stack(nums)
         onehot = idx[..., None] == torch.arange(L, device=dev)
         counts = (onehot & mel_valid[..., None]).sum(dim=1)
-        d_targets = torch.where(src_valid, counts, 0).to(torch.int32)
+        own_targets = torch.where(src_valid, counts, 0).to(torch.int32)
+        d_targets = own_targets if force_targets is None else \
+            force_targets.to(own_targets)
         max_len = T
     else:
         max_len = t_cap
@@ -350,7 +356,7 @@ def forward(W, cfg, texts, src_lens, t_cap=None, bf16_past=2048,
     post = postnet(W, rows(mel_cap, mel), mel_cap, gen, train) + mel
     return Output(mel, post, preds["pitch"], preds["energy"], log_d,
                   duration, mel_lens, mel_valid, src_valid, d_targets,
-                  guided, own_duration, torch.stack(own))
+                  guided, own_duration, torch.stack(own), own_targets)
 
 
 def masked_mean(x, valid):

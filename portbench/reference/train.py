@@ -3,7 +3,8 @@ and loss of ``fastspeech2``, the gradient of the total, clipping by the
 global norm at ``grad_clip_thresh`` (left alone below it, else scaled to
 it), then AdamW at the Noam rate ``d^-½·min(s^-½, s·warmup^-1.5)`` of
 1-based step s.  Dropout masks come from one generator seeded as the
-program's.
+program's.  ``force`` gives each step's aligned durations of the side
+being judged, which the reference then follows (its own are returned).
 """
 
 from __future__ import annotations
@@ -26,12 +27,13 @@ def readings(params: dict, opt, beta1: float) -> dict[str, float]:
             for n, p in params.items()}
 
 
-def run(W0: dict, cfg: dict, batches: list, gen_seed: int, steps: int
-        ) -> dict:
+def run(W0: dict, cfg: dict, batches: list, gen_seed: int, steps: int,
+        force: list | None = None) -> dict:
     """``steps`` updates from weights ``W0`` on ``batches`` (each a dict of
     texts, src_lens, mels, mel_lens, pitch, energy on the device).
     Returns the loss terms of each step, each leaf's first gradient norm,
-    and each leaf's change ‖p_steps − p_0‖."""
+    each leaf's change ‖p_steps − p_0‖, and each step's own aligned
+    durations (``targets``, before any ``force``)."""
     a, o = cfg["acoustic"], cfg["optimizer"]
     dev = next(iter(W0.values())).device
     params = {n: t.detach().clone().requires_grad_()
@@ -42,7 +44,7 @@ def run(W0: dict, cfg: dict, batches: list, gen_seed: int, steps: int
                             betas=tuple(o["betas"]), eps=o["eps"],
                             weight_decay=o["weight_decay"])
     gen = torch.Generator(device=dev).manual_seed(gen_seed)
-    losses, first = [], None
+    losses, first, targets = [], None, []
     for s in range(steps):
         b = batches[s]
         for p in params.values():
@@ -50,7 +52,9 @@ def run(W0: dict, cfg: dict, batches: list, gen_seed: int, steps: int
         out = fs2.forward({**params, **stats}, a, b["texts"], b["src_lens"],
                           mels=b["mels"], mel_lens=b["mel_lens"],
                           pitch=b["pitch"], energy=b["energy"], gen=gen,
-                          train=True)
+                          train=True,
+                          force_targets=None if force is None else force[s])
+        targets.append(out.own_targets)
         terms = fs2.loss(out, b["src_lens"], b["mels"], b["pitch"],
                          b["energy"])
         terms[0].backward()
@@ -71,4 +75,5 @@ def run(W0: dict, cfg: dict, batches: list, gen_seed: int, steps: int
             first = readings(params, opt, o["betas"][0])
     change = {n: float(torch.linalg.vector_norm(p.detach() - W0[n]))
               for n, p in params.items()}
-    return {"losses": losses, "grad": first, "change": change}
+    return {"losses": losses, "grad": first, "change": change,
+            "targets": targets}

@@ -2,8 +2,9 @@
 small sizes, its look for a card skipped, with the timed path broken
 underneath, reads ``correct`` false; unbroken, true.  One case for each
 fault a cell can have: an answer altered where it is produced, half of the
-batch left out; for training also a step that leaves its state unchanged
-and half of the batch left out with the mean taken over the rest.  (One
+batch left out; for training also a step that leaves its state unchanged,
+half of the batch left out with the mean taken over the rest, and the
+aligner's duration targets altered where the model produces them.  (One
 card: no exchange between cards to leave out.)"""
 
 import pytest
@@ -70,7 +71,32 @@ def _half_batch(step):
     return broken
 
 
-@pytest.mark.parametrize("fault", [_unchanged, _half_batch])
+def _targets_altered(step):
+    """Each item's first phoneme takes one frame more in the aligner's
+    duration targets, before the variance adaptor reads them: the step
+    trains on the altered targets and returns them."""
+    def alter(_module, _args, kwargs):
+        kwargs["duration_target"][:, 0] += 1
+
+    def broken(state, batch, gen=None):
+        hook = state.model.variance_adaptor.register_forward_pre_hook(
+            alter, with_kwargs=True)
+        try:
+            return step(state, batch, gen)
+        finally:
+            hook.remove()
+    return broken
+
+
+@pytest.mark.parametrize("fault", [_unchanged, _half_batch, _targets_altered])
 def test_training_fault_incorrect(fault):
     r = tiny.run("fs2_hifigan_v1.train", wrap_step=fault)
     assert r["correct"] is False
+
+
+def test_altered_targets_fail_on_their_own_number():
+    """The reference follows the program's duration targets, so the loss
+    agrees and ``target_mismatch`` sees them altered."""
+    c = tiny.run("fs2_hifigan_v1.train", wrap_step=_targets_altered)["checks"]
+    assert c["target_mismatch"]["value"] > c["target_mismatch"]["limit"]
+    assert c["loss_gap"]["value"] <= c["loss_gap"]["limit"]

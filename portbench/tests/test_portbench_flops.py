@@ -1,13 +1,15 @@
-"""The FLOP formulas against ``FlopCounterMode`` on the plain reference, at
-small unpadded sizes."""
+"""The families' FLOP formulas against ``FlopCounterMode`` on their plain
+references, at small unpadded sizes."""
 
 import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from portbench.tests import tiny
-from portbench.harness import flops, weights
+from portbench.harness import families, weights
 from portbench.reference import fastspeech2, hifigan, vocos
+
+FS2 = families.load("fastspeech2")
 
 
 @pytest.mark.parametrize("name", ["fs2_hifigan_v1", "fastspeech_vocos"])
@@ -25,7 +27,7 @@ def test_acoustic_flops(name):
         with FlopCounterMode(display=False) as fc:
             out = fastspeech2.forward(W, a, texts, lens, t_cap=T)
     assert int(out.mel_lens[0]) == T
-    assert fc.get_total_flops() == flops.acoustic_forward(a, L, T)
+    assert fc.get_total_flops() == FS2.forward_flops(a, L, T)
 
     T = 30
     Wg = {k: v.clone().requires_grad_(not k.endswith(("running_mean",
@@ -40,17 +42,19 @@ def test_acoustic_flops(name):
                                   gen=torch.Generator().manual_seed(0), **b)
         fastspeech2.loss(out, lens, b["mels"], b["pitch"],
                          b["energy"])[0].backward()
-    assert fc.get_total_flops() == flops.acoustic_train(a, L, T)
+    assert fc.get_total_flops() == FS2.train_flops(a, L, T)
 
 
 @pytest.mark.parametrize("name,ref", [("fs2_hifigan_v1", hifigan),
                                       ("fastspeech_vocos", vocos)])
 def test_vocoder_flops(name, ref):
-    v = tiny.config(name)["vocoder"]
+    cfg = tiny.config(name)
+    v = cfg["vocoder"]
     W = weights.make(ref.shapes(v), 3, 2, "cpu")
     with torch.no_grad(), FlopCounterMode(display=False) as fc:
         ref.forward(W, v, torch.randn(1, 17, v["n_mels"]))
-    assert fc.get_total_flops() == flops.vocoder(v, 17)
+    family = families.load(cfg["reference"]["vocoder"])
+    assert fc.get_total_flops() == family.forward_flops(v, 17)
 
 
 def test_published_widths_count():
@@ -58,5 +62,7 @@ def test_published_widths_count():
     MFLOP a frame (the port's records), Vocos about 25."""
     v1 = tiny.cell.load_config("fs2_hifigan_v1")["vocoder"]
     vc = tiny.cell.load_config("fastspeech_vocos")["vocoder"]
-    assert 550e6 < flops.vocoder(v1, 1000) / 1000 < 700e6
-    assert 20e6 < flops.vocoder(vc, 1000) / 1000 < 30e6
+    count = {name: families.load(name).forward_flops
+             for name in ("hifigan", "vocos")}
+    assert 550e6 < count["hifigan"](v1, 1000) / 1000 < 700e6
+    assert 20e6 < count["vocos"](vc, 1000) / 1000 < 30e6

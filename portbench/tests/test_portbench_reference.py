@@ -8,8 +8,10 @@ import pytest
 import torch
 
 from portbench.tests import tiny
-from portbench.harness import program, weights
+from portbench.harness import families, weights
 from portbench.reference import fastspeech2, hifigan, train, vocos
+
+FS2 = families.load("fastspeech2")
 
 
 @pytest.mark.parametrize("name,ref", [("fs2_hifigan_v1", hifigan),
@@ -20,12 +22,13 @@ def test_inference(name, ref):
     shapes = fastspeech2.shapes(a)
     W = weights.make(shapes, 7, 1, "cpu")
     W["variance_adaptor.duration_predictor.linear_layer.bias"] += 1.4
-    model = program.acoustic(cfg, W).eval()
+    model = FS2.build(cfg, W).eval()
     assert {k: tuple(v.shape) for k, v in model.state_dict().items()} \
         == shapes
     Wv = weights.make(ref.shapes(cfg["vocoder"]), 7, 2, "cpu",
                       layers=cfg["vocoder"].get("n_layers", 1))
-    voc = program.vocoder(cfg, Wv).eval()
+    voc = families.load(cfg["reference"]["vocoder"]).build(
+        cfg["vocoder"], Wv).eval()
     g = torch.Generator().manual_seed(0)
     texts = torch.randint(1, 361, (3, 20), generator=g)
     lens = torch.tensor([20, 13, 7])
@@ -52,15 +55,7 @@ def test_bf16_attention_rounds_where_configured():
     assert 1e-4 < gap < 5e-2
 
 
-def test_three_training_steps():
-    from smart_nar_fast_tts_tpu_torch.config import OptimizerConfig
-    from smart_nar_fast_tts_tpu_torch.data.batch import Batch
-    from smart_nar_fast_tts_tpu_torch.models import FastSpeech2Loss
-    from smart_nar_fast_tts_tpu_torch.training import (create_train_state,
-                                                       make_train_step)
-    cfg = tiny.config("fs2_hifigan_v1")
-    a, o = cfg["acoustic"], cfg["optimizer"]
-    shapes = fastspeech2.shapes(a)
+def _train_batches():
     g = torch.Generator().manual_seed(3)
     batches = []
     for _ in range(3):
@@ -72,22 +67,41 @@ def test_three_training_steps():
             mels=torch.randn(3, 48, 80, generator=g), mel_lens=ml,
             pitch=torch.randn(3, 48, generator=g),
             energy=torch.randn(3, 48, generator=g)))
-    model = program.acoustic(cfg, weights.make(shapes, 11, 1, "cpu"))
-    state = create_train_state(model, OptimizerConfig(
-        betas=tuple(o["betas"]), eps=o["eps"],
-        weight_decay=o["weight_decay"],
-        grad_clip_thresh=o["grad_clip_thresh"],
-        warm_up_step=o["warm_up_step"]), device="cpu")
-    step = make_train_step(FastSpeech2Loss(program.preprocess_config(cfg)))
+    return batches
+
+
+def test_three_training_steps():
+    cfg = tiny.config("fs2_hifigan_v1")
+    a = cfg["acoustic"]
+    shapes = fastspeech2.shapes(a)
+    batches = _train_batches()
+    model, state, step = FS2.train_program(
+        cfg, weights.make(shapes, 11, 1, "cpu"), "cpu")
     gen = torch.Generator().manual_seed(99)
     losses = []
     for b in batches:
-        losses.append([float(x) for x in step(state, Batch(
-            b["texts"], b["src_lens"], b["mels"], b["mel_lens"], b["pitch"],
-            b["energy"]), gen)])
+        losses.append([float(x) for x in step(state, FS2.feed(b), gen)])
     W0 = weights.make(shapes, 11, 1, "cpu")
     change = {n: float(torch.linalg.vector_norm(p.detach() - W0[n]))
               for n, p in model.named_parameters()}
     ref = train.run(W0, cfg, batches, 99, 3)
     assert np.abs(np.array(losses) - np.array(ref["losses"])).max() < 1e-5
     assert max(abs(change[n] - ref["change"][n]) for n in change) < 1e-5
+
+
+def test_training_reference_follows_forced_targets():
+    """Forced to its own duration targets the reference runs as it does
+    alone; forced to others it trains on them and still reports its own."""
+    cfg = tiny.config("fs2_hifigan_v1")
+    W0 = weights.make(fastspeech2.shapes(cfg["acoustic"]), 11, 1, "cpu")
+    batches = _train_batches()
+    alone = train.run(W0, cfg, batches, 99, 3)
+    same = train.run(W0, cfg, batches, 99, 3, alone["targets"])
+    assert same["losses"] == alone["losses"]
+    assert same["change"] == alone["change"]
+    other = [t.clone() for t in alone["targets"]]
+    for t in other:
+        t[:, 0] += 1
+    moved = train.run(W0, cfg, batches, 99, 3, other)
+    assert torch.equal(moved["targets"][0], alone["targets"][0])
+    assert moved["losses"][0][5] != alone["losses"][0][5]

@@ -10,7 +10,7 @@ REPO = ROOT.parent
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-from portbench.harness import cell, traffic  # noqa: E402
+from portbench.harness import cell, families, traffic  # noqa: E402
 
 CELLS = {"fs2_hifigan_v1.batch": ("fs2_hifigan_v1", "batch"),
          "fastspeech_vocos.longform": ("fastspeech_vocos", "longform"),
@@ -19,17 +19,11 @@ CELLS = {"fs2_hifigan_v1.batch": ("fs2_hifigan_v1", "batch"),
 
 
 def config(name: str) -> dict:
-    """The configuration at small widths and depths."""
+    """The configuration at its families' small widths and depths."""
     cfg = json.loads((ROOT / "configs" / f"{name}.json").read_text())
-    cfg["acoustic"]["transformer"].update(
-        encoder_layer=1, decoder_layer=2, encoder_hidden=32,
-        decoder_hidden=32, conv_filter_size=64)
-    cfg["acoustic"]["variance_predictor"]["filter_size"] = 32
-    v = cfg["vocoder"]
-    if v["family"] == "hifigan":
-        v["upsample_initial_channel"] = 32
-    else:
-        v.update(dim=32, intermediate=48, n_layers=2)
+    acoustic, vocoder = families.of(cfg)
+    acoustic.tiny(cfg["acoustic"])
+    vocoder.tiny(cfg["vocoder"])
     return cfg
 
 
